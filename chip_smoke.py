@@ -2,14 +2,22 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
 Builds the CUDA kernel library from ``src/repro_torch/kernels/csrc`` and
-drives the port's main path on one GPU, in four phases:
+drives the port's main paths on one GPU, in five phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it, with CUDA-event times and bounds;
+   at the shapes the main paths give it, with CUDA-event times and bounds;
 2. ``job``      — the paper's post-hoc measure on a 1024-task x 65,536-record
    Hadoop job (``VetEngine("cuda").vet_batch`` and ``vet_job``);
 3. ``fleet_fused``  — a 4096-stream ``VetMux`` on the fused window-vet path;
-4. ``fleet_gather`` — a 1024-stream ``VetMux`` on the bucketed gather path.
+4. ``fleet_gather`` — a 1024-stream ``VetMux`` on the bucketed gather path;
+5. ``serve``    — ``repro_torch.launch.serve.serve`` on full-width
+   mamba2-130m (batch 4, 512-token prompts, 331 generated tokens): the SSD
+   kernel in every layer's prefill, the decode loop and its live vet
+   dashboard.  Prefill logits through the kernel are held against the plain
+   SSD path on the same card and weights (|kernel - plain| <= 1e-3 of the
+   largest logit), the greedy tokens of the first decode steps must be
+   equal, and the reduced config's prefill on the card is held against the
+   same weights on the CPU.
 
 Every engine result is held against the ``torch`` backend (the plain path)
 on the card under the near-tie contract: where the change-point agrees,
@@ -45,7 +53,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 RTOL = 1e-5  # vet/ei/oc/pr where the cut agrees
 GAP = 1e-4  # relative SSE gap allowed between two near-tie cuts
-PHASES = ("kernels", "job", "fleet_fused", "fleet_gather")
+PHASES = ("kernels", "job", "fleet_fused", "fleet_gather", "serve")
+SSD_RTOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py TestSSD
+LOGIT_TOL = 1e-3  # serve: kernel vs plain prefill logits, of the largest
 
 
 class SmokeError(RuntimeError):
@@ -208,7 +218,7 @@ def phase_kernels(card: str, device: str = "cuda") -> dict:
     from repro_torch.kernels import runtime
 
     out = {"phase": "kernels", "card": card, "changepoint": [],
-           "windowvet": []}
+           "windowvet": [], "ssd": []}
     dev = torch.device(device)
     lib = runtime.load_library()
 
@@ -296,20 +306,106 @@ def phase_kernels(card: str, device: str = "cuda") -> dict:
             "case": name, "rows": int(rows), "lmax": lmax, **summary,
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by})
+
+    out["ssd"] = ssd_cases(dev, lib, stream_ptr)
     return out
+
+
+def ssd_inputs(b, t, h, p, n, dtype, dev, seed=0):
+    """TestSSD's inputs (tests/test_kernels.py), made with numpy: x, b, c
+    normal; dt softplus(normal); A_log = log(linspace(1, 8, H)); D ones."""
+    import torch
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    x = f(rng.standard_normal((b, t, h, p))).to(dtype)
+    dt = torch.nn.functional.softplus(f(rng.standard_normal((b, t, h))))
+    a_log = torch.log(torch.linspace(1.0, 8.0, h, device=dev))
+    bb = f(rng.standard_normal((b, t, n))).to(dtype)
+    cc = f(rng.standard_normal((b, t, n))).to(dtype)
+    return x, dt, a_log, bb, cc, torch.ones(h, device=dev)
+
+
+def ssd_flops(b, t, h, p, n, chunk) -> float:
+    """f32 operations the chunked SSD needs: C B^T once per (batch, chunk)
+    (shared by the heads), the intra-chunk scores X over the lower triangle,
+    C h^T and the state update per (batch, head, chunk)."""
+    nc = t // chunk
+    cb = 2.0 * chunk * chunk * n * b * nc
+    per_head = chunk * (chunk + 1) * p + 4.0 * chunk * p * n
+    return cb + per_head * b * h * nc
+
+
+def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128)) -> list:
+    """SSD kernel against its plain version at the serve shape (B=4, T=512,
+    H=24, P=64, N=128): f32 and bf16 at chunk 64, and chunk 32 against
+    chunk 64 in f32; elementwise |a - b| <= rtol + rtol |b|."""
+    import torch
+    from repro_torch.kernels.ssd import ops as sd
+    from repro_torch.kernels.ssd.ref import ssd_scan_plain
+
+    rows = []
+    ref64 = None
+    for dtype, chunk in ((torch.float32, 64), (torch.bfloat16, 64),
+                         (torch.float32, 32)):
+        name = str(dtype).split(".")[-1]
+        tol = SSD_RTOL[name]
+        x, dt, a_log, bb, cc, d = ssd_inputs(*shape, dtype, dev)
+        a_neg = -torch.exp(a_log)
+        y_k = sd.ssd_scan(x, dt, a_neg, bb, cc, d, chunk=chunk)
+        if chunk == 32:  # state carried across chunks: 32 against 64
+            y_p, against = ref64, "kernel chunk 64"
+        else:
+            y_p, against = ssd_scan_plain(x, dt, a_neg, bb, cc, d,
+                                          chunk=chunk), "plain"
+        torch.cuda.synchronize()
+        if dtype == torch.float32 and chunk == 64:
+            ref64 = y_k
+        a, b = y_k.float().cpu().numpy(), y_p.float().cpu().numpy()
+        require(np.all(np.isfinite(a)), f"ssd {name}/{chunk}: non-finite")
+        err = np.abs(a - b)
+        worst = float((err / (tol + tol * np.abs(b))).max())
+        require(worst <= 1.0, f"ssd {name} chunk {chunk} vs {against}: "
+                              f"{worst:.3g} x the tolerance {tol}")
+        y_o = torch.empty_like(x)
+        entry = getattr(lib, sd._ENTRY[dtype])
+        args = ([t.data_ptr() for t in (x, dt, a_neg, bb, cc, d, y_o)]
+                + [shape[0], shape[1], shape[2], shape[3], shape[4], chunk,
+                   stream_ptr()])
+        ms = cuda_ms(lambda: entry(*args), iters=50)
+        call_ms = cuda_ms(lambda: sd.ssd_scan(x, dt, a_neg, bb, cc, d,
+                                              chunk=chunk))
+        plain_ms = cuda_ms(lambda: ssd_scan_plain(x, dt, a_neg, bb, cc, d,
+                                                  chunk=chunk), iters=5)
+        b_, t_, h_, p_, n_ = shape
+        el = x.element_size()
+        nbytes = (2 * el * b_ * t_ * h_ * p_ + 2 * el * b_ * t_ * n_
+                  + 4 * b_ * t_ * h_ + 2 * 4 * h_)
+        bms, by = bound_ms(nbytes, ssd_flops(*shape, chunk))
+        rows.append({"dtype": name, "chunk": chunk, "against": against,
+                     "shape": list(shape), "tol": tol,
+                     "max_abs_err": float(err.max()),
+                     "max_err_over_tol": worst, "ms": ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "smem_bytes": sd.smem_bytes(p_, n_, chunk),
+                     "blocks": b_ * h_})
+    return rows
 
 
 def zero_counts():
     from repro_torch.kernels.changepoint import ops as cp
+    from repro_torch.kernels.ssd import ops as sd
     from repro_torch.kernels.windowvet import ops as wv
     cp.LAUNCHES = 0
     wv.LAUNCHES = 0
+    sd.LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels.changepoint import ops as cp
+    from repro_torch.kernels.ssd import ops as sd
     from repro_torch.kernels.windowvet import ops as wv
-    return {"changepoint": cp.LAUNCHES, "windowvet": wv.LAUNCHES}
+    return {"changepoint": cp.LAUNCHES, "windowvet": wv.LAUNCHES,
+            "ssd": sd.LAUNCHES}
 
 
 def phase_job(card: str, tasks: int = 1024, records: int = 65536) -> dict:
@@ -461,6 +557,107 @@ def phase_fleet(card: str, name: str, specs, ticks: int, buckets: int,
             "launches": launches, "vs_torch": summary}
 
 
+def phase_serve(card: str, cfg=None, device: str = "cuda", batch: int = 4,
+                prompt_len: int = 512, gen_len: int = 331,
+                decode_check: int = 8) -> dict:
+    """Full-width mamba2-130m (or ``cfg``) through the port's serve entry
+    point, then the kernel path's prefill held against the plain path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve, serve_inputs
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    cfg = cfg if cfg is not None else get_config("mamba2-130m")
+    dev = torch.device(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = serve(cfg, batch=batch, prompt_len=prompt_len, gen_len=gen_len,
+                device=dev, verbose=False)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    require(launches["ssd"] == cfg.num_layers,
+            f"serve: expected {cfg.num_layers} SSD launches (one per layer's "
+            f"prefill), got {launches}")
+    require(res.tokens.shape == (batch, gen_len), "serve: token shape")
+    require(np.all((res.tokens >= 0) & (res.tokens < cfg.vocab_size)),
+            "serve: token outside the vocabulary")
+    require(res.vet is not None and np.isfinite(res.vet) and res.vet >= 1.0
+            - 1e-6, f"serve: vet {res.vet}")
+    require(res.windows is not None and res.windows.workers >= 2,
+            "serve: fewer than two window snapshots")
+    require(np.all(np.isfinite(res.windows.vet)), "serve: window vets")
+
+    # Kernel path against the plain path: same card, same weights.
+    params, prompts = serve_inputs(cfg, batch=batch, prompt_len=prompt_len,
+                                   seed=0, dtype=torch.float32, device=dev)
+    cache = init_cache(cfg, batch, prompt_len + gen_len, device=dev)
+    logits_k, _ = prefill(cfg, params, cache, {"tokens": prompts})
+    logits_p, _ = prefill(cfg, params, cache, {"tokens": prompts}, plain=True)
+    live = torch.arange(logits_k.shape[-1], device=dev) < cfg.vocab_size
+    lk, lp = logits_k[:, live].double(), logits_p[:, live].double()
+    require(bool(torch.isfinite(lk).all()), "serve: non-finite logits")
+    err = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    require(err <= LOGIT_TOL * scale, f"serve: prefill logits kernel vs "
+                                      f"plain off by {err:.3g} (scale "
+                                      f"{scale:.3g})")
+    tk = torch.argmax(logits_k, -1)[:, None]
+    tp = torch.argmax(logits_p, -1)[:, None]
+    require(np.array_equal(res.tokens[:, 0], tk[:, 0].cpu().numpy()),
+            "serve: first token differs from a fresh prefill on the same "
+            "weights")
+    ck = cp = cache
+    same = [bool(torch.equal(tk, tp))]
+    for i in range(decode_check):
+        lk_i, ck = decode_step(cfg, params, ck, tk, prompt_len + i)
+        lp_i, cp = decode_step(cfg, params, cp, tp, prompt_len + i)
+        tk, tp = torch.argmax(lk_i, -1)[:, None], torch.argmax(lp_i, -1)[:, None]
+        same.append(bool(torch.equal(tk, tp)))
+    require(all(same), f"serve: greedy tokens differ between the kernel and "
+                       f"plain paths at steps {same}")
+    small = reduced_vs_cpu(dev)
+    ms = res.mux
+    return {"phase": "serve", "card": card, "arch": cfg.name,
+            "params": cfg.param_count(), "batch": batch,
+            "prompt_len": prompt_len, "gen_len": gen_len,
+            "prefill_ms": res.prefill_s * 1e3, "launches": launches,
+            "tokens_per_s": res.tokens_per_s, "vet": res.vet, "ei": res.ei,
+            "pr": res.pr, "window_vets": [float(v) for v in res.windows.vet],
+            "mux_ticks": ms.ticks, "mux_dispatches": ms.dispatches,
+            "anomaly_flags": len(res.flags),
+            "decode_units": int(res.unit_times.size),
+            "peak_device_bytes": int(peak),
+            "prefill_logits_max_abs_err": err, "logit_scale": scale,
+            "greedy_equal_steps": len(same), "reduced_vs_cpu": small}
+
+
+def reduced_vs_cpu(dev) -> dict:
+    """The reduced mamba2-130m's prefill through the kernel on the card
+    against the same weights on the CPU (plain path): 1e-4 of the largest
+    logit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_inputs
+    from repro_torch.models import init_cache, prefill
+
+    cfg = get_config("mamba2-130m").reduced()
+    out = {}
+    for where in ("cpu", dev):
+        params, prompts = serve_inputs(cfg, batch=2, prompt_len=64, seed=3,
+                                       dtype=torch.float32, device=where)
+        logits, _ = prefill(cfg, params, init_cache(cfg, 2, 64, device=where),
+                            {"tokens": prompts})
+        out[str(where)] = logits.double().cpu()
+    ref, got = out["cpu"], out[str(dev)]
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    require(err <= 1e-4 * scale, f"reduced prefill card vs cpu off by "
+                                 f"{err:.3g} (scale {scale:.3g})")
+    return {"max_abs_err": err, "scale": scale}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -505,15 +702,19 @@ def main(argv=None) -> int:
         results["fleet_gather"] = phase_fleet(card, "fleet_gather", specs, 4,
                                               64, fused=False)
         emit(results["fleet_gather"])
+    if "serve" in phases:
+        results["serve"] = phase_serve(card)
+        emit(results["serve"])
 
-    launches = {"changepoint": 0, "windowvet": 0}
-    for p in ("job", "fleet_fused", "fleet_gather"):
+    launches = {"changepoint": 0, "windowvet": 0, "ssd": 0}
+    for p in ("job", "fleet_fused", "fleet_gather", "serve"):
         for k, v in results.get(p, {}).get("launches", {}).items():
             launches[k] += v
     table = []
     if "kernels" in results:
         cpk = results["kernels"]["changepoint"][0]  # (1024, 1000): the job
         wvk = results["kernels"]["windowvet"][0]  # the ragged fleet tick
+        sdk = results["kernels"]["ssd"][0]  # f32, the serve prefill shape
         table = [
             {"name": "changepoint", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/changepoint.cu",
@@ -532,6 +733,14 @@ def main(argv=None) -> int:
                                 for c in results["kernels"]["windowvet"]),
              "ms": wvk["ms"], "plain_ms": wvk["plain_ms"],
              "bound_ms": wvk["bound_ms"], "bound_by": wvk["bound_by"],
+             "library_ms": None},
+            {"name": "ssd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ssd.cu",
+             "replaces": "src/repro/kernels/ssd/kernel.py:80",
+             "launches": launches["ssd"],
+             "max_abs_err": sdk["max_abs_err"],
+             "ms": sdk["ms"], "plain_ms": sdk["plain_ms"],
+             "bound_ms": sdk["bound_ms"], "bound_by": sdk["bound_by"],
              "library_ms": None},
         ]
     if set(phases) == set(PHASES):

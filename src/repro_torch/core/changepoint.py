@@ -13,9 +13,12 @@ the batch dimension written out where the reference used ``vmap``.
 Numerics follow the reference exactly in structure: f32 throughout, y
 centred on the *element* ``y[(n-1)//2]`` before the prefix sums, and the
 index closed forms evaluated in f64 and rounded once to f32.  The prefix sums
-themselves are ``torch.cumsum``, whose f32 rounding is not ``jnp.cumsum``'s,
-so the argmin may move between statistical near-ties (relative SSE gaps of
-order 1e-4); the differential tests hold the port to that contract.
+are ``xla_order_cumsum`` and the log curve of ``core.vet`` is
+``xla_order_log``: the orders in which XLA on the CPU adds ``jnp.cumsum`` and
+rounds ``jnp.log``.  Both are bitwise ``jnp`` on the CPU, so the port's cuts
+there are the reference's (``tests/torch_port_cut_flips.py``: 0 flips);
+both are fixed sequences of IEEE operations, so they give the same bits on
+CUDA.
 """
 
 from __future__ import annotations
@@ -25,7 +28,10 @@ import torch
 
 __all__ = ["centered_prefix_sums", "closed_forms_f32", "estimate_changepoint",
            "estimate_changepoint_naive", "index_closed_forms",
-           "segment_sse_terms", "sse_from_prefix_sums", "two_segment_sse"]
+           "segment_sse_terms", "sse_from_prefix_sums", "two_segment_sse",
+           "xla_order_cumsum", "xla_order_log"]
+
+_BLOCK = 16  # XLA's base for the blocked scan it lowers a cumsum to
 
 
 def _promote(y) -> torch.Tensor:
@@ -62,6 +68,104 @@ def index_closed_forms(n: int):
     return sx1, sxx1, sx_tot - sx1, sxx_tot - sxx1
 
 
+def xla_order_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Inclusive prefix sum along ``dim``, adding in the order XLA uses for
+    ``jnp.cumsum`` on the CPU: a recursive blocked scan with base 16.
+
+    1. add serially inside blocks of 16 (the tail block padded with zeros);
+    2. scan the blocks' last values by the same rule, recursively, until at
+       most 16 remain;
+    3. add each block the exclusive prefix of those totals.
+
+    The serial adds are 15 explicit column adds, not ``torch.cumsum``, so
+    every add is one IEEE operation in a fixed order and the result is the
+    same on the CPU and on CUDA.
+    """
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    nb = -(-n // _BLOCK)
+    v = torch.nn.functional.pad(x, (0, nb * _BLOCK - n))
+    v = v.reshape(*x.shape[:-1], nb, _BLOCK)
+    cols = [v[..., 0]]
+    for j in range(1, _BLOCK):
+        cols.append(cols[-1] + v[..., j])
+    c = torch.stack(cols, dim=-1)
+    if nb > 1:
+        tot = xla_order_cumsum(c[..., -1])
+        c = c + torch.nn.functional.pad(tot[..., :-1], (1, 0)).unsqueeze(-1)
+    out = c.reshape(*x.shape[:-1], nb * _BLOCK)[..., :n].movedim(-1, dim)
+    return out.contiguous()  # the kernels take contiguous operands
+
+
+def _fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to f32, as a fused multiply-add rounds.
+
+    The f32 product is exact in f64; the f64 sum is made round-to-odd (the
+    f64 TwoSum error picks the odd neighbour when the sum was inexact), so
+    the one rounding to f32 that follows is the correctly rounded result.
+    """
+    p = a.double() * torch.as_tensor(b, dtype=torch.float64, device=a.device)
+    c = torch.as_tensor(c, device=a.device).double().expand_as(p)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even,
+                    torch.nextafter(s, torch.where(err > 0, torch.inf,
+                                                   -torch.inf)), s)
+    return s.float()
+
+
+# XLA's CPU log polynomial (Cephes, as Eigen's plog_float evaluates it):
+# coefficients as f32, in evaluation order.
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_SQRTHF = 0.707106781186547524
+
+
+def _f32(v: float, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def xla_order_log(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of f32 values, computed as XLA computes ``jnp.log`` on an
+    x86-64 CPU with FMA: the Cephes range reduction and polynomial, with the
+    multiply-adds the compiler fuses rounded once (``_fma_f32``).
+
+    Bitwise ``jnp.log`` for every f32 input: subnormal input counts as
+    zero, as XLA's CPU code flushes it; zero, negative, infinite and NaN
+    input take ``torch.log``'s value.  The same on the CPU and on CUDA:
+    every step is one IEEE operation in a fixed order.
+    """
+    x = torch.as_tensor(x).to(torch.float32)
+    dev = x.device
+    tiny = float(torch.finfo(torch.float32).tiny)
+    x = torch.where(x.abs() < tiny, 0.0, x)
+    bits = torch.clamp(x, min=tiny).view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & -0x7F800001) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    low = m < _f32(_SQRTHF, dev)
+    e = e - low.to(torch.float32)
+    r = (m - 1.0) + torch.where(low, m, 0.0)
+    r2 = r * r
+    r3 = r2 * r
+    p = [_f32(c, dev) for c in _LOG_P]
+    y0 = _fma_f32(r, p[0], p[1])
+    y1 = _fma_f32(r, p[3], p[4])
+    y2 = _fma_f32(r, p[6], p[7])
+    y0 = _fma_f32(y0, r, p[2])
+    y1 = _fma_f32(y1, r, p[5])
+    y2 = _fma_f32(y2, r, p[8])
+    y = _fma_f32(y0, r3, y1)
+    y = _fma_f32(y, r3, y2)
+    y = _fma_f32(y, r3, e * _f32(_LOG_Q1, dev))
+    out = ((r - r2 * 0.5) + y) + e * _f32(_LOG_Q2, dev)
+    ok = (x > 0) & torch.isfinite(x)
+    return torch.where(ok, out, torch.log(x))
+
+
 def centered_prefix_sums(y_sorted: torch.Tensor):
     """``(cy, cyy, cxy)``: inclusive prefix sums over the last dimension of
     ``z = y - y[(n-1)//2]`` (an exact element pick, no reduction rounding),
@@ -70,8 +174,9 @@ def centered_prefix_sums(y_sorted: torch.Tensor):
     n = y.shape[-1]
     idx = torch.arange(1, n + 1, dtype=torch.float32, device=y.device)
     z = y - y[..., (n - 1) // 2:(n - 1) // 2 + 1]
-    return (torch.cumsum(z, dim=-1), torch.cumsum(z * z, dim=-1),
-            torch.cumsum(idx * z, dim=-1))
+    # One scan over the three stacked rows: the adds per element are the
+    # same, in a third of the launches.
+    return xla_order_cumsum(torch.stack([z, z * z, idx * z])).unbind(0)
 
 
 def sse_from_prefix_sums(cy, cyy, cxy, totals, forms, omega: int):

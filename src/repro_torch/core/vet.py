@@ -22,7 +22,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from .changepoint import estimate_changepoint
+from .changepoint import estimate_changepoint, xla_order_log
 
 __all__ = ["VetJobResult", "VetResult", "ei_oc", "vet_job", "vet_pipeline",
            "vet_task"]
@@ -90,7 +90,7 @@ def _cut_and_slope(y: torch.Tensor, omega: int, buckets, cut_space: str,
     else:
         per = 1
         curve = y
-    z = torch.log(torch.clamp(curve, min=_TINY)) if cut_space == "log" \
+    z = xla_order_log(torch.clamp(curve, min=_TINY)) if cut_space == "log" \
         else curve
     m = curve.shape[-1]
     if m < 2 * omega:

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain PyTorch
-twins: ``changepoint`` (the paper's SSE scan, batched, argmin fused) and
-``windowvet`` (the whole vet pipeline per ragged window, one launch).
+twins: ``changepoint`` (the paper's SSE scan, batched, argmin fused),
+``windowvet`` (the whole vet pipeline per ragged window, one launch) and
+``ssd`` (the Mamba2 chunked scan, one block per batch row and head).
 
 ``runtime`` holds the device policy and builds/loads the kernel library.
 A wrapper given CPU tensors runs the plain version (the port's analogue of

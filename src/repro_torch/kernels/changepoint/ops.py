@@ -7,7 +7,7 @@ and takes the argmin on the host; here one launch covers a whole
 ``jnp.argmin``).
 
 ``prefix_inputs`` builds the kernel inputs exactly as the plain scan does —
-midpoint-element centering, ``torch.cumsum`` prefix sums (outside the
+midpoint-element centering, ``xla_order_cumsum`` prefix sums (outside the
 kernel, as ``jnp.cumsum`` is outside the Pallas body) and the f64 index
 closed forms rounded once to f32 — so kernel and plain version see the same
 operands.  ``sse_scan`` dispatches on where its tensors lie: CPU tensors take

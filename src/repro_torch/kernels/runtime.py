@@ -69,6 +69,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "changepoint_sse_argmin": [_P] * 10 + [_I, _I, _I, _P],
     "windowvet_fused": [_P] * 5 + [_I, _I, _I, _I, _P],
+    "ssd_scan_f32": [_P] * 7 + [_I] * 6 + [_P],
+    "ssd_scan_bf16": [_P] * 7 + [_I] * 6 + [_P],
 }
 _LIB = None
 

@@ -109,6 +109,77 @@ class TestChangepoint:
         assert abs(t1 - t2) <= 1
 
 
+# ------------------------------------------------- XLA's order on the CPU
+CUMSUM_NS = [1, 5, 16, 17, 64, 100, 255, 256, 257, 1000, 1023, 1024, 4000,
+             4096, 8192, 65536]
+
+
+class TestXlaOrder:
+    """``xla_order_cumsum`` and ``xla_order_log`` add and round as XLA on
+    the CPU does for ``jnp.cumsum`` and ``jnp.log``: bitwise equal."""
+
+    @pytest.mark.parametrize("n", CUMSUM_NS)
+    def test_cumsum_is_bitwise_jnp_1d(self, n):
+        rng = np.random.default_rng(n)
+        for _ in range(5):
+            a = (rng.standard_normal(n) * rng.uniform(0.1, 100)).astype(
+                np.float32)
+            np.testing.assert_array_equal(
+                port_cp.xla_order_cumsum(torch.from_numpy(a)).numpy(),
+                np.asarray(jnp.cumsum(jnp.asarray(a))))
+
+    @pytest.mark.parametrize("axis", [0, 1, -1])
+    def test_cumsum_is_bitwise_jnp_2d(self, axis):
+        a = np.random.default_rng(8).standard_normal((8, 1000)).astype(
+            np.float32)
+        got = port_cp.xla_order_cumsum(torch.from_numpy(a), dim=axis)
+        assert got.is_contiguous()
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jnp.cumsum(jnp.asarray(a), axis=axis)))
+
+    @pytest.mark.parametrize("n", [64, 1000, 8192])
+    def test_kernel_operands_are_contiguous(self, n):
+        """The change-point kernel refuses non-contiguous operands, and the
+        XLA-order scan slices its zero-padded tail away."""
+        from repro_torch.kernels.changepoint.ops import prefix_inputs
+        z = torch.from_numpy(log_curves(3, n, seed=n))
+        cy, cyy, cxy, totals, forms = prefix_inputs(z)
+        assert all(t.is_contiguous() for t in (cy, cyy, cxy, totals, *forms))
+
+    @pytest.mark.parametrize("lo,hi", [(1e-40, 1e-30), (1e-12, 1e-6),
+                                       (1e-6, 1e3), (0.5, 2.0), (1e3, 3e38)])
+    def test_log_is_bitwise_jnp(self, lo, hi):
+        rng = np.random.default_rng(int(-np.log10(lo)) + 50)
+        a = np.exp(rng.uniform(np.log(lo), np.log(hi), 20000)).astype(
+            np.float32)
+        a = np.concatenate([a, [0.0, -1.0, np.inf, np.nan, 1.0]]).astype(
+            np.float32)
+        np.testing.assert_array_equal(
+            port_cp.xla_order_log(torch.from_numpy(a)).numpy(),
+            np.asarray(jnp.log(jnp.asarray(a))))
+
+    @pytest.mark.parametrize("buckets,n", [(1000, 4000), (1000, 8192),
+                                           (64, 512), (64, 1024),
+                                           (None, 256), (None, 1024)])
+    @pytest.mark.parametrize("cut_space", ["log", "raw"])
+    def test_torch_backend_cut_is_the_references(self, buckets, n,
+                                                 cut_space):
+        """Every row's cut equals the reference's (the settings of
+        ``tests/torch_port_cut_flips.py``, all at 0 flips), and vet/ei/oc/pr
+        agree to 1e-5."""
+        from repro.engine import VetEngine as RefEngine
+        from repro_torch.engine import VetEngine
+        m = sim_matrix(24, n, seed=n + 5)
+        want = RefEngine("jax", buckets=buckets,
+                         cut_space=cut_space).vet_batch(m)
+        got = VetEngine("torch", buckets=buckets, cut_space=cut_space,
+                        device="cpu").vet_batch(m)
+        np.testing.assert_array_equal(got.t, want.t)
+        for name in ("vet", "ei", "oc", "pr"):
+            np.testing.assert_allclose(getattr(got, name),
+                                       getattr(want, name), rtol=1e-5)
+
+
 # ----------------------------------------------------------- extrapolate
 class TestExtrapolate:
     @pytest.mark.parametrize("robust", [False, True])

@@ -1,9 +1,10 @@
 """The differential contract between ``repro_torch`` and ``repro``.
 
-Imported by the ``tests/test_torch_*.py`` suites.  The port's f32 prefix
-sums (``torch.cumsum``, or a CUDA block scan) never round like
-``jnp.cumsum``, so the change-point may move between statistical near-ties.
-The contract:
+Imported by the ``tests/test_torch_*.py`` suites.  On the CPU the port's
+gather path adds its prefix sums and rounds its log in XLA's order
+(``xla_order_cumsum``, ``xla_order_log``), so its cuts are the reference's;
+the fused window-vet path (a block scan, as on the card) does not, so its
+change-point may move between statistical near-ties.  The contract:
 
 - where the cut ``t`` agrees, vet/ei/oc/pr agree to ``RTOL`` (1e-5): the
   same f32 pipeline, with sums taken in another order;
