@@ -2,10 +2,12 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
 Builds the CUDA kernel library from ``src/repro_torch/kernels/csrc`` and
-drives the port's main paths on one GPU, in five phases:
+drives the port's main paths on one GPU, in six phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
-   at the shapes the main paths give it, with CUDA-event times and bounds;
+   at the shapes the main paths give it, with CUDA-event times, bounds and,
+   for flash attention, ``scaled_dot_product_attention`` on the same inputs
+   as a yardstick (timed here, never called by the port);
 2. ``job``      — the paper's post-hoc measure on a 1024-task x 65,536-record
    Hadoop job (``VetEngine("cuda").vet_batch`` and ``vet_job``);
 3. ``fleet_fused``  — a 4096-stream ``VetMux`` on the fused window-vet path;
@@ -17,7 +19,19 @@ drives the port's main paths on one GPU, in five phases:
    SSD path on the same card and weights (|kernel - plain| <= 1e-3 of the
    largest logit), the greedy tokens of the first decode steps must be
    equal, and the reduced config's prefill on the card is held against the
-   same weights on the CPU.
+   same weights on the CPU;
+6. ``serve_attn`` — the same entry point on full-width h2o-danube-3-4b
+   (3.84 B parameters, f32, sliding window 4096; batch 2, 7,168-token
+   prompts, 331 generated tokens): the flash-attention kernel in every
+   layer's prefill, the in-place KV cache, decode and the dashboard.  The
+   weights are drawn on the card from seed 0 (``--host-init`` draws them on
+   the host, as ``serve`` does by default; the two draws differ).  Prefill
+   logits through the kernel are held against the plain attention path on
+   the same weights (1e-3 of the largest logit), each path filling its own
+   cache; the greedy tokens of the first decode steps must be equal; the
+   reduced config's prefill on the card is held against the CPU.  One
+   prefill and a few decode steps are traced with ``torch.profiler`` for
+   device time by kernel.
 
 Every engine result is held against the ``torch`` backend (the plain path)
 on the card under the near-tie contract: where the change-point agrees,
@@ -51,10 +65,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 RTOL = 1e-5  # vet/ei/oc/pr where the cut agrees
 GAP = 1e-4  # relative SSE gap allowed between two near-tie cuts
-PHASES = ("kernels", "job", "fleet_fused", "fleet_gather", "serve")
+PHASES = ("kernels", "job", "fleet_fused", "fleet_gather", "serve",
+          "serve_attn")
 SSD_RTOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py TestSSD
+# tests/test_kernels.py TestFlashAttention
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LOGIT_TOL = 1e-3  # serve: kernel vs plain prefill logits, of the largest
 
 
@@ -97,9 +115,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -218,7 +236,7 @@ def phase_kernels(card: str, device: str = "cuda") -> dict:
     from repro_torch.kernels import runtime
 
     out = {"phase": "kernels", "card": card, "changepoint": [],
-           "windowvet": [], "ssd": []}
+           "windowvet": [], "ssd": [], "flash_attention": []}
     dev = torch.device(device)
     lib = runtime.load_library()
 
@@ -308,6 +326,7 @@ def phase_kernels(card: str, device: str = "cuda") -> dict:
             "bound_ms": bms, "bound_by": by})
 
     out["ssd"] = ssd_cases(dev, lib, stream_ptr)
+    out["flash_attention"] = flash_cases(dev, lib, stream_ptr)
     return out
 
 
@@ -391,21 +410,110 @@ def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128)) -> list:
     return rows
 
 
-def zero_counts():
+# h2o-danube-3-4b's attention at the serve_attn phase's prompt: batch 2,
+# 7,168 positions, 32 query heads over 8 KV heads of 120, window 4096.
+FLASH_SERVE = (2, 7168, 32, 8, 120)
+
+
+def flash_cases(dev, lib, stream_ptr) -> list:
+    """Flash attention against its plain version at the serve_attn shape
+    (f32 and bf16, causal with window 4096), causal and bidirectional at
+    S = 2048, and a ragged S = 200; elementwise |a - b| <= tol + tol |b|.
+    ``library_ms`` is one ``scaled_dot_product_attention`` call on the same
+    inputs and mask (KV heads repeated to the query heads beforehand, as its
+    fused backends take them)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_plain, live_pairs
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    cases = (("serve_f32", FLASH_SERVE, True, 4096, torch.float32),
+             ("serve_bf16", FLASH_SERVE, True, 4096, torch.bfloat16),
+             ("causal_2048", (2, 2048, 32, 8, 120), True, 0, torch.float32),
+             ("bidirectional_2048", (2, 2048, 32, 8, 120), False, 0,
+              torch.float32),
+             ("ragged_200", (2, 200, 32, 8, 120), True, 0, torch.float32))
+    rows = []
+    for name, shape, causal, window, dtype in cases:
+        b, s, h, kh, d = shape
+        tname = str(dtype).split(".")[-1]
+        tol = FLASH_TOL[tname]
+        gen = torch.Generator(device=dev).manual_seed(len(rows))
+        q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
+                   for sh in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+        o_k = fa.flash_attention(q, k, v, causal=causal, window=window)
+        o_p = attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        a, ref = o_k.float(), o_p.float()
+        require(bool(torch.isfinite(a).all()), f"flash {name}: non-finite")
+        err = (a - ref).abs()
+        worst = float((err / (tol + tol * ref.abs())).max())
+        require(worst <= 1.0, f"flash {name}: {worst:.3g} x the tolerance "
+                              f"{tol}")
+        o_o = torch.empty_like(q)
+        entry = getattr(lib, fa._ENTRY[dtype])
+        args = ([t.data_ptr() for t in (q, k, v, o_o)]
+                + [b, s, h, kh, d, int(causal), window, 1.0 / d ** 0.5,
+                   stream_ptr()])
+        iters = 10 if s > 4096 else 50
+        ms = cuda_ms(lambda: entry(*args), iters=iters)
+        call_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                     window=window),
+                          iters=iters)
+        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=causal,
+                                                   window=window),
+                           iters=3, warmup=1)
+        pairs = live_pairs(s, causal=causal, window=window)
+        ops = 4.0 * d * pairs * b * h
+        nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kh * d)
+        bms, by = bound_ms(nbytes, ops, F32_OPS_PER_S if dtype ==
+                           torch.float32 else BF16_OPS_PER_S)
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(h // kh, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(h // kh, dim=2).transpose(1, 2)
+        mask = None
+        if window:
+            pos = torch.arange(s, device=dev)
+            mask = ((pos[:, None] >= pos[None, :])
+                    & (pos[:, None] - pos[None, :] < window))
+        lib_ms, lib_err = None, None
+        try:
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None), iters=iters)
+        except RuntimeError as exc:  # a yardstick, never the port's path
+            lib_err = str(exc).splitlines()[0][:200]
+        del qt, kt, vt, mask, o_o
+        rows.append({"case": name, "dtype": tname, "shape": list(shape),
+                     "causal": causal, "window": window, "tol": tol,
+                     "max_abs_err": float(err.max()),
+                     "max_err_over_tol": worst, "live_pairs_per_head": pairs,
+                     "gflop": ops / 1e9, "ms": ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib_ms, "library_error": lib_err,
+                     "smem_bytes": fa.smem_bytes(d),
+                     "blocks": -(-s // 64) * h * b})
+        del q, k, v, o_k, o_p, a, ref, err
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _counters():
     from repro_torch.kernels.changepoint import ops as cp
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ssd import ops as sd
     from repro_torch.kernels.windowvet import ops as wv
-    cp.LAUNCHES = 0
-    wv.LAUNCHES = 0
-    sd.LAUNCHES = 0
+    return {"changepoint": cp, "windowvet": wv, "ssd": sd,
+            "flash_attention": fa}
+
+
+def zero_counts():
+    for mod in _counters().values():
+        mod.LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels.changepoint import ops as cp
-    from repro_torch.kernels.ssd import ops as sd
-    from repro_torch.kernels.windowvet import ops as wv
-    return {"changepoint": cp.LAUNCHES, "windowvet": wv.LAUNCHES,
-            "ssd": sd.LAUNCHES}
+    return {name: mod.LAUNCHES for name, mod in _counters().items()}
 
 
 def phase_job(card: str, tasks: int = 1024, records: int = 65536) -> dict:
@@ -633,16 +741,15 @@ def phase_serve(card: str, cfg=None, device: str = "cuda", batch: int = 4,
             "greedy_equal_steps": len(same), "reduced_vs_cpu": small}
 
 
-def reduced_vs_cpu(dev) -> dict:
-    """The reduced mamba2-130m's prefill through the kernel on the card
-    against the same weights on the CPU (plain path): 1e-4 of the largest
-    logit."""
+def reduced_vs_cpu(dev, arch: str = "mamba2-130m") -> dict:
+    """The reduced config's prefill through the kernel on the card against
+    the same weights on the CPU (plain path): 1e-4 of the largest logit."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_inputs
     from repro_torch.models import init_cache, prefill
 
-    cfg = get_config("mamba2-130m").reduced()
+    cfg = get_config(arch).reduced()
     out = {}
     for where in ("cpu", dev):
         params, prompts = serve_inputs(cfg, batch=2, prompt_len=64, seed=3,
@@ -653,15 +760,158 @@ def reduced_vs_cpu(dev) -> dict:
     ref, got = out["cpu"], out[str(dev)]
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
-    require(err <= 1e-4 * scale, f"reduced prefill card vs cpu off by "
-                                 f"{err:.3g} (scale {scale:.3g})")
+    require(err <= 1e-4 * scale, f"reduced {arch} prefill card vs cpu off "
+                                 f"by {err:.3g} (scale {scale:.3g})")
     return {"max_abs_err": err, "scale": scale}
+
+
+def device_time(fn, top: int = 8) -> dict:
+    """``fn()`` under ``torch.profiler``: wall ms, the summed time of the
+    device's own events (kernels and copies, not the operators that launch
+    them) and the largest by name.  Reports the profiler's error instead of
+    failing (a measurement, not a check)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as exc:
+        return {"error": str(exc).splitlines()[0][:200]}
+    kernels = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and dev_us > 0:
+            kernels.append((dev_us / 1e3, e.key, e.count))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    return {"wall_ms": wall, "device_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall) if wall else None,
+            "top": [{"kernel": k[:80], "ms": t, "calls": c}
+                    for t, k, c in kernels[:top]]}
+
+
+def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
+                     batch: int = 2, prompt_len: int = 7168,
+                     gen_len: int = 331, decode_check: int = 8,
+                     host_init: bool = False) -> dict:
+    """Full-width h2o-danube-3-4b (or ``cfg``) through the port's serve
+    entry point, then the kernel path's prefill held against the plain
+    attention path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve, serve_inputs
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    cfg = cfg if cfg is not None else get_config("h2o-danube-3-4b")
+    dev = torch.device(device)
+    init_device = None if host_init else dev
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = serve(cfg, batch=batch, prompt_len=prompt_len, gen_len=gen_len,
+                device=dev, verbose=False, init_device=init_device)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    require(launches["flash_attention"] == cfg.num_layers,
+            f"serve_attn: expected {cfg.num_layers} flash-attention launches "
+            f"(one per layer's prefill), got {launches}")
+    require(res.tokens.shape == (batch, gen_len), "serve_attn: token shape")
+    require(np.all((res.tokens >= 0) & (res.tokens < cfg.vocab_size)),
+            "serve_attn: token outside the vocabulary")
+    require(res.vet is not None and np.isfinite(res.vet) and res.vet >= 1.0
+            - 1e-6, f"serve_attn: vet {res.vet}")
+    require(res.windows is not None and res.windows.workers >= 2,
+            "serve_attn: fewer than two window snapshots")
+    require(np.all(np.isfinite(res.windows.vet)), "serve_attn: window vets")
+    torch.cuda.empty_cache()  # the serving run's weights are gone
+
+    # Kernel path against the plain path: same card, same weights, each
+    # path filling its own cache (the caches are written in place).
+    params, prompts = serve_inputs(cfg, batch=batch, prompt_len=prompt_len,
+                                   seed=0, dtype=torch.float32, device=dev,
+                                   init_device=init_device)
+    s_max = prompt_len + gen_len
+    batch_in = {"tokens": prompts}
+    ck = init_cache(cfg, batch, s_max, device=dev)
+    t0 = time.perf_counter()
+    logits_k, ck = prefill(cfg, params, ck, batch_in)
+    torch.cuda.synchronize()
+    kernel_prefill_ms = (time.perf_counter() - t0) * 1e3
+    cp = init_cache(cfg, batch, s_max, device=dev)
+    t0 = time.perf_counter()
+    logits_p, cp = prefill(cfg, params, cp, batch_in, plain=True)
+    torch.cuda.synchronize()
+    plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+    live = torch.arange(logits_k.shape[-1], device=dev) < cfg.vocab_size
+    lk, lp = logits_k[:, live].double(), logits_p[:, live].double()
+    require(bool(torch.isfinite(lk).all()), "serve_attn: non-finite logits")
+    err = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    require(err <= LOGIT_TOL * scale, f"serve_attn: prefill logits kernel vs "
+                                      f"plain off by {err:.3g} (scale "
+                                      f"{scale:.3g})")
+    cache_err = max(float((ck["seg0"][n] - cp["seg0"][n]).abs().max())
+                    for n in ("k", "v"))
+    tk = torch.argmax(logits_k, -1)[:, None]
+    tp = torch.argmax(logits_p, -1)[:, None]
+    require(np.array_equal(res.tokens[:, 0], tk[:, 0].cpu().numpy()),
+            "serve_attn: first token differs from a fresh prefill on the "
+            "same weights")
+    same = [bool(torch.equal(tk, tp))]
+    for i in range(decode_check):
+        lk_i, ck = decode_step(cfg, params, ck, tk, prompt_len + i)
+        lp_i, cp = decode_step(cfg, params, cp, tp, prompt_len + i)
+        tk, tp = torch.argmax(lk_i, -1)[:, None], torch.argmax(lp_i, -1)[:, None]
+        same.append(bool(torch.equal(tk, tp)))
+    require(all(same), f"serve_attn: greedy tokens differ between the kernel "
+                       f"and plain paths at steps {same}")
+    del cp
+    torch.cuda.empty_cache()
+    pos = prompt_len + decode_check
+    traced = {
+        "prefill": device_time(lambda: prefill(cfg, params, ck, batch_in)),
+        "decode_4_steps": device_time(lambda: [
+            decode_step(cfg, params, ck, tk, pos + j) for j in range(4)]),
+    }
+    del params, ck
+    torch.cuda.empty_cache()
+    small = reduced_vs_cpu(dev, "h2o-danube-3-4b")
+    ms = res.mux
+    return {"phase": "serve_attn", "card": card, "arch": cfg.name,
+            "params": cfg.param_count(), "batch": batch,
+            "prompt_len": prompt_len, "gen_len": gen_len,
+            "weights_drawn_on": "host" if host_init else "card",
+            "init_s": res.init_s, "prefill_ms": res.prefill_s * 1e3,
+            "kernel_prefill_ms": kernel_prefill_ms,
+            "plain_prefill_ms": plain_prefill_ms, "launches": launches,
+            "tokens_per_s": res.tokens_per_s, "vet": res.vet, "ei": res.ei,
+            "pr": res.pr, "window_vets": [float(v) for v in res.windows.vet],
+            "mux_ticks": ms.ticks, "mux_dispatches": ms.dispatches,
+            "anomaly_flags": len(res.flags),
+            "decode_units": int(res.unit_times.size),
+            "decode_unit_ms_median": float(np.median(res.unit_times)) * 1e3,
+            "peak_device_bytes": int(peak),
+            "prefill_logits_max_abs_err": err, "logit_scale": scale,
+            "kv_cache_max_abs_err": cache_err,
+            "greedy_equal_steps": len(same), "traced": traced,
+            "reduced_vs_cpu": small}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--host-init", action="store_true",
+                    help="serve_attn: draw the weights on the host, as "
+                         "serve does by default, instead of on the card")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     require(set(phases) <= set(PHASES), f"unknown phase in {phases}")
@@ -705,9 +955,14 @@ def main(argv=None) -> int:
     if "serve" in phases:
         results["serve"] = phase_serve(card)
         emit(results["serve"])
+    if "serve_attn" in phases:
+        results["serve_attn"] = phase_serve_attn(card,
+                                                 host_init=args.host_init)
+        emit(results["serve_attn"])
 
-    launches = {"changepoint": 0, "windowvet": 0, "ssd": 0}
-    for p in ("job", "fleet_fused", "fleet_gather", "serve"):
+    launches = {"changepoint": 0, "windowvet": 0, "ssd": 0,
+                "flash_attention": 0}
+    for p in ("job", "fleet_fused", "fleet_gather", "serve", "serve_attn"):
         for k, v in results.get(p, {}).get("launches", {}).items():
             launches[k] += v
     table = []
@@ -715,6 +970,7 @@ def main(argv=None) -> int:
         cpk = results["kernels"]["changepoint"][0]  # (1024, 1000): the job
         wvk = results["kernels"]["windowvet"][0]  # the ragged fleet tick
         sdk = results["kernels"]["ssd"][0]  # f32, the serve prefill shape
+        fak = results["kernels"]["flash_attention"][0]  # f32, serve_attn
         table = [
             {"name": "changepoint", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/changepoint.cu",
@@ -742,6 +998,16 @@ def main(argv=None) -> int:
              "ms": sdk["ms"], "plain_ms": sdk["plain_ms"],
              "bound_ms": sdk["bound_ms"], "bound_by": sdk["bound_by"],
              "library_ms": None},
+            {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
+             "launches": launches["flash_attention"],
+             "max_abs_err": max(c["max_abs_err"] for c in
+                                results["kernels"]["flash_attention"]
+                                if c["dtype"] == "float32"),
+             "ms": fak["ms"], "plain_ms": fak["plain_ms"],
+             "bound_ms": fak["bound_ms"], "bound_by": fak["bound_by"],
+             "library_ms": fak["library_ms"]},
         ]
     if set(phases) == set(PHASES):
         require(all(k["launches"] > 0 for k in table),

@@ -65,12 +65,16 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# entry point -> argtypes (every pointer and the stream as c_void_p).
+_F = ctypes.c_float
+# entry point -> argtypes (every pointer and the stream as c_void_p, a
+# float as c_float).
 _SIGNATURES = {
     "changepoint_sse_argmin": [_P] * 10 + [_I, _I, _I, _P],
     "windowvet_fused": [_P] * 5 + [_I, _I, _I, _I, _P],
     "ssd_scan_f32": [_P] * 7 + [_I] * 6 + [_P],
     "ssd_scan_bf16": [_P] * 7 + [_I] * 6 + [_P],
+    "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _P],
+    "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _P],
 }
 _LIB = None
 

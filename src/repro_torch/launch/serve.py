@@ -14,13 +14,17 @@ synchronises the token's device, so each record is the device's step time
 and not the launch time.  The vet engine is ``default_engine("cuda",
 buckets=64)`` on the serving device.  Weights and prompts come from a
 ``torch.Generator`` seeded by ``seed`` on the CPU, so a seed gives the same
-model on every device.
+model on every device; ``init_device`` draws them on another device
+instead (a full-width model's weights drawn on the card, which gives other
+numbers than the CPU draw of the same seed).  Attention KV caches are
+filled in place (``models.blocks``).
 
 Not in this slice: ``--transport`` (``fleet.transport``, ROADMAP A.8) and
 ``--tune`` (``fleet.knobs`` and ``sched.tuner``, ROADMAP A.6/A.9).
 
-Usage: ``python -m repro_torch.launch.serve --arch mamba2-130m`` (on the
-card; ``REPRO_TORCH_DEVICE=cpu`` and ``--reduced`` to run on the CPU).
+Usage: ``python -m repro_torch.launch.serve --arch mamba2-130m`` or
+``--arch h2o-danube-3-4b`` (on the card; ``REPRO_TORCH_DEVICE=cpu`` and
+``--reduced`` to run on the CPU).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from ..obs import LedgerReport, Tracer, format_ledger, ledger_from, write_chrome
 from ..obs.trace import timed as _timed
 from ..profiling import RecordProfiler
 
-__all__ = ["ServeResult", "main", "serve"]
+__all__ = ["ServeResult", "main", "serve", "serve_inputs"]
 
 _SNAPSHOT_WINDOW = 32  # unit-records per windowed vet snapshot
 _SNAPSHOT_HISTORY = 64  # newest window snapshots retained for the drift view
@@ -70,6 +74,8 @@ class ServeResult:
     mux: Optional[MuxStats] = None
     # Per-unit decode times the dashboard vetted (seconds).
     unit_times: Optional[np.ndarray] = None
+    # Seconds to draw the weights and prompts and place them, synchronised.
+    init_s: float = 0.0
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -78,16 +84,34 @@ def _sync(t: torch.Tensor) -> None:
 
 
 def serve_inputs(cfg, *, batch: int, prompt_len: int, seed: int, dtype,
-                 device):
+                 device, init_device=None):
     """``(params, prompts)`` as ``serve`` makes them: random weights, then
-    prompt tokens, from one CPU generator seeded by ``seed``, moved to
-    ``device``."""
-    gen = torch.Generator().manual_seed(int(seed))
+    prompt tokens, from one generator seeded by ``seed`` on ``init_device``
+    (the CPU when ``None``), moved to ``device``."""
+    gen_device = torch.device("cpu" if init_device is None else init_device)
+    gen = torch.Generator(device=gen_device).manual_seed(int(seed))
     params = init_params(cfg, gen, dtype=dtype)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                            generator=gen)
+                            generator=gen, device=gen_device)
     params = _to(params, device)
     return params, prompts.to(device)
+
+
+def _check_prompt_len(cfg, prompt_len: int, q_chunk: int = 1024) -> None:
+    """The reference's prompt-length rules, before any weight is drawn.
+
+    Raises:
+        ValueError: an SSM prompt that is not a multiple of
+            ``cfg.ssm_chunk`` (the SSD scan's chunking), or an attention
+            prompt longer than ``q_chunk`` that is not a multiple of it
+            (the query-chunked attention's blocks).
+    """
+    if cfg.family == "ssm" and prompt_len % cfg.ssm_chunk:
+        raise ValueError(f"sequence length {prompt_len} is not a multiple "
+                         f"of the SSD chunk {cfg.ssm_chunk}")
+    if cfg.num_heads and prompt_len > q_chunk and prompt_len % q_chunk:
+        raise ValueError(f"sequence length {prompt_len} is not a multiple "
+                         f"of the attention query chunk {q_chunk}")
 
 
 def _to(tree, device):
@@ -111,28 +135,37 @@ def serve(
     shards: int = 1,
     tracer: Optional[Tracer] = None,
     trace_path: Optional[str] = None,
+    init_device=None,
 ) -> ServeResult:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and generate
     ``gen_len`` tokens each, greedily, with the live vet dashboard.
 
     Raises:
-        ValueError: an encoder-only config, or ``prompt_len`` not a multiple
-            of ``cfg.ssm_chunk`` (the SSD scan's chunking, as in the
-            reference).
-        NotImplementedError: a model family the port does not run yet.
+        ValueError: an encoder-only config; for an SSM model, ``prompt_len``
+            not a multiple of ``cfg.ssm_chunk`` (the SSD scan's chunking);
+            for an attention model, ``prompt_len`` above 1024 and not a
+            multiple of it (the attention's query chunk).  Both as in the
+            reference, and raised before any weight is drawn.
+        NotImplementedError: a model family the port does not run yet
+            (MoE, hybrid, VLM, audio: ROADMAP A.10).
         RuntimeError: the resolved device is CUDA and no card is present.
     """
     cfg = get_config(cfg_or_name) if isinstance(cfg_or_name, str) else cfg_or_name
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only")
+    _check_prompt_len(cfg, prompt_len)
     if tracer is None and trace_path is not None:
         tracer = Tracer()
     device = require_device(resolve_device(device))
 
+    t0 = time.perf_counter()
     params, prompts = serve_inputs(cfg, batch=batch, prompt_len=prompt_len,
-                                   seed=seed, dtype=dtype, device=device)
+                                   seed=seed, dtype=dtype, device=device,
+                                   init_device=init_device)
     cache = init_cache(cfg, batch, prompt_len + gen_len, dtype=dtype,
                        device=device)
+    _sync(prompts)
+    init_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     logits, cache = prefill(cfg, params, cache, {"tokens": prompts})
@@ -228,7 +261,8 @@ def serve(
                       f"(load in Perfetto / chrome://tracing)")
     return ServeResult(tokens=gen, vet=vet, ei=ei, pr=pr, tokens_per_s=tps,
                        windows=windows, flags=tuple(flags), ledger=ledger,
-                       prefill_s=prefill_s, mux=mux.stats, unit_times=times)
+                       prefill_s=prefill_s, mux=mux.stats, unit_times=times,
+                       init_s=init_s)
 
 
 def parse_args(argv=None) -> argparse.Namespace:

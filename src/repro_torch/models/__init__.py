@@ -1,5 +1,7 @@
-"""The model substrate, ``ssm`` family (the port of ``repro.models``):
-Mamba2 layers and blocks, stacked-layer parameters, prefill and decode."""
+"""The model substrate, ``dense`` and ``ssm`` families (the port of
+``repro.models``): attention (GQA / sliding window, KV cache), gated MLP
+and Mamba2 layers and blocks, stacked-layer parameters, prefill and
+decode."""
 
 from .convert import params_from_numpy
 from .model import (decode_step, embed_inputs, init_cache, init_params,

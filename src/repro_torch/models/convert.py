@@ -37,6 +37,7 @@ def params_from_numpy(cfg, tree, device=None, dtype=torch.float32):
 
     Raises:
         KeyError: a top-level entry the port's model expects is missing.
+        NotImplementedError: a model family the port does not run yet.
     """
     want = ["embed", "final_norm"] + [f"seg{i}" for i, _ in
                                       enumerate(segments_of(cfg))]

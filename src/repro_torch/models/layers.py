@@ -1,13 +1,16 @@
-"""Model layers in PyTorch: the Mamba2 subset of ``repro.models.layers``.
+"""Model layers in PyTorch: the attention, gated-MLP and Mamba2 parts of
+``repro.models.layers``.
 
 Pure functions over dictionaries of tensors, with the reference's names,
-parameter layout (the fused ``in_proj``) and precision policy: parameters
-and activations in the model dtype, norms and SSD recurrences in f32.
-``mamba_apply`` runs the SSD scan through ``kernels.ssd.ops.ssd``, which
-launches the hand-written kernel on CUDA tensors and the plain version on
-CPU tensors; ``plain=True`` takes the plain version on every device (the
-on-card reference).  ``mamba_decode_step`` is plain PyTorch: the one-token
-recurrence has no kernel in the reference either.
+parameter layout (the fused ``in_proj``, flat attention projections) and
+precision policy: parameters and activations in the model dtype; norms,
+softmax and SSD recurrences in f32.  The two full-sequence mixers launch
+hand-written kernels on CUDA tensors and run their plain versions on CPU
+tensors: ``attention`` through ``kernels.flash_attention.flash_attention``
+and ``mamba_apply`` through ``kernels.ssd.ops.ssd``; ``plain=True`` takes
+the plain version on every device (the on-card reference).
+``decode_attention`` and ``mamba_decode_step`` are plain PyTorch: the
+one-token steps have no kernel in the reference either.
 
 The reference's split-projection layout (``ssm_split_proj``) is a TPU
 sharding layout; the port does not shard yet (ROADMAP A.13).
@@ -16,15 +19,19 @@ sharding layout; the port does not shard yet (ROADMAP A.13).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ref import attention_plain
 from ..kernels.ssd.ops import ssd
 from ..kernels.ssd.ref import ssd_scan_plain
 
-__all__ = ["causal_conv1d", "dense_init", "embed_init", "mamba_apply",
-           "mamba_decode_step", "mamba_init", "rms_norm"]
+__all__ = ["apply_rope", "attention", "causal_conv1d", "decode_attention",
+           "dense_init", "embed_init", "mamba_apply", "mamba_decode_step",
+           "mamba_init", "mlp_apply", "mlp_init", "rms_norm", "rope_freqs"]
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_shape, dtype):
@@ -46,6 +53,86 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
+
+
+def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D) rotated pairwise; positions: broadcastable to
+    (..., S)."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)  # (d/2,)
+    ang = positions[..., None].float() * inv  # (..., S, d/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :d // 2].float(), x[..., d // 2:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              q_chunk: int = 1024, scale: Optional[float] = None,
+              plain: bool = False):
+    """Grouped attention, causal or sliding-window (the reference's
+    query-chunked ``attention``).
+
+    q: (B, S, H, Dh); k, v: (B, S, KH, Dh) with H % KH == 0 -> (B, S, H, Dh).
+    On CUDA tensors this launches the flash-attention kernel; on CPU
+    tensors, or with ``plain=True``, it runs the plain version in query
+    blocks of ``q_chunk``.  Both mask as the reference's kernel does, and
+    for ``causal=True`` (every config of the repo) that is what the
+    reference's layer computes.
+
+    Raises:
+        ValueError: ``S > q_chunk`` and ``S % q_chunk != 0`` (the reference
+            asserts the same).
+    """
+    s = q.shape[1]
+    if s > q_chunk and s % q_chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"attention query chunk {q_chunk}")
+    if plain:
+        return attention_plain(q, k, v, causal=causal, window=window,
+                               scale=scale, q_chunk=q_chunk)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, window=window, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
+                     scale: Optional[float] = None):
+    """One-token attention against a cache.
+
+    q: (B, 1, H, Dh); caches: (B, S_max, KH, Dh); ``pos``: tokens written
+    so far, the current one (at index pos - 1) included.
+    """
+    b, _, h, dh = q.shape
+    kh = k_cache.shape[2]
+    g = h // kh
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, 1, kh, g, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_cache.float())
+    s = s * scale
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    valid = kpos < pos
+    if window > 0:
+        valid &= kpos >= pos - window
+    s = s.masked_fill(~valid, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v_cache.dtype), v_cache)
+    return o.reshape(b, 1, h, dh)
+
+
+def mlp_init(gen: torch.Generator, d: int, ff: int, dtype):
+    return {"gate": dense_init(gen, d, (ff,), dtype),
+            "up": dense_init(gen, d, (ff,), dtype),
+            "down": dense_init(gen, ff, (d,), dtype)}
+
+
+def mlp_apply(p, x):
+    """Gated MLP: ``(silu(x gate) * (x up)) down``."""
+    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
 
 
 def _require_fused(cfg) -> None:

@@ -1,16 +1,21 @@
-"""Full-model assembly for the ``ssm`` family (the port of
+"""Full-model assembly for the ``dense`` and ``ssm`` families (the port of
 ``repro.models.model``): parameters stacked on a leading layer dimension
 (``params["seg0"]``, as the reference's scanned segments store them),
-embeddings and the tied head, the decode cache, ``prefill`` and
+embeddings and the head, the decode cache, ``prefill`` and
 ``decode_step``.  Layers run in a Python loop where the reference scans.
 
 Reference behaviour kept on purpose: ``prefill`` leaves the Mamba caches
 untouched (the reference does not capture the SSM state from a prompt, so
-decode starts from a zero state), and a prompt whose length is not a
-multiple of ``cfg.ssm_chunk`` is refused by the SSD scan.
+decode starts from a zero state); a prompt whose length is not a multiple
+of ``cfg.ssm_chunk`` is refused by the SSD scan, and an attention prompt
+longer than ``q_chunk`` that is not a multiple of it by the attention.
 
-Other families raise ``NotImplementedError``: dense, MoE, VLM and audio
-models need attention (ROADMAP B.4, A.10) and hybrids both.
+The attention KV caches are written in place (``blocks``): ``prefill``
+and ``decode_step`` fill the cache they are given and hand back a dict
+holding the same tensors.  The Mamba states are replaced, not written.
+
+Other families raise ``NotImplementedError``: MoE, hybrid, VLM and audio
+models need layers not ported yet (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -28,16 +33,40 @@ __all__ = ["decode_step", "embed_inputs", "init_cache", "init_params",
 Params = Dict[str, Any]
 
 
-def _require_ssm(cfg) -> None:
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name} is a {cfg.family!r} model; the port runs the 'ssm' "
-            f"family so far (attention models: ROADMAP B.4 and A.10)")
-
-
 def segments_of(cfg) -> Tuple[Tuple[str, int], ...]:
-    _require_ssm(cfg)
-    return (("mamba", cfg.num_layers),)
+    if cfg.family == "ssm":
+        return (("mamba", cfg.num_layers),)
+    if cfg.family == "dense":
+        return (("dense", cfg.num_layers),)
+    raise NotImplementedError(
+        f"{cfg.name} is a {cfg.family!r} model; the port runs the 'ssm' and "
+        f"'dense' families so far (the others: ROADMAP A.10)")
+
+
+def _stack_init(fn, count: int):
+    """``count`` draws of ``fn()`` stacked on a new dim 0, filled layer by
+    layer so only one layer exists twice at a time."""
+    first = fn()
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((count,) + tuple(t.shape), dtype=t.dtype,
+                           device=t.device)
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i] = src
+
+    out = alloc(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, count):
+        put(out, fn(), i)
+    return out
 
 
 def _stack(trees):
@@ -48,6 +77,7 @@ def _stack(trees):
 
 
 def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree, as views (writes reach the stack)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -55,12 +85,15 @@ def _layer(tree, i: int):
 
 def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> Params:
     """Random parameters from ``gen`` (made on ``gen.device``), in the
-    reference's tree layout; tied embeddings padded to ``vocab_padded``."""
+    reference's tree layout; embeddings padded to ``vocab_padded``."""
     p: Params = {"embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model,
                                        dtype)}
-    for i, (_, count) in enumerate(segments_of(cfg)):
-        p[f"seg{i}"] = _stack([B.mamba_block_init(gen, cfg, dtype)
-                               for _ in range(count)])
+    for i, (kind, count) in enumerate(segments_of(cfg)):
+        if kind == "dense":
+            fn = lambda: B.block_init(gen, cfg, dtype)  # noqa: E731
+        else:
+            fn = lambda: B.mamba_block_init(gen, cfg, dtype)  # noqa: E731
+        p[f"seg{i}"] = _stack_init(fn, count)
     p["final_norm"] = torch.ones(cfg.d_model, dtype=dtype, device=gen.device)
     if not cfg.tie_embeddings:
         p["head"] = L.dense_init(gen, cfg.d_model, (cfg.vocab_padded,), dtype)
@@ -68,8 +101,8 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> Params:
 
 
 def embed_inputs(cfg, params: Params, batch) -> torch.Tensor:
-    """Token embedding (the ``ssm`` family has no frontend)."""
-    _require_ssm(cfg)
+    """Token embedding (the ported families have no frontend)."""
+    segments_of(cfg)  # raises for a family not ported
     return params["embed"][batch["tokens"]]
 
 
@@ -95,39 +128,60 @@ def _head(cfg, params, x):
 
 def init_cache(cfg, batch: int, s_max: int, dtype=torch.float32,
                device=None):
-    """Per-segment stacked decode caches (``s_max`` sizes attention caches,
-    which the ``ssm`` family has none of)."""
+    """Per-segment stacked decode caches: (layers, B, s_max, KH, Dh) K and V
+    for attention segments, zero Mamba states for SSM segments."""
     cache: Dict[str, Any] = {}
-    for i, (_, count) in enumerate(segments_of(cfg)):
-        one = B.mamba_state_shape(cfg, batch, dtype, device)
-        cache[f"seg{i}"] = {k: v.expand((count,) + v.shape).clone()
+    for i, (kind, count) in enumerate(segments_of(cfg)):
+        if kind == "dense":
+            one = B.attn_cache_shape(cfg, batch, s_max, dtype, device="meta")
+        else:
+            one = B.mamba_state_shape(cfg, batch, dtype, device="meta")
+        cache[f"seg{i}"] = {k: torch.zeros((count,) + tuple(v.shape),
+                                           dtype=v.dtype, device=device)
                             for k, v in one.items()}
     return cache
 
 
-def prefill(cfg, params: Params, cache, batch, *, plain: bool = False):
+def prefill(cfg, params: Params, cache, batch, *, q_chunk: int = 1024,
+            plain: bool = False):
     """Run a full prompt; returns (last-token logits (B, V), cache).
 
-    The cache comes back untouched, as the reference's does for SSM
-    segments.  ``plain=True`` runs the SSD scan's plain version on every
-    device (the on-card reference for the kernel path).
+    Attention segments write K/V of every prompt position into ``cache`` in
+    place; Mamba segments leave theirs untouched, as the reference's do.
+    ``plain=True`` runs the attention's and the SSD scan's plain versions on
+    every device (the on-card reference for the kernel path).
     """
     x = embed_inputs(cfg, params, batch)
-    for i, (_, count) in enumerate(segments_of(cfg)):
+    for i, (kind, count) in enumerate(segments_of(cfg)):
         stacked = params[f"seg{i}"]
         for li in range(count):
-            x = B.mamba_block_apply(_layer(stacked, li), x, cfg, plain=plain)
+            lp = _layer(stacked, li)
+            if kind == "dense":
+                x, _ = B.block_prefill(lp, x, cfg,
+                                       _layer(cache[f"seg{i}"], li),
+                                       q_chunk=q_chunk, plain=plain)
+            else:
+                x = B.mamba_block_apply(lp, x, cfg, plain=plain)
     return _head(cfg, params, x[:, -1:])[:, 0], dict(cache)
 
 
-def decode_step(cfg, params: Params, cache, tokens, pos):
-    """One decode step.  tokens: (B, 1) integer; ``pos`` (the index of the
-    token being generated) is unused by SSM layers, as in the reference.
-    Returns (logits (B, V), new cache); the input cache is not modified."""
+def decode_step(cfg, params: Params, cache, tokens, pos: int):
+    """One decode step.  tokens: (B, 1) integer; ``pos`` is the index of the
+    token being generated (unused by SSM layers, as in the reference).
+
+    Returns (logits (B, V), cache).  Attention caches are written in place
+    at ``pos`` and come back as the same tensors; Mamba states come back
+    as new tensors and the input's are not modified.
+    """
     x = params["embed"][tokens]
     new_cache = dict(cache)
-    for i, (_, count) in enumerate(segments_of(cfg)):
+    for i, (kind, count) in enumerate(segments_of(cfg)):
         stacked, seg_cache = params[f"seg{i}"], cache[f"seg{i}"]
+        if kind == "dense":
+            for li in range(count):
+                x, _ = B.block_decode(_layer(stacked, li), x, cfg,
+                                      _layer(seg_cache, li), pos)
+            continue
         states = []
         for li in range(count):
             x, st = B.mamba_block_decode(_layer(stacked, li), x, cfg,

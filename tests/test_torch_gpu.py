@@ -7,7 +7,9 @@ no CUDA device is present.  Run on a card with
 Tolerances: the change-point kernel's landscape equals the plain version's
 to 1e-5 relative (the same f32 operations, no contraction); windows whose
 cut agrees agree to 1e-5; a differing cut must be a near-tie (1e-4 relative
-on the plain landscape).
+on the plain landscape).  SSD and flash attention take the reference
+suite's tolerances (tests/test_kernels.py): SSD 2e-4 in f32 and 5e-2 in
+bf16, attention 2e-5 in f32 and 2e-2 in bf16; model prefill logits 1e-4.
 """
 
 import numpy as np
@@ -157,3 +159,84 @@ def test_mamba_prefill_kernel_matches_plain_path(cuda):
     assert sd.LAUNCHES == before + cfg.num_layers
     want, _ = prefill(cfg, params, cache, {"tokens": prompts}, plain=True)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------- flash attention
+FLASH_CASES = {
+    # name: ((B, S, H, KH, D), causal, window, dtype, tolerance)
+    "swa_gqa_d120_f32": ((2, 520, 32, 8, 120), True, 256, torch.float32, 2e-5),
+    "swa_gqa_d120_bf16": ((2, 520, 32, 8, 120), True, 256, torch.bfloat16,
+                          2e-2),
+    "causal_d64": ((1, 300, 8, 2, 64), True, 0, torch.float32, 2e-5),
+    "bidirectional_d128": ((1, 256, 4, 4, 128), False, 0, torch.float32,
+                           2e-5),
+    "ragged_200": ((1, 200, 4, 4, 64), True, 0, torch.float32, 2e-5),
+    "window_not_causal": ((1, 256, 4, 2, 32), False, 64, torch.float32, 2e-5),
+    "tiny_d8_mqa": ((2, 70, 4, 1, 8), True, 5, torch.float32, 2e-5),
+}
+
+
+def flash_inputs(shape, dtype, dev, seed=0):
+    b, s, h, kh, d = shape
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(sh, generator=g).to(dev, dtype)
+                 for sh in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_matches_plain(cuda, case):
+    """Kernel against the plain version on the same CUDA tensors, at the
+    reference suite's tolerances (tests/test_kernels.py)."""
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.flash_attention import ops as fa
+    shape, causal, window, dtype, tol = FLASH_CASES[case]
+    q, k, v = flash_inputs(shape, dtype, cuda)
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES == before + 1 and got.dtype == dtype
+    want = attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels.flash_attention import ops as fa
+    q, k, v = flash_inputs((1, 64, 4, 2, 32), torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        fa.flash_attention(q[..., :28].contiguous(), k[..., :28].contiguous(),
+                           v[..., :28].contiguous())
+    big = flash_inputs((1, 64, 4, 2, 136), torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        fa.flash_attention(*big)
+    with pytest.raises(ValueError, match="not a multiple of KV heads"):
+        fa.flash_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="v must be"):
+        fa.flash_attention(q, k, v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(ValueError, match="window must be"):
+        fa.flash_attention(q, k, v, window=-1)
+
+
+def test_dense_prefill_kernel_matches_plain_path(cuda):
+    """The reduced h2o-danube-3-4b's prefill through the kernel against the
+    plain attention path on the same card and weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.serve import serve_inputs
+    from repro_torch.models import init_cache, prefill
+    cfg = get_config("h2o-danube-3-4b").reduced()
+    params, prompts = serve_inputs(cfg, batch=2, prompt_len=64, seed=1,
+                                   dtype=torch.float32, device=cuda)
+    before = fa.LAUNCHES
+    got, ck = prefill(cfg, params, init_cache(cfg, 2, 64, device=cuda),
+                      {"tokens": prompts})
+    assert fa.LAUNCHES == before + cfg.num_layers
+    want, cp = prefill(cfg, params, init_cache(cfg, 2, 64, device=cuda),
+                       {"tokens": prompts}, plain=True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ck["seg0"]["k"], cp["seg0"]["k"], rtol=1e-4,
+                               atol=1e-4)

@@ -183,3 +183,28 @@ class TestWindowvetPlain:
         with pytest.raises(ValueError, match="cpu or cuda"):
             wv.fused_window_vet_scan(torch.zeros(64, device="meta"),
                                      t.int(), t.int(), t, lmax=8)
+
+
+def test_every_entry_point_has_its_ctypes_signature():
+    """Each ``extern "C"`` entry of ``csrc/*.cu`` is registered in
+    ``runtime._SIGNATURES`` with one ctypes type per C parameter (a pointer
+    or the stream as c_void_p, an int as c_int, a float as c_float): a
+    mismatch would pass wrong arguments on the card without an error."""
+    import ctypes
+    import re
+    from repro_torch.kernels import runtime
+
+    def ctype(param):
+        if "*" in param or "cudaStream_t" in param:
+            return ctypes.c_void_p
+        return ctypes.c_float if param.split()[0] == "float" else ctypes.c_int
+
+    found = {}
+    for src in runtime.CSRC.glob("*.cu"):
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
+                             src.read_text()):
+            found[m.group(1)] = [ctype(p.strip()) for p in
+                                 m.group(2).split(",")]
+    assert set(found) >= {"ssd_scan_f32", "flash_attention_f32",
+                          "flash_attention_bf16"}
+    assert runtime._SIGNATURES == found

@@ -1,12 +1,15 @@
 """The port's model substrate (``repro_torch.configs``, ``models``) against
 the reference's, at the reduced mamba2-130m (4 layers, d_model 128, state
-16, headdim 16, chunk 8).
+16, headdim 16, chunk 8) and the reduced dense models h2o-danube-3-4b
+(sliding window 16, GQA 4:2) and qwen3-14b (full causal attention, qk_norm,
+untied head): 4 layers, d_model 128, 4 heads of 32.
 
 Weights are the reference's own ``init_params``, handed to the port as
 numpy arrays through ``params_from_numpy``; prompts are numpy integers from
 a seed.  Tolerance: logits within 1e-4 (rtol and atol) in f32, at every
 step of an 8-step greedy decode whose tokens must be equal; the SSM decode
-state within 1e-4 after the loop.
+state, and the filled KV cache of the dense models, within 1e-4 after the
+loop.
 """
 
 import dataclasses
@@ -122,10 +125,110 @@ def test_prompt_not_a_multiple_of_the_chunk_is_refused(setup):
                            {"tokens": jnp.asarray(ragged)})
 
 
+DENSE = ("h2o-danube-3-4b", "qwen3-14b")
+
+
+def dense_setup(name):
+    cfg = get_config(name).reduced()
+    jcfg = ref_configs.get_config(name).reduced()
+    jparams = ref_models.init_params(jcfg, jax.random.PRNGKey(1),
+                                     dtype=jnp.float32)
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    return cfg, jcfg, params, jparams, tokens
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_init_params_has_the_reference_layout(name):
+    cfg, _, converted, jparams, _ = dense_setup(name)
+    drawn = init_params(cfg, torch.Generator().manual_seed(0))
+
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        return (tuple(tree.shape), str(tree.dtype).split(".")[-1])
+
+    want = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jparams)
+    assert shapes(drawn) == want
+    assert shapes(converted) == want
+
+
+@pytest.mark.parametrize("q_chunk", [1024, 16], ids=["one_block", "chunked"])
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_prefill_and_greedy_decode_match_reference(name, q_chunk):
+    """Prefill through the port's attention path (the plain version on the
+    CPU; at ``q_chunk`` 16 the query-chunked branches), then 8 greedy steps
+    against the cache the prefill filled in place."""
+    cfg, jcfg, params, jparams, tokens = dense_setup(name)
+    s_max = PROMPT + STEPS
+    jcache = ref_models.init_cache(jcfg, BATCH, s_max, dtype=jnp.float32)
+    jlogits, jcache = ref_models.prefill(jcfg, jparams, jcache,
+                                         {"tokens": jnp.asarray(tokens)},
+                                         q_chunk=q_chunk)
+    cache = init_cache(cfg, BATCH, s_max)
+    assert cache["seg0"]["k"].shape == (cfg.num_layers, BATCH, s_max,
+                                        cfg.num_kv_heads, cfg.head_dim)
+    logits, out = prefill(cfg, params, cache,
+                          {"tokens": torch.from_numpy(tokens).long()},
+                          q_chunk=q_chunk)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               rtol=TOL, atol=TOL)
+    for k in ("k", "v"):  # filled in place: the same tensors come back
+        assert out["seg0"][k] is cache["seg0"][k]
+        np.testing.assert_allclose(cache["seg0"][k].numpy(),
+                                   np.asarray(jcache["seg0"][k]),
+                                   rtol=TOL, atol=TOL)
+
+    jtok = jnp.argmax(jlogits, -1)[:, None].astype(jnp.int32)
+    tok = torch.argmax(logits, -1)[:, None]
+    for i in range(STEPS):
+        assert np.array_equal(tok.numpy(), np.asarray(jtok)), f"step {i}"
+        jlogits, jcache = ref_models.decode_step(jcfg, jparams, jcache, jtok,
+                                                 jnp.asarray(PROMPT + i))
+        logits, out = decode_step(cfg, params, cache, tok, PROMPT + i)
+        assert out["seg0"]["k"] is cache["seg0"]["k"]
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   rtol=TOL, atol=TOL, err_msg=f"step {i}")
+        jtok = jnp.argmax(jlogits, -1)[:, None].astype(jnp.int32)
+        tok = torch.argmax(logits, -1)[:, None]
+    for k in ("k", "v"):
+        np.testing.assert_allclose(cache["seg0"][k].numpy(),
+                                   np.asarray(jcache["seg0"][k]),
+                                   rtol=TOL, atol=TOL)
+    assert cache["seg0"]["k"][:, :, :s_max - 1].abs().amax(-1).gt(0).all()
+
+
+def test_dense_prompt_off_the_query_chunk_is_refused():
+    cfg, jcfg, params, jparams, tokens = dense_setup("h2o-danube-3-4b")
+    ragged = tokens[:, :PROMPT - 8]
+    with pytest.raises(ValueError, match="multiple of the attention query"):
+        prefill(cfg, params, init_cache(cfg, BATCH, PROMPT),
+                {"tokens": torch.from_numpy(ragged).long()}, q_chunk=16)
+    with pytest.raises(AssertionError):  # the reference asserts the same
+        ref_models.prefill(jcfg, jparams,
+                           ref_models.init_cache(jcfg, BATCH, PROMPT,
+                                                 dtype=jnp.float32),
+                           {"tokens": jnp.asarray(ragged)}, q_chunk=16)
+
+
+def test_params_from_numpy_refuses_a_tree_that_lacks_an_entry():
+    cfg, _, _, jparams, _ = dense_setup("qwen3-14b")
+    tree = jax.tree.map(np.asarray, jparams)
+    del tree["head"]  # qwen3-14b unties its head
+    with pytest.raises(KeyError, match="'head'"):
+        params_from_numpy(cfg, tree)
+
+
 def test_unported_families_and_layouts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(get_config("h2o-danube-3-4b").reduced(),
-                    torch.Generator())
+    for name in ("deepseek-moe-16b", "deepseek-v2-lite-16b", "zamba2-7b",
+                 "internvl2-26b", "hubert-xlarge"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_params(get_config(name).reduced(), torch.Generator())
+    with pytest.raises(NotImplementedError, match="int8 KV cache"):
+        init_cache(dataclasses.replace(get_config("h2o-danube-3-4b")
+                                       .reduced(), kv_cache_dtype="int8"),
+                   1, 8)
     split = dataclasses.replace(get_config("mamba2-130m").reduced(),
                                 ssm_split_proj=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,6 +1,7 @@
 """The port's serve entry point (``repro_torch.launch.serve``) on the CPU,
-reduced mamba2-130m, with enough decode steps for two 32-unit dashboard
-windows (331 tokens at ``record_unit=5``: 330 records, 66 units).
+reduced mamba2-130m and reduced h2o-danube-3-4b, with enough decode steps
+for two 32-unit dashboard windows (331 tokens at ``record_unit=5``: 330
+records, 66 units).
 
 The dashboard is held to the port's own estimator over the same profile:
 ``vet``/``ei``/``pr`` equal ``VetEngine.vet_one`` over the run's unit
@@ -72,6 +73,46 @@ def test_serve_refuses_a_prompt_off_the_chunk():
     with pytest.raises(ValueError, match="multiple of the SSD chunk"):
         serve(get_config("mamba2-130m").reduced(), batch=1, prompt_len=12,
               gen_len=4, device="cpu", verbose=False)
+
+
+@pytest.fixture(scope="module")
+def dense_result():
+    cfg = get_config("h2o-danube-3-4b").reduced()
+    return cfg, serve(cfg, batch=2, prompt_len=48, gen_len=GEN, device="cpu",
+                      verbose=False)
+
+
+def test_dense_serve_runs_two_windows_and_generates(dense_result):
+    """Prompt 48 and 331 generated tokens pass the reduced window of 16, so
+    prefill and decode both mask by the window."""
+    cfg, res = dense_result
+    assert res.tokens.shape == (2, GEN) and res.tokens.dtype == np.int32
+    assert ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()
+    assert res.windows is not None and res.windows.workers == 2
+    assert np.isfinite(res.windows.vet).all() and res.vet >= 1.0 - 1e-6
+    assert res.init_s > 0 and res.prefill_s > 0
+
+
+def test_dense_first_token_is_the_prefill_argmax(dense_result):
+    from repro_torch.models import init_cache, prefill
+    cfg, res = dense_result
+    params, prompts = serve_inputs(cfg, batch=2, prompt_len=48, seed=0,
+                                   dtype=torch.float32, device="cpu")
+    logits, _ = prefill(cfg, params, init_cache(cfg, 2, 48),
+                        {"tokens": prompts})
+    np.testing.assert_array_equal(res.tokens[:, 0],
+                                  torch.argmax(logits, -1).numpy())
+
+
+def test_serve_refuses_a_prompt_off_the_attention_chunk():
+    """Above 1024 an attention prompt must be a multiple of the reference's
+    query chunk; the check runs before any weight is drawn, so even the
+    full-width config refuses at once."""
+    for cfg in (get_config("h2o-danube-3-4b"),
+                get_config("h2o-danube-3-4b").reduced()):
+        with pytest.raises(ValueError, match="attention query chunk 1024"):
+            serve(cfg, batch=1, prompt_len=1500, gen_len=4, device="cpu",
+                  verbose=False)
 
 
 def test_main_parses_the_reference_flags(monkeypatch):
