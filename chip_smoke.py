@@ -24,11 +24,11 @@ drives the port's main paths on one GPU, in six phases:
    (3.84 B parameters, f32, sliding window 4096; batch 2, 7,168-token
    prompts, 331 generated tokens): the flash-attention kernel in every
    layer's prefill, the in-place KV cache, decode and the dashboard.  The
-   weights are drawn on the card from seed 0 (``--host-init`` draws them on
-   the host, as ``serve`` does by default; the two draws differ).  Prefill
-   logits through the kernel are held against the plain attention path on
-   the same weights (1e-3 of the largest logit), each path filling its own
-   cache; the greedy tokens of the first decode steps must be equal; the
+   weights are drawn on the card from seed 0 (other numbers than the host
+   draw that ``serve`` makes by default).  Prefill logits and the filled
+   KV caches through the kernel are held against the plain attention path
+   on the same weights (1e-3 of the largest value), each path filling its
+   own cache; the greedy tokens of the first decode steps must be equal; the
    reduced config's prefill on the card is held against the CPU.  One
    prefill and a few decode steps are traced with ``torch.profiler`` for
    device time by kernel.
@@ -73,7 +73,8 @@ PHASES = ("kernels", "job", "fleet_fused", "fleet_gather", "serve",
 SSD_RTOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py TestSSD
 # tests/test_kernels.py TestFlashAttention
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-LOGIT_TOL = 1e-3  # serve: kernel vs plain prefill logits, of the largest
+# serve: kernel vs plain prefill logits and KV caches, of the largest value
+LOGIT_TOL = 1e-3
 
 
 class SmokeError(RuntimeError):
@@ -716,7 +717,7 @@ def phase_serve(card: str, cfg=None, device: str = "cuda", batch: int = 4,
     require(np.array_equal(res.tokens[:, 0], tk[:, 0].cpu().numpy()),
             "serve: first token differs from a fresh prefill on the same "
             "weights")
-    ck = cp = cache
+    ck, cp = cache, init_cache(cfg, batch, prompt_len + gen_len, device=dev)
     same = [bool(torch.equal(tk, tp))]
     for i in range(decode_check):
         lk_i, ck = decode_step(cfg, params, ck, tk, prompt_len + i)
@@ -769,10 +770,12 @@ def device_time(fn, top: int = 8) -> dict:
     """``fn()`` under ``torch.profiler``: wall ms, the summed time of the
     device's own events (kernels and copies, not the operators that launch
     them) and the largest by name.  Reports the profiler's error instead of
-    failing (a measurement, not a check)."""
+    failing, but fails if the summed device time exceeds the wall time (a
+    count that took in more than the device's own events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -790,16 +793,17 @@ def device_time(fn, top: int = 8) -> dict:
             kernels.append((dev_us / 1e3, e.key, e.count))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
+    require(busy <= wall * 1.01, f"device_time: {busy:.1f} ms of device "
+                                 f"events in {wall:.1f} ms of wall time")
     return {"wall_ms": wall, "device_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall) if wall else None,
+            "idle_share": 1.0 - busy / wall,
             "top": [{"kernel": k[:80], "ms": t, "calls": c}
                     for t, k, c in kernels[:top]]}
 
 
 def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
                      batch: int = 2, prompt_len: int = 7168,
-                     gen_len: int = 331, decode_check: int = 8,
-                     host_init: bool = False) -> dict:
+                     gen_len: int = 331, decode_check: int = 8) -> dict:
     """Full-width h2o-danube-3-4b (or ``cfg``) through the port's serve
     entry point, then the kernel path's prefill held against the plain
     attention path."""
@@ -810,13 +814,12 @@ def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
 
     cfg = cfg if cfg is not None else get_config("h2o-danube-3-4b")
     dev = torch.device(device)
-    init_device = None if host_init else dev
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     res = serve(cfg, batch=batch, prompt_len=prompt_len, gen_len=gen_len,
-                device=dev, verbose=False, init_device=init_device)
+                device=dev, verbose=False, init_device=dev)
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -837,7 +840,7 @@ def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
     # path filling its own cache (the caches are written in place).
     params, prompts = serve_inputs(cfg, batch=batch, prompt_len=prompt_len,
                                    seed=0, dtype=torch.float32, device=dev,
-                                   init_device=init_device)
+                                   init_device=dev)
     s_max = prompt_len + gen_len
     batch_in = {"tokens": prompts}
     ck = init_cache(cfg, batch, s_max, device=dev)
@@ -860,6 +863,10 @@ def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
                                       f"{scale:.3g})")
     cache_err = max(float((ck["seg0"][n] - cp["seg0"][n]).abs().max())
                     for n in ("k", "v"))
+    cache_scale = max(float(cp["seg0"][n].abs().max()) for n in ("k", "v"))
+    require(cache_err <= LOGIT_TOL * cache_scale,
+            f"serve_attn: filled KV caches kernel vs plain off by "
+            f"{cache_err:.3g} (scale {cache_scale:.3g})")
     tk = torch.argmax(logits_k, -1)[:, None]
     tp = torch.argmax(logits_p, -1)[:, None]
     require(np.array_equal(res.tokens[:, 0], tk[:, 0].cpu().numpy()),
@@ -888,7 +895,7 @@ def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
     return {"phase": "serve_attn", "card": card, "arch": cfg.name,
             "params": cfg.param_count(), "batch": batch,
             "prompt_len": prompt_len, "gen_len": gen_len,
-            "weights_drawn_on": "host" if host_init else "card",
+            "weights_drawn_on": "card",
             "init_s": res.init_s, "prefill_ms": res.prefill_s * 1e3,
             "kernel_prefill_ms": kernel_prefill_ms,
             "plain_prefill_ms": plain_prefill_ms, "launches": launches,
@@ -900,7 +907,7 @@ def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
             "decode_unit_ms_median": float(np.median(res.unit_times)) * 1e3,
             "peak_device_bytes": int(peak),
             "prefill_logits_max_abs_err": err, "logit_scale": scale,
-            "kv_cache_max_abs_err": cache_err,
+            "kv_cache_max_abs_err": cache_err, "kv_cache_scale": cache_scale,
             "greedy_equal_steps": len(same), "traced": traced,
             "reduced_vs_cpu": small}
 
@@ -909,9 +916,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
-    ap.add_argument("--host-init", action="store_true",
-                    help="serve_attn: draw the weights on the host, as "
-                         "serve does by default, instead of on the card")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     require(set(phases) <= set(PHASES), f"unknown phase in {phases}")
@@ -956,8 +960,7 @@ def main(argv=None) -> int:
         results["serve"] = phase_serve(card)
         emit(results["serve"])
     if "serve_attn" in phases:
-        results["serve_attn"] = phase_serve_attn(card,
-                                                 host_init=args.host_init)
+        results["serve_attn"] = phase_serve_attn(card)
         emit(results["serve_attn"])
 
     launches = {"changepoint": 0, "windowvet": 0, "ssd": 0,

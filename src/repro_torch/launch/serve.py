@@ -16,8 +16,8 @@ buckets=64)`` on the serving device.  Weights and prompts come from a
 ``torch.Generator`` seeded by ``seed`` on the CPU, so a seed gives the same
 model on every device; ``init_device`` draws them on another device
 instead (a full-width model's weights drawn on the card, which gives other
-numbers than the CPU draw of the same seed).  Attention KV caches are
-filled in place (``models.blocks``).
+numbers than the CPU draw of the same seed).  The decode cache is written
+in place (``models.model``).
 
 Not in this slice: ``--transport`` (``fleet.transport``, ROADMAP A.8) and
 ``--tune`` (``fleet.knobs`` and ``sched.tuner``, ROADMAP A.6/A.9).

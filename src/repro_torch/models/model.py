@@ -10,9 +10,11 @@ decode starts from a zero state); a prompt whose length is not a multiple
 of ``cfg.ssm_chunk`` is refused by the SSD scan, and an attention prompt
 longer than ``q_chunk`` that is not a multiple of it by the attention.
 
-The attention KV caches are written in place (``blocks``): ``prefill``
-and ``decode_step`` fill the cache they are given and hand back a dict
-holding the same tensors.  The Mamba states are replaced, not written.
+**The cache is written in place, for every family.**  ``prefill`` and
+``decode_step`` write into the cache tensors they are given (attention K/V
+at the positions they fill, Mamba states at every decode step) and hand
+back a dict holding the same tensors.  A caller that runs two paths gives
+each its own cache (or clones one first).
 
 Other families raise ``NotImplementedError``: MoE, hybrid, VLM and audio
 models need layers not ported yet (ROADMAP A.10).
@@ -67,13 +69,6 @@ def _stack_init(fn, count: int):
     for i in range(1, count):
         put(out, fn(), i)
     return out
-
-
-def _stack(trees):
-    """Stack a list of equal-structure dicts of tensors on a new dim 0."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 def _layer(tree, i: int):
@@ -169,23 +164,19 @@ def decode_step(cfg, params: Params, cache, tokens, pos: int):
     """One decode step.  tokens: (B, 1) integer; ``pos`` is the index of the
     token being generated (unused by SSM layers, as in the reference).
 
-    Returns (logits (B, V), cache).  Attention caches are written in place
-    at ``pos`` and come back as the same tensors; Mamba states come back
-    as new tensors and the input's are not modified.
+    Returns (logits (B, V), cache).  The cache is written in place:
+    attention K/V at ``pos``, Mamba states in full; the same tensors come
+    back.
     """
     x = params["embed"][tokens]
-    new_cache = dict(cache)
     for i, (kind, count) in enumerate(segments_of(cfg)):
         stacked, seg_cache = params[f"seg{i}"], cache[f"seg{i}"]
-        if kind == "dense":
-            for li in range(count):
-                x, _ = B.block_decode(_layer(stacked, li), x, cfg,
-                                      _layer(seg_cache, li), pos)
-            continue
-        states = []
         for li in range(count):
-            x, st = B.mamba_block_decode(_layer(stacked, li), x, cfg,
-                                         _layer(seg_cache, li))
-            states.append(st)
-        new_cache[f"seg{i}"] = _stack(states)
-    return _head(cfg, params, x)[:, 0], new_cache
+            lp, lc = _layer(stacked, li), _layer(seg_cache, li)
+            if kind == "dense":
+                x, _ = B.block_decode(lp, x, cfg, lc, pos)
+                continue
+            x, st = B.mamba_block_decode(lp, x, cfg, lc)
+            for k, t in st.items():
+                lc[k].copy_(t)
+    return _head(cfg, params, x)[:, 0], dict(cache)

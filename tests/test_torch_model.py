@@ -9,7 +9,8 @@ numpy arrays through ``params_from_numpy``; prompts are numpy integers from
 a seed.  Tolerance: logits within 1e-4 (rtol and atol) in f32, at every
 step of an 8-step greedy decode whose tokens must be equal; the SSM decode
 state, and the filled KV cache of the dense models, within 1e-4 after the
-loop.
+loop; the dense attention and transformer blocks without a cache within
+1e-4.
 """
 
 import dataclasses
@@ -22,9 +23,11 @@ import torch
 
 import repro.configs as ref_configs
 import repro.models as ref_models
+import repro.models.blocks as ref_blocks
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.models import (decode_step, init_cache, init_params,
                                 params_from_numpy, prefill)
+from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
 TOL = 1e-4
@@ -105,11 +108,12 @@ def test_prefill_and_greedy_decode_match_reference(setup):
                                    rtol=TOL, atol=TOL, err_msg=f"step {i}")
         jtok = jnp.argmax(jlogits, -1)[:, None].astype(jnp.int32)
         tok = torch.argmax(logits, -1)[:, None]
-    for k in ("h", "conv"):
-        np.testing.assert_allclose(cache_after["seg0"][k].numpy(),
+    for k in ("h", "conv"):  # written in place: the same tensors come back
+        assert cache_after["seg0"][k] is cache["seg0"][k]
+        np.testing.assert_allclose(cache["seg0"][k].numpy(),
                                    np.asarray(jcache["seg0"][k]),
                                    rtol=TOL, atol=TOL)
-    assert not cache["seg0"]["h"].any()  # decode_step returns a new cache
+    assert cache["seg0"]["h"].any()
 
 
 def test_prompt_not_a_multiple_of_the_chunk_is_refused(setup):
@@ -197,6 +201,32 @@ def test_dense_prefill_and_greedy_decode_match_reference(name, q_chunk):
                                    np.asarray(jcache["seg0"][k]),
                                    rtol=TOL, atol=TOL)
     assert cache["seg0"]["k"][:, :, :s_max - 1].abs().amax(-1).gt(0).all()
+
+
+@pytest.mark.parametrize("q_chunk", [1024, 16], ids=["one_block", "chunked"])
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_block_apply_matches_reference(name, q_chunk):
+    """The full-sequence attention block and transformer block (no cache)
+    of layer 0 against the reference's ``attn_apply`` and ``block_apply``
+    on the same numpy input."""
+    cfg, jcfg, params, jparams, _ = dense_setup(name)
+    jlayer = jax.tree.map(lambda a: a[0], jparams["seg0"])
+    layer = {k: ({n: t[0] for n, t in v.items()} if isinstance(v, dict)
+                 else v[0]) for k, v in params["seg0"].items()}
+    x = np.random.default_rng(2).standard_normal(
+        (BATCH, PROMPT, cfg.d_model)).astype(np.float32)
+    tx = torch.from_numpy(x)
+    got = B.attn_apply(layer["attn"], tx, cfg, q_chunk=q_chunk)
+    want = ref_blocks.attn_apply(jlayer["attn"], jnp.asarray(x), jcfg,
+                                 q_chunk=q_chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+    got, aux = B.block_apply(layer, tx, cfg, q_chunk=q_chunk)
+    want, jaux = ref_blocks.block_apply(jlayer, jnp.asarray(x), jcfg,
+                                        q_chunk=q_chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+    assert float(aux) == float(jaux) == 0.0
 
 
 def test_dense_prompt_off_the_query_chunk_is_refused():
