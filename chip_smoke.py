@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Builds the CUDA kernel library from ``src/repro_torch/kernels/csrc`` and
-drives the port's main paths on one GPU, in six phases:
+Builds the CUDA kernel library from ``src/repro_torch/kernels/csrc`` (and,
+alongside, the flash-attention source once more with ``-Xptxas -v``: its
+kernels' registers and spills, which must be none, and their HGMMA / HMMA
+counts from ``cuobjdump -sass`` print on the ``compiled`` line) and drives
+the port's main paths on one GPU, in six phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with CUDA-event times, bounds and,
    for flash attention, ``scaled_dot_product_attention`` on the same inputs
-   as a yardstick (timed here, never called by the port);
+   as a yardstick (timed here, never called by the port); flash attention's
+   bounds are on the tensor cores (bf16 at 989 TFLOP/s, f32 as three TF32
+   passes at 495/3);
 2. ``job``      — the paper's post-hoc measure on a 1024-task x 65,536-record
    Hadoop job (``VetEngine("cuda").vet_batch`` and ``vet_job``);
 3. ``fleet_fused``  — a 4096-stream ``VetMux`` on the fused window-vet path;
@@ -43,7 +48,11 @@ failed (see ``hold``).  Kernel launch counters are zeroed just before
 the CUDA path of each main-path phase and read just after it.
 
 Usage: ``python3 chip_smoke.py`` (needs one CUDA device and nvcc).
-``--phases`` runs a subset, for development.  Exits non-zero, printing no
+``--phases`` runs a subset, for development.  ``--compare a=PATH b=PATH``
+runs no phase: it builds those versions of ``flash_attention.cu`` (for
+example the parent commit's, unpacked with ``git archive`` into a directory
+that ``.gitignore`` lists) and times and checks them in turns on the same
+inputs (``compare_flash``).  Exits non-zero, printing no
 result, when no CUDA device is available or a phase fails.  Prints one JSON
 line per phase, the card's name and power limit, the kernel table, and last
 ``{"ok": true, "device": {...}}``.
@@ -53,6 +62,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -66,6 +78,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# f32-accurate products on the tensor cores: three TF32 passes (495 TFLOP/s
+# dense), the least an f32 attention can take there
+TF32X3_OPS_PER_S = 495e12 / 3
 RTOL = 1e-5  # vet/ei/oc/pr where the cut agrees
 GAP = 1e-4  # relative SSE gap allowed between two near-tie cuts
 PHASES = ("kernels", "job", "fleet_fused", "fleet_gather", "serve",
@@ -75,6 +90,9 @@ SSD_RTOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py TestSSD
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # serve: kernel vs plain prefill logits and KV caches, of the largest value
 LOGIT_TOL = 1e-3
+# flash-attention kernel functions (csrc/flash_attention.cu) -> C entry
+FLASH_KERNELS = {"flash_wgmma_bf16": "flash_attention_bf16",
+                 "flash_wgmma_tf32": "flash_attention_f32"}
 
 
 class SmokeError(RuntimeError):
@@ -120,6 +138,82 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------------------------------------ the compiled
+def ptxas_start():
+    """Compile ``csrc/flash_attention.cu`` once more with ``-Xptxas -v``, in
+    parallel with the library build, for its kernels' registers and
+    spills."""
+    from repro_torch.kernels import runtime
+    runtime.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = runtime.BUILD_DIR / f"ptxas-check-{os.getpid()}.o"
+    proc = subprocess.Popen(
+        [runtime._nvcc(), *runtime.ARCH_FLAGS, *runtime.NVCC_FLAGS,
+         "-Xptxas", "-v", "-c", str(runtime.CSRC / "flash_attention.cu"),
+         "-o", str(obj)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return obj, proc
+
+
+def ptxas_report(obj, proc) -> dict:
+    """Registers, stack and spills of each flash kernel from ptxas; fails on
+    a spill.  Keeps ptxas's warnings, such as a wgmma it had to serialise
+    (which costs time)."""
+    _, err = proc.communicate()
+    obj.unlink(missing_ok=True)
+    require(proc.returncode == 0, f"ptxas check failed:\n{err[-3000:]}")
+    out, name = {}, None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = next((k for k in FLASH_KERNELS if k in m.group(1)), None)
+            continue
+        if name is None:
+            continue
+        row = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            row.update(stack_bytes=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m[1])
+    require(set(out) == set(FLASH_KERNELS) and all(
+        "registers" in r and "spill_stores" in r for r in out.values()),
+        f"ptxas check: no report for every flash kernel in\n{err[-3000:]}")
+    require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                for r in out.values()), f"flash kernels spill: {out}")
+    out["notes"] = [ln.strip()[:200] for ln in err.splitlines()
+                    if "arning" in ln or "erializ" in ln][:8]
+    return out
+
+
+def sass_counts(lib_path) -> dict:
+    """Tensor-core instructions of each flash kernel in the built library
+    (``cuobjdump -sass``): HGMMA is wgmma, HMMA is mma.sync.  Both kernels
+    must hold HGMMA."""
+    from repro_torch.kernels import runtime
+    tool = (shutil.which("cuobjdump")
+            or str(Path(runtime._nvcc()).parent / "cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = next((k for k in FLASH_KERNELS if k in m.group(1)), None)
+            if name:
+                out[name] = {"HGMMA": 0, "HMMA": 0}
+            continue
+        if name:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    out[name][op] += 1
+    require(all(out.get(k, {}).get("HGMMA", 0) > 0 for k in FLASH_KERNELS),
+            f"a flash kernel has no HGMMA: {out}")
+    return out
 
 
 # ---------------------------------------------------------------- contract
@@ -418,11 +512,15 @@ FLASH_SERVE = (2, 7168, 32, 8, 120)
 
 def flash_cases(dev, lib, stream_ptr) -> list:
     """Flash attention against its plain version at the serve_attn shape
-    (f32 and bf16, causal with window 4096), causal and bidirectional at
-    S = 2048, and a ragged S = 200; elementwise |a - b| <= tol + tol |b|.
-    ``library_ms`` is one ``scaled_dot_product_attention`` call on the same
-    inputs and mask (KV heads repeated to the query heads beforehand, as its
-    fused backends take them)."""
+    (f32 and bf16, causal with window 4096), causal (f32 and bf16) and
+    bidirectional at S = 2048, and a ragged S = 200; elementwise
+    |a - b| <= tol + tol |b|.  ``library_ms`` is one
+    ``scaled_dot_product_attention`` call on the same inputs and mask (KV
+    heads repeated to the query heads beforehand, as its fused backends take
+    them).  The bound counts the live pairs' operations on the tensor cores:
+    bf16 at 989 TFLOP/s, f32 as three TF32 passes (``TF32X3_OPS_PER_S``);
+    ``f32_unit_bound_ms`` keeps the f32 rows' bound on the f32 units (67
+    TFLOP/s), the basis before the kernels used the tensor cores."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_plain, live_pairs
@@ -431,6 +529,8 @@ def flash_cases(dev, lib, stream_ptr) -> list:
     cases = (("serve_f32", FLASH_SERVE, True, 4096, torch.float32),
              ("serve_bf16", FLASH_SERVE, True, 4096, torch.bfloat16),
              ("causal_2048", (2, 2048, 32, 8, 120), True, 0, torch.float32),
+             ("causal_2048_bf16", (2, 2048, 32, 8, 120), True, 0,
+              torch.bfloat16),
              ("bidirectional_2048", (2, 2048, 32, 8, 120), False, 0,
               torch.float32),
              ("ragged_200", (2, 200, 32, 8, 120), True, 0, torch.float32))
@@ -467,8 +567,13 @@ def flash_cases(dev, lib, stream_ptr) -> list:
         pairs = live_pairs(s, causal=causal, window=window)
         ops = 4.0 * d * pairs * b * h
         nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kh * d)
-        bms, by = bound_ms(nbytes, ops, F32_OPS_PER_S if dtype ==
-                           torch.float32 else BF16_OPS_PER_S)
+        if dtype == torch.float32:
+            bms, by = bound_ms(nbytes, ops, TF32X3_OPS_PER_S)
+            basis = "3xTF32 tensor cores, 495/3 TFLOP/s"
+            unit_ms = bound_ms(nbytes, ops, F32_OPS_PER_S)[0]
+        else:
+            bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+            basis, unit_ms = "bf16 tensor cores, 989 TFLOP/s", None
         qt = q.transpose(1, 2)
         kt = k.repeat_interleave(h // kh, dim=2).transpose(1, 2)
         vt = v.repeat_interleave(h // kh, dim=2).transpose(1, 2)
@@ -491,12 +596,97 @@ def flash_cases(dev, lib, stream_ptr) -> list:
                      "max_err_over_tol": worst, "live_pairs_per_head": pairs,
                      "gflop": ops / 1e9, "ms": ms, "call_ms": call_ms,
                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "bound_basis": basis, "f32_unit_bound_ms": unit_ms,
                      "library_ms": lib_ms, "library_error": lib_err,
-                     "smem_bytes": fa.smem_bytes(d),
-                     "blocks": -(-s // 64) * h * b})
+                     "smem_bytes": fa.smem_bytes(dtype),
+                     "blocks": -(-s // fa.block_rows(dtype)) * h * b})
         del q, k, v, o_k, o_p, a, ref, err
         torch.cuda.empty_cache()
     return rows
+
+
+# --compare: name -> ((B, S, H, KH, D), causal, window, timed calls)
+COMPARE_CASES = {
+    "serve": (FLASH_SERVE, True, 4096, 10),
+    "causal_2048": ((2, 2048, 32, 8, 120), True, 0, 30),
+    "long_16k": ((1, 16384, 8, 2, 128), True, 0, 5),
+    "edges": ((2, 70, 4, 1, 8), True, 5, 10),
+}
+
+
+def compare_flash(builds, cases, dtypes) -> None:
+    """Build each ``NAME=PATH[:FLAG,...]`` flash-attention source (this
+    checkout's ``csrc`` on the include path, ``-Xptxas -v``) into
+    ``build/compare-NAME.so``, all builds started together, then run them
+    on the same inputs for every case and dtype in the order given and in
+    reverse (a, b, b, a): each held against ``attention_plain`` at
+    ``FLASH_TOL`` and timed with CUDA events.  One JSON line per build and
+    per (case, dtype, build, round)."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    runtime.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    specs, procs, libs = {}, {}, {}
+    for item in builds:
+        name, _, rest = item.partition("=")
+        src, _, flags = rest.partition(":")
+        specs[name] = (src, [f for f in flags.split(",") if f])
+        out = runtime.BUILD_DIR / f"compare-{name}.so"
+        procs[name] = (out, subprocess.Popen(
+            [runtime._nvcc(), *runtime.ARCH_FLAGS, *runtime.NVCC_FLAGS,
+             "-shared", "-Xptxas", "-v", "-I", str(runtime.CSRC),
+             *specs[name][1], src, "-o", str(out)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for name, (out, proc) in procs.items():
+        _, err = proc.communicate()
+        require(proc.returncode == 0,
+                f"build {name} failed:\n{err[-3000:]}")
+        emit({"build": name, "source": specs[name][0],
+              "flags": specs[name][1],
+              "registers": [int(r) for r in
+                            re.findall(r"Used (\d+) registers", err)],
+              "spill_stores": [int(r) for r in re.findall(
+                  r"(\d+) bytes spill stores", err)]})
+        lib = ctypes.CDLL(str(out))
+        for entry in ("flash_attention_f32", "flash_attention_bf16"):
+            fn = getattr(lib, entry)
+            fn.argtypes = runtime._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+        libs[name] = lib
+    dev = torch.device("cuda")
+    order = list(libs) + list(reversed(list(libs)))
+    for case in cases:
+        (b, s, h, kh, d), causal, window, iters = COMPARE_CASES[case]
+        for tname in dtypes:
+            dtype, tol = getattr(torch, tname), FLASH_TOL[tname]
+            gen = torch.Generator(device=dev).manual_seed(0)
+            q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
+                       for sh in ((b, s, h, d), (b, s, kh, d),
+                                  (b, s, kh, d)))
+            ref = attention_plain(q, k, v, causal=causal,
+                                  window=window).float()
+            o = torch.empty_like(q)
+            entry = ("flash_attention_f32" if dtype == torch.float32
+                     else "flash_attention_bf16")
+            call = ([t.data_ptr() for t in (q, k, v, o)]
+                    + [b, s, h, kh, d, int(causal), window, d ** -0.5,
+                       torch.cuda.current_stream().cuda_stream])
+            for i, name in enumerate(order):
+                fn = getattr(libs[name], entry)
+                o.fill_(float("nan"))
+                code = fn(*call)
+                torch.cuda.synchronize()
+                require(code == 0, f"{name} {case}: CUDA error {code}")
+                err = (o.float() - ref).abs()
+                emit({"case": case, "dtype": tname, "build": name,
+                      "round": i // len(libs),
+                      "max_err_over_tol": float(
+                          (err / (tol + tol * ref.abs())).max()),
+                      "ms": cuda_ms(lambda: fn(*call), iters=iters)})
+            del q, k, v, o, ref
+            torch.cuda.empty_cache()
 
 
 def _counters():
@@ -916,6 +1106,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--compare", nargs="+", metavar="NAME=PATH[:FLAGS]",
+                    help="instead of the phases: build these versions of "
+                         "flash_attention.cu and compare them in turns "
+                         "(see compare_flash)")
+    ap.add_argument("--compare-cases", default=",".join(COMPARE_CASES))
+    ap.add_argument("--compare-dtypes", default="float32,bfloat16")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     require(set(phases) <= set(PHASES), f"unknown phase in {phases}")
@@ -933,11 +1129,24 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    if args.compare:
+        compare_flash(args.compare, args.compare_cases.split(","),
+                      args.compare_dtypes.split(","))
+        print(card, flush=True)
+        return 0
     t0 = time.perf_counter()
-    lib = runtime.build_library()
-    runtime.load_library()
+    check = ptxas_start()
+    try:
+        lib = runtime.build_library()
+        runtime.load_library()
+    except BaseException:
+        check[1].kill()
+        check[1].wait()
+        raise
     emit({"phase": "build", "card": card, "library": lib.name,
           "seconds": time.perf_counter() - t0})
+    emit({"phase": "compiled", "ptxas": ptxas_report(*check),
+          "sass": sass_counts(lib)})
 
     results = {}
     if "kernels" in phases:
@@ -1010,6 +1219,7 @@ def main(argv=None) -> int:
                                 if c["dtype"] == "float32"),
              "ms": fak["ms"], "plain_ms": fak["plain_ms"],
              "bound_ms": fak["bound_ms"], "bound_by": fak["bound_by"],
+             "bound_basis": fak["bound_basis"],
              "library_ms": fak["library_ms"]},
         ]
     if set(phases) == set(PHASES):

@@ -1,296 +1,834 @@
-// Causal / sliding-window GQA flash attention for Hopper (sm_90a).
+// Causal / sliding-window GQA flash attention on Hopper's tensor cores
+// (sm_90a).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::flash_attention
 // (the Pallas body _kernel), whose grid (B, H, nQ, nK) runs the key axis in
 // sequence and carries the online-softmax m, l and acc in VMEM scratch.
 //
-// What bounds it on an H100: operations.  Each live (query, key) pair costs
-// 4 D f32 operations (q.k and p v) against 2 D elements of K and V that a
-// 64-row query tile shares, so at the serve shape of h2o-danube-3-4b
-// (B = 2, S = 7168, H = 32, KH = 8, D = 120, window 4096) a launch does
-// 644 GFLOP on 550 MB: over 1,000 operations per byte, far above the ~20
-// where the f32 units (67 TFLOP/s against 3.35 TB/s) become the limit.
+// The function.  o[b, q, h] = softmax_k(scale q.k) v over the keys a query
+// may see: k < S, causal: k <= q, window > 0: q - k < window; query head h
+// reads KV head h / (H / KH).  q and o are (B, S, H, D), k and v
+// (B, S, KH, D), all in the entry's type; D is any multiple of 8 up to 128.
+// The softmax runs online in f32 with the scale folded into base 2
+// (2^x of s * scale * log2 e); a row with nothing live yet uses 0 as its
+// base, so exp never sees -inf - -inf and a fully masked row gives 0.
 //
-// Design.  Blocks run in parallel and in no order, so the sequential key
-// axis becomes a loop inside the block: one thread block per (b, h, 64-row
-// query tile) walks the live 64-row key tiles of its query tile in order.
-// Only live tiles are visited: the loop starts at the tile holding
-// q0 - window + 1 (window > 0) and, when causal, ends at the tile holding
-// the tile's last query, the dead-block test of kernel.py:75-80 turned into
-// loop bounds, so sliding-window attention costs O(S * window).  Query head
-// h reads KV head h / (H / KH).  Q stays in shared memory for the whole
-// loop; each step stages one K and one V tile (rows past S are zero-filled
-// and their scores masked, so the host pads nothing), then:
-//   1. s = (Q K^T) * scale: each of the 256 threads owns a 4 x 4 tile of
-//      scores (rows ty + 16u, columns tx + 16v), read as float4 along D
-//      from rows padded to D + 4 floats, so a quarter-warp's K reads hit
-//      distinct banks; masked entries become -inf;
-//   2. the online softmax in f32: the row max and row sum are reduced over
-//      the 16 lanes that share a row with xor shuffles; m, l and the
-//      rescale factor live in registers, a row with nothing live yet uses
-//      0 as its base so exp never sees -inf - -inf;
-//   3. P overwrites the K tile in shared memory and acc += P V, each
-//      thread owning 4 rows by up to 2 float4 column chunks of D.
-// Output = acc / l, written in the input type.  D may be any multiple of 8
-// up to 128 (h2o-danube-3-4b has 120); a row is D / 4 float4 chunks and a
-// thread takes chunks tx and tx + 16 where they exist, so no tail is
-// padded.  Shared memory is 64 (D + 4) + 64 max(D + 4, 68) + 64 D floats:
-// 94,208 bytes at D = 120, above the 48 KiB default (the launcher raises
-// cudaFuncAttributeMaxDynamicSharedMemorySize); two blocks fit an SM.
-// Query tiles run in reverse order (the last, with the widest key span,
-// first) so the long blocks start early.  The grid is ceil(S / 64) * H * B
-// blocks (7,168 at the serve shape).  The products run on the f32 units:
-// wgmma, TMA and a bf16 tensor-core path are later work.
+// What bounds it on an H100: operations.  Each live (query, key) pair costs
+// 4 D operations (q.k and p v) against 2 D elements of K and V that a
+// query tile shares; at the serve shape of h2o-danube-3-4b (B = 2,
+// S = 7168, H = 32, KH = 8, D = 120, window 4096) a launch does 644 GFLOP
+// on 550 MB, far above the ~300 operations per byte where the tensor cores
+// become the limit: 0.65 ms in bf16 (989 TFLOP/s), 3.9 ms in f32 carried
+// as three TF32 products (495 / 3 TFLOP/s).
+//
+// Both entries keep the work to the live tiles: a block owns one query
+// tile of (b, h) and walks only the key tiles from the one holding
+// q0 - window + 1 (window > 0) to, when causal, the one holding its last
+// query (the dead-block test of kernel.py:75-80 as loop bounds), so
+// sliding-window attention costs O(S * window).  The mask arithmetic runs
+// only on tiles that cross the diagonal, the window's edge or S.  Blocks
+// run the query tiles last-first (the widest spans start early) and the
+// H / KH query heads that share a KV head side by side, so their K and V
+// tiles are read from L2.
+//
+// bf16 entry (flash_wgmma_bf16): 288 threads, 128 query rows.
+//   * Tensor cores: two consumer warpgroups own 64 query rows each.
+//     S = Q K^T is wgmma m64n128k16 with both operands in shared memory;
+//     P, rounded to bf16, becomes the A fragment of the P V wgmma straight
+//     from the S accumulator's registers (the two layouts coincide), and V
+//     is the MN-major B operand, so P never goes through shared memory.
+//   * Overlap: one producer warp keeps TMA loads (cp.async.bulk.tensor) of
+//     128-key K and V tiles in flight into a two-stage ring guarded by
+//     mbarriers (full: bytes landed; empty: both warpgroups done), so the
+//     next tile's copy runs under this tile's products; Q arrives once by
+//     TMA.  No __syncthreads in the loop.
+//   * Tiles and D: every tile is 128 rows by two 64-column panels of 128
+//     bytes under the 128-byte swizzle that wgmma reads.  The tensor maps
+//     are (D, heads, S, B) with a box of one head and one batch, so columns
+//     past D and rows past S fill with zeros inside the batch: D = 120 is
+//     padded to 128 and a ragged S is cut by TMA, the host pads nothing.
+//     Shared memory: Q 32 KiB + 2 stages x (K 32 + V 32 KiB) = 160 KiB.
+//
+// f32 entry (flash_wgmma_tf32): 256 threads, 64 query rows, 32-key tiles.
+//   * Tensor cores at f32 accuracy (3xTF32): each operand x is split into
+//     big = tf32_rna(x) and small = tf32_rna(x - big), and small.big +
+//     big.small + big.big goes into the f32 accumulator, for Q K^T and for
+//     P V; one TF32 pass keeps ~3 digits and misses the f32 tolerance.
+//     wgmma (m64n32k8 for S, m64n128k8 for P V) and not mma.sync: an
+//     mma.sync kernel of the same split, eight consumer warps under the
+//     168-register cap of twelve warps, took 1.56-1.66x the time on an
+//     H100 at full size.  wgmma's tf32 form takes only K-major operands,
+//     so V is stored transposed.
+//   * Overlap: a splitting warpgroup loads each K and V tile, splits it
+//     once into big and small copies (V transposed) in the swizzled layout
+//     wgmma reads, and signals an mbarrier; the consumer warpgroup's
+//     products run from those copies while the next tile is loaded and
+//     split (two stages).  Q is split once per block.  P stays in
+//     registers as the A operand of P V: the keys of each 8 are stored in
+//     V^T in the order P's registers give them.  Each tile's P V products
+//     sum into a zeroed partial added to the output in IEEE f32, so the
+//     error does not grow with the keys (the tensor cores' own f32
+//     accumulation drifts with the number of products it takes).
+//   * Shared memory: 64 KiB of Q copies + 2 stages x 64 KiB of K and V^T
+//     copies = 192 KiB.
+
+// CUtensorMap's types; the encoder itself is looked up in libcuda at run time
+#include <cuda.h>
 #include <cuda_bf16.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kFaThreads = 256;
-constexpr int kFaTile = 64;     // query rows and key rows per tile
 constexpr int kFaMaxDim = 128;  // largest head dimension
-constexpr int kFaChunks = kFaMaxDim / 64;  // float4 chunks a thread owns
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned*>(&lo);
-  raw.y = *reinterpret_cast<unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Stage rows p0 .. p0 + 63 of head `hh` of a (B, S, heads, D) tensor into
-// shared memory as f32 rows of stride `ld`; rows at or past S are zeros.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int b, int p0, int S, int heads,
-                                          int hh, int D) {
-  const int nc = D >> 2;
-  for (int i = threadIdx.x; i < kFaTile * nc; i += blockDim.x) {
-    const int r = i / nc, c = i - r * nc;
-    const int pos = p0 + r;
-    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (pos < S)
-      val = load4(src + ((static_cast<size_t>(b) * S + pos) * heads + hh) * D
-                  + 4 * c);
-    *reinterpret_cast<float4*>(dst + r * ld + 4 * c) = val;
+// Keys [k0, k0 + bn) of query rows [qr0, qr0 + rows): does any pair need a
+// mask (past S, after the query, or out of the window)?
+__device__ __forceinline__ bool crosses_mask(int k0, int bn, int qr0,
+                                             int rows, int S, int causal,
+                                             int window) {
+  return k0 + bn > S || (causal && k0 + bn - 1 > qr0) ||
+         (window > 0 && qr0 + rows - 1 - k0 >= window);
+}
+
+__device__ __forceinline__ bool live(int qpos, int kpos, int S, int causal,
+                                     int window) {
+  return kpos < S && (!causal || qpos >= kpos) &&
+         (window == 0 || qpos - kpos < window);
+}
+
+// 2^x in one MUFU.EX2 (relative error ~2^-22; subnormal results flush to
+// 0, and 2^-inf = 0).  exp2f adds range handling around the same
+// instruction, which costs the bf16 kernel 5-7% of its time on an H100 and
+// buys no accuracy at these tolerances.
+__device__ __forceinline__ float exp2_(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One online-softmax step for R rows whose scores (already in base-2
+// units, masked entries -inf) lie in x[r][0 .. N) of this thread and of
+// the three other threads of its quad.  Returns each row's rescale
+// factor in alpha; x becomes p; l gathers this thread's share of the sums.
+template <int R, int N>
+__device__ __forceinline__ void softmax_step(float (&x)[R][N], float (&m)[R],
+                                             float (&l)[R],
+                                             float (&alpha)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float mx = -inf_f();
+#pragma unroll
+    for (int i = 0; i < N; ++i) mx = fmaxf(mx, x[r][i]);
+    mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 2));
+    const float mn = fmaxf(m[r], mx);
+    const float base = mn == -inf_f() ? 0.0f : mn;
+    alpha[r] = exp2_(m[r] - base);
+    m[r] = mn;
+    float sum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      x[r][i] = exp2_(x[r][i] - base);
+      sum += x[r][i];
+    }
+    l[r] = l[r] * alpha[r] + sum;
   }
 }
 
-__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// Sum of a row's l over its quad, as 1 / l (0 for a row with no live key).
+__device__ __forceinline__ float inv_rowsum(float l) {
+  l += __shfl_xor_sync(kFullMask, l, 1);
+  l += __shfl_xor_sync(kFullMask, l, 2);
+  return l > 0.0f ? 1.0f / l : 0.0f;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kFaThreads, 2)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int S, int H,
-             int KH, int D, int causal, int window, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = D + 4;          // padded row stride of Q and K
-  const int lp = kFaTile + 4;    // row stride of P
-  float* qs = smem;                                   // [64][ld]
-  float* ks = qs + kFaTile * ld;                      // [64][ld]; P overlays
-  float* vs = ks + kFaTile * (ld > lp ? ld : lp);     // [64][D]
+// Block index -> (query tile, head, batch): the H / KH heads of one KV head
+// fastest, then the query tiles last-first, then the KV heads, then batch.
+struct BlockPos {
+  int iq, h, kvh, b;
+};
+__device__ __forceinline__ BlockPos block_pos(int nq, int H, int KH) {
+  const int group = H / KH;
+  int id = static_cast<int>(blockIdx.x);
+  BlockPos p;
+  const int g = id % group;
+  id /= group;
+  p.iq = nq - 1 - id % nq;
+  id /= nq;
+  p.kvh = id % KH;
+  p.b = id / KH;
+  p.h = p.kvh * group + g;
+  return p;
+}
 
-  const int nq = (S + kFaTile - 1) / kFaTile;
-  const int iq = nq - 1 - static_cast<int>(blockIdx.x);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KH);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int nc = D >> 2;
-  const int q0 = iq * kFaTile;
-  const int q_last = min(q0 + kFaTile, S) - 1;
+// ======================================================= bf16: wgmma + TMA
+constexpr int kBm = 128;                        // query rows per block
+constexpr int kBn = 128;                        // keys per K / V tile
+constexpr int kPanelBytes = 128 * 128;          // 128 rows x 64 bf16
+constexpr int kTileBytes = 2 * kPanelBytes;     // D padded to 128
+constexpr int kWgThreads = 128;
+constexpr int kBf16Threads = 2 * kWgThreads + 32;  // + one producer warp
+// Q, then K of stages 0-1, then V of stages 0-1, then 5 mbarriers; 1 KiB
+// of slack aligns the tiles to the 1,024 bytes the swizzle repeats over.
+constexpr int kBarOffset = 5 * kTileBytes;
+constexpr size_t kBf16Smem = kBarOffset + 5 * 8 + 1024;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+// Waits until the phase of parity `parity` has completed.  A wait that
+// never ends (a copy that cannot land) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (long long spin = 0; !done; ++spin) {
+    if (spin == (1ll << 28)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box (64 columns x 1 head x 128 rows x 1 batch) of a 4-d tensor map
+// into shared memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define FA_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define FA_ACC16(i) FA_ACC4(i), FA_ACC4(i + 4), FA_ACC4(i + 8), FA_ACC4(i + 12)
+#define FA_ACC64 FA_ACC16(0), FA_ACC16(16), FA_ACC16(32), FA_ACC16(48)
+#define FA_REGS64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, f32) (+)= A (64 x 16, K-major in shared memory) B (16 x 128,
+// K-major in shared memory); accumulate unless scale_d == 0.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : FA_ACC64
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 fragments in registers) B (16 x
+// 128, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : FA_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_wgmma_bf16(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 __nv_bfloat16* __restrict__ o, int S, int H, int KH, int D,
+                 int causal, int window, float sl2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + kTileBytes;      // + stage * kTileBytes
+  const uint32_t v_s = base + 3 * kTileBytes;  // + stage * kTileBytes
+  const uint32_t bar = base + kBarOffset;      // full 0-1, empty 0-1, q
+  const uint32_t full0 = bar, empty0 = bar + 16, qfull = bar + 32;
+
+  const int nq = (S + kBm - 1) / kBm;
+  const BlockPos bp = block_pos(nq, H, KH);
+  const int q0 = bp.iq * kBm;
+  const int q_last = min(q0 + kBm, S) - 1;
   const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
   const int k_last = causal ? q_last : S - 1;
+  const int t_first = k_first / kBn;
+  const int ntiles = k_last / kBn - t_first + 1;
 
-  load_tile(qs, ld, q, b, q0, S, H, h, D);
+  if (threadIdx.x == 0) {
+    mbar_init(full0, 1);
+    mbar_init(full0 + 8, 1);
+    mbar_init(empty0, 2 * kWgThreads);
+    mbar_init(empty0 + 8, 2 * kWgThreads);
+    mbar_init(qfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  float m[4], l[4], acc[4][kFaChunks][4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    m[u] = -inf_f();
-    l[u] = 0.0f;
-#pragma unroll
-    for (int cc = 0; cc < kFaChunks; ++cc)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[u][cc][e] = 0.0f;
+  if (threadIdx.x >= 2 * kWgThreads) {
+    // ---- producer warp: Q once, then K and V tiles through the ring ----
+    if (threadIdx.x == 2 * kWgThreads) {
+      mbar_expect_tx(qfull, kTileBytes);
+      tma_load(q_s, &qmap, qfull, 0, bp.h, q0, bp.b);
+      tma_load(q_s + kPanelBytes, &qmap, qfull, 64, bp.h, q0, bp.b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i & 1;
+        mbar_wait(empty0 + 8 * s, ((i >> 1) & 1) ^ 1);
+        const int k0 = (t_first + i) * kBn;
+        const uint32_t full = full0 + 8 * s;
+        mbar_expect_tx(full, 2 * kTileBytes);
+        const uint32_t ks = k_s + s * kTileBytes, vs = v_s + s * kTileBytes;
+        tma_load(ks, &kmap, full, 0, bp.kvh, k0, bp.b);
+        tma_load(ks + kPanelBytes, &kmap, full, 64, bp.kvh, k0, bp.b);
+        tma_load(vs, &vmap, full, 0, bp.kvh, k0, bp.b);
+        tma_load(vs + kPanelBytes, &vmap, full, 64, bp.kvh, k0, bp.b);
+      }
+    }
+    return;
   }
 
-  for (int t = k_first / kFaTile; t <= k_last / kFaTile; ++t) {
-    const int k0 = t * kFaTile;
-    __syncthreads();  // the previous step's reads of P and V are done
-    load_tile(ks, ld, k, b, k0, S, KH, kvh, D);
-    load_tile(vs, D, v, b, k0, S, KH, kvh, D);
-    __syncthreads();
+  // ---- consumer warpgroups: 64 query rows each ----------------------------
+  const int wg = threadIdx.x / kWgThreads;
+  const int t = threadIdx.x % kWgThreads;
+  const int lane = t & 31;
+  const int qw0 = q0 + 64 * wg;                    // first row of the group
+  const int qa = qw0 + 16 * (t >> 5) + (lane >> 2);  // rows qa and qa + 8
+  const int c0 = 2 * (lane & 3);                   // columns c0, c0 + 1 of
+                                                   // each 8-column block
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  float m[2] = {-inf_f(), -inf_f()}, l[2] = {0.0f, 0.0f};
 
-    // ---- 1. scores s = (Q K^T) * scale, masked to -inf ------------------
-    float s[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) s[u][w] = 0.0f;
-    for (int c = 0; c < nc; ++c) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        qv[u] = *reinterpret_cast<const float4*>(qs + (ty + 16 * u) * ld
-                                                 + 4 * c);
-        kv[u] = *reinterpret_cast<const float4*>(ks + (tx + 16 * u) * ld
-                                                 + 4 * c);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int w = 0; w < 4; ++w) s[u][w] = dot4(s[u][w], qv[u], kv[w]);
-    }
+  mbar_wait(qfull, 0);
+  const uint32_t q_wg = q_s + 64 * 128 * wg;  // this group's 64 rows
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i & 1;
+    const int k0 = (t_first + i) * kBn;
+    mbar_wait(full0 + 8 * s, (i >> 1) & 1);
+    const uint32_t ks = k_s + s * kTileBytes, vs = v_s + s * kTileBytes;
 
-    // ---- 2. online softmax over the 16 lanes of each row ----------------
-    float alpha[4], rsum[4];
+    // S = Q K^T over D padded to 128: 8 steps of 16, 32 bytes into a panel
+    float sc[64];
+    wgmma_fence();
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int qpos = q0 + ty + 16 * u;
-      float mt = -inf_f();
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int kpos = k0 + tx + 16 * w;
-        bool live = kpos < S;
-        if (causal) live = live && qpos >= kpos;
-        if (window > 0) live = live && qpos - kpos < window;
-        s[u][w] = live ? s[u][w] * scale : -inf_f();
-        mt = fmaxf(mt, s[u][w]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(kFullMask, mt, off));
-      const float mn = fmaxf(m[u], mt);
-      const float base = mn == -inf_f() ? 0.0f : mn;
-      alpha[u] = expf(m[u] - base);
-      m[u] = mn;
-      float rs = 0.0f;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        s[u][w] = expf(s[u][w] - base);
-        rs += s[u][w];
-      }
-      rsum[u] = rs;
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t off = (kk >> 2) * kPanelBytes + (kk & 3) * 32;
+      wgmma_ss(sc, sw128_desc(q_wg + off, 16, 1024),
+               sw128_desc(ks + off, 16, 1024), kk > 0);
     }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum[u] += __shfl_xor_sync(kFullMask, rsum[u], off);
-      l[u] = l[u] * alpha[u] + rsum[u];
-#pragma unroll
-      for (int cc = 0; cc < kFaChunks; ++cc)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[u][cc][e] *= alpha[u];
-    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
 
-    // ---- 3. P over the K tile, then acc += P V --------------------------
-    __syncthreads();  // every read of the K tile is done
-    float* ps = ks;
+    // accumulator layout: sc[4j + e] is row qa + 8 (e >> 1), key
+    // k0 + 8 j + c0 + (e & 1)
+    float x[2][32];
+    const bool edge = crosses_mask(k0, kBn, qw0, 64, S, causal, window);
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int w = 0; w < 4; ++w) ps[(ty + 16 * u) * lp + tx + 16 * w] = s[u][w];
-    __syncthreads();
-    for (int j = 0; j < kFaTile; j += 4) {
-      float4 pv[4];
+      for (int e = 0; e < 4; ++e) {
+        float val = sc[4 * j + e] * sl2;
+        if (edge && !live(qa + 8 * (e >> 1), k0 + 8 * j + c0 + (e & 1), S,
+                          causal, window))
+          val = -inf_f();
+        x[e >> 1][2 * j + (e & 1)] = val;
+      }
+    float alpha[2];
+    softmax_step(x, m, l, alpha);
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        pv[u] = *reinterpret_cast<const float4*>(ps + (ty + 16 * u) * lp + j);
+    for (int i2 = 0; i2 < 64; ++i2) acc[i2] *= alpha[(i2 >> 1) & 1];
+
+    // P as the A fragments of P V: keys 16 kk .. 16 kk + 15 are the
+    // accumulator's column blocks 2 kk and 2 kk + 1.
+    uint32_t pa[8][4];
 #pragma unroll
-      for (int cc = 0; cc < kFaChunks; ++cc) {
-        const int c = tx + 16 * cc;
-        if (c < nc) {
-          const float4 v0 = *reinterpret_cast<const float4*>(vs + j * D + 4 * c);
-          const float4 v1 =
-              *reinterpret_cast<const float4*>(vs + (j + 1) * D + 4 * c);
-          const float4 v2 =
-              *reinterpret_cast<const float4*>(vs + (j + 2) * D + 4 * c);
-          const float4 v3 =
-              *reinterpret_cast<const float4*>(vs + (j + 3) * D + 4 * c);
+    for (int kk = 0; kk < 8; ++kk) {
+      pa[kk][0] = pack_bf16(x[0][4 * kk], x[0][4 * kk + 1]);
+      pa[kk][1] = pack_bf16(x[1][4 * kk], x[1][4 * kk + 1]);
+      pa[kk][2] = pack_bf16(x[0][4 * kk + 2], x[0][4 * kk + 3]);
+      pa[kk][3] = pack_bf16(x[1][4 * kk + 2], x[1][4 * kk + 3]);
+    }
+    // acc += P V: V is MN-major, its two 64-column panels kPanelBytes apart
+    // (leading offset), 8-key row groups 1,024 bytes apart (stride offset)
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            float* a = acc[u][cc];
-            a[0] = fmaf(pv[u].w, v3.x, fmaf(pv[u].z, v2.x,
-                        fmaf(pv[u].y, v1.x, fmaf(pv[u].x, v0.x, a[0]))));
-            a[1] = fmaf(pv[u].w, v3.y, fmaf(pv[u].z, v2.y,
-                        fmaf(pv[u].y, v1.y, fmaf(pv[u].x, v0.y, a[1]))));
-            a[2] = fmaf(pv[u].w, v3.z, fmaf(pv[u].z, v2.z,
-                        fmaf(pv[u].y, v1.z, fmaf(pv[u].x, v0.z, a[2]))));
-            a[3] = fmaf(pv[u].w, v3.w, fmaf(pv[u].z, v2.w,
-                        fmaf(pv[u].y, v1.w, fmaf(pv[u].x, v0.w, a[3]))));
-          }
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs(acc, pa[kk], sw128_desc(vs + kk * 16 * 128, kPanelBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(empty0 + 8 * s);
+  }
+
+  // ---- epilogue: o = acc / l, columns past D dropped ----------------------
+  const float inv[2] = {inv_rowsum(l[0]), inv_rowsum(l[1])};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qa + 8 * r;
+    if (qpos >= S) continue;
+    __nv_bfloat16* row =
+        o + ((static_cast<size_t>(bp.b) * S + qpos) * H + bp.h) * D;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + c0;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+
+// ================================================= f32: 3xTF32 on wgmma
+// x rounded to TF32 (10-bit mantissa), nearest with ties away from zero, as
+// cvt.rna.tf32.f32 rounds a finite x, in two integer operations: the
+// magnitude sits below the sign bit, so adding half a unit carries into
+// the kept bits away from zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+// x = big + small, both TF32 (10-bit mantissas, nearest, ties away).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
+}
+// Every tile holds f32 (TF32) values in 128-byte rows under the 128-byte
+// swizzle that wgmma reads, D padded to 128 as four 32-column panels: the
+// big and the small copy of Q (64 rows) and, per stage, of K (32 rows)
+// and of V^T (128 rows of 32 keys).  Then 5 mbarriers, and 1 KiB of slack
+// to align the tiles to 1,024 bytes.
+constexpr int kF32Bm = 64;                   // query rows: one warpgroup
+constexpr int kF32Bn = 32;                   // keys per tile
+constexpr int kF32Threads = 256;             // + the splitting warpgroup
+constexpr int kF32QPanel = kF32Bm * 128;
+constexpr int kF32QBytes = 4 * kF32QPanel;
+constexpr int kF32KPanel = kF32Bn * 128;
+constexpr int kF32KBytes = 4 * kF32KPanel;
+constexpr int kF32VBytes = 128 * 128;
+constexpr int kF32Stage = 2 * kF32KBytes + 2 * kF32VBytes;
+constexpr int kF32BarOffset = 2 * kF32QBytes + 2 * kF32Stage;
+constexpr size_t kF32Smem = kF32BarOffset + 5 * 8 + 1024;
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in 128-byte swizzled rows.
+__device__ __forceinline__ uint32_t sw128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+#define FA_REGS16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 32, f32) (+)= A (64 x 8) B (8 x 32), both TF32 and K-major in
+// shared memory; accumulate unless scale_d == 0.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " FA_REGS16
+      ", %16, %17, p, 1, 1;\n"
+      "}\n"
+      : FA_ACC16(0)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d (64 x 128, f32) (+)= A (64 x 8, TF32 fragments in registers) B (8 x
+// 128, K-major in shared memory); accumulate unless scale_d == 0.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " FA_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : FA_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void st_shared4(uint32_t addr, uint32_t a,
+                                           uint32_t b, uint32_t c,
+                                           uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+__device__ __forceinline__ void st_shared1(uint32_t addr, uint32_t a) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(a) : "memory");
+}
+// Four values of one row, split, into the big and the small copy.
+__device__ __forceinline__ void st_split4(uint32_t big, uint32_t small,
+                                          float4 x) {
+  uint32_t b[4], s[4];
+  split_tf32(x.x, b[0], s[0]);
+  split_tf32(x.y, b[1], s[1]);
+  split_tf32(x.z, b[2], s[2]);
+  split_tf32(x.w, b[3], s[3]);
+  st_shared4(big, b[0], b[1], b[2], b[3]);
+  st_shared4(small, s[0], s[1], s[2], s[3]);
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_wgmma_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int H, int KH, int D, int causal, int window, float sl2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qb = base, qsm = base + kF32QBytes;
+  const uint32_t st0 = base + 2 * kF32QBytes;  // + s * kF32Stage: stage s
+  const uint32_t bar = base + kF32BarOffset;
+  const uint32_t full0 = bar, empty0 = bar + 16, qfull = bar + 32;
+
+  const int nq = (S + kF32Bm - 1) / kF32Bm;
+  const BlockPos bp = block_pos(nq, H, KH);
+  const int q0 = bp.iq * kF32Bm;
+  const int q_last = min(q0 + kF32Bm, S) - 1;
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_last = causal ? q_last : S - 1;
+  const int t_first = k_first / kF32Bn;
+  const int ntiles = k_last / kF32Bn - t_first + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full0, 128);
+    mbar_init(full0 + 8, 128);
+    mbar_init(empty0, 128);
+    mbar_init(empty0 + 8, 128);
+    mbar_init(qfull, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- splitting warpgroup ---------------------------------------------
+    const int st = threadIdx.x - 128;
+    for (int i = st; i < kF32Bm * 32; i += 128) {
+      const int r = i >> 5, c4 = i & 31, d0 = 4 * c4;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (d0 < D && q0 + r < S)
+        x = *reinterpret_cast<const float4*>(
+            q + ((static_cast<size_t>(bp.b) * S + q0 + r) * H + bp.h) * D +
+            d0);
+      const uint32_t off = (c4 >> 3) * kF32QPanel + sw128(r, c4 & 7);
+      st_split4(qb + off, qsm + off, x);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_arrive(qfull);
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i & 1;
+      const int k0 = (t_first + i) * kF32Bn;
+      float4 kr[8], vr[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = st + 128 * u;
+        // K: a warp takes one key row; V: a warp takes 32 keys of one chunk
+        const int rk = e >> 5, ck = e & 31, rv = e & 31, cv = e >> 5;
+        kr[u] = vr[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (4 * ck < D && k0 + rk < S)
+          kr[u] = *reinterpret_cast<const float4*>(
+              k + ((static_cast<size_t>(bp.b) * S + k0 + rk) * KH + bp.kvh) *
+                      D +
+              4 * ck);
+        if (4 * cv < D && k0 + rv < S)
+          vr[u] = *reinterpret_cast<const float4*>(
+              v + ((static_cast<size_t>(bp.b) * S + k0 + rv) * KH + bp.kvh) *
+                      D +
+              4 * cv);
+      }
+      mbar_wait(empty0 + 8 * s, ((i >> 1) & 1) ^ 1);
+      const uint32_t kb = st0 + s * kF32Stage, ksm = kb + kF32KBytes;
+      const uint32_t vb = ksm + kF32KBytes, vsm = vb + kF32VBytes;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = st + 128 * u;
+        const int rk = e >> 5, ck = e & 31, rv = e & 31, cv = e >> 5;
+        const uint32_t off = (ck >> 3) * kF32KPanel + sw128(rk, ck & 7);
+        st_split4(kb + off, ksm + off, kr[u]);
+        // V^T row d holds the tile's keys; within 8 keys, even keys first:
+        // the order in which P's registers give them (see below)
+        const int p = (rv & ~7) | ((rv & 1) << 2) | ((rv & 7) >> 1);
+        const float vals[4] = {vr[u].x, vr[u].y, vr[u].z, vr[u].w};
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          uint32_t big, small;
+          split_tf32(vals[e4], big, small);
+          const uint32_t at = sw128(4 * cv + e4, p >> 2) + 4 * (p & 3);
+          st_shared1(vb + at, big);
+          st_shared1(vsm + at, small);
         }
       }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(full0 + 8 * s);
     }
+    return;
   }
 
-  // ---- epilogue: o = acc / l in the input type --------------------------
+  // ---- consumer warpgroup: 64 query rows ----------------------------------
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int qa = q0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // and qa + 8
+  const int nkk = D >> 3;
+  float acc[64];
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int qpos = q0 + ty + 16 * u;
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  float m[2] = {-inf_f(), -inf_f()}, l[2] = {0.0f, 0.0f};
+
+  mbar_wait(qfull, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i & 1;
+    const int k0 = (t_first + i) * kF32Bn;
+    mbar_wait(full0 + 8 * s, (i >> 1) & 1);
+    const uint32_t kb = st0 + s * kF32Stage, ksm = kb + kF32KBytes;
+    const uint32_t vb = ksm + kF32KBytes, vsm = vb + kF32VBytes;
+
+    float sc[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kFaMaxDim / 8; ++kk) {
+      if (kk < nkk) {
+        const uint32_t oq = (kk >> 2) * kF32QPanel + (kk & 3) * 32;
+        const uint32_t ok = (kk >> 2) * kF32KPanel + (kk & 3) * 32;
+        wgmma_tf32_ss(sc, sw128_desc(qsm + oq, 16, 1024),
+                      sw128_desc(kb + ok, 16, 1024), kk > 0);
+        wgmma_tf32_ss(sc, sw128_desc(qb + oq, 16, 1024),
+                      sw128_desc(ksm + ok, 16, 1024), 1);
+        wgmma_tf32_ss(sc, sw128_desc(qb + oq, 16, 1024),
+                      sw128_desc(kb + ok, 16, 1024), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    float x[2][8];
+    const bool edge = crosses_mask(k0, kF32Bn, q0, kF32Bm, S, causal, window);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = sc[4 * n + e] * sl2;
+        if (edge && !live(qa + 8 * (e >> 1), k0 + 8 * n + 2 * tq + (e & 1), S,
+                          causal, window))
+          val = -inf_f();
+        x[e >> 1][2 * n + (e & 1)] = val;
+      }
+    float alpha[2];
+    softmax_step(x, m, l, alpha);
+
+    // P's A fragments: keys 2 tq and 2 tq + 1 of each 8 play k = tq and
+    // tq + 4, the order in which V^T holds them
+    uint32_t pb[4][4], ps[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      split_tf32(x[0][2 * j], pb[j][0], ps[j][0]);
+      split_tf32(x[1][2 * j], pb[j][1], ps[j][1]);
+      split_tf32(x[0][2 * j + 1], pb[j][2], ps[j][2]);
+      split_tf32(x[1][2 * j + 1], pb[j][3], ps[j][3]);
+    }
+    float pt[64];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_tf32_rs(pt, ps[j], sw128_desc(vb + 32 * j, 16, 1024), j > 0);
+      wgmma_tf32_rs(pt, pb[j], sw128_desc(vsm + 32 * j, 16, 1024), 1);
+      wgmma_tf32_rs(pt, pb[j], sw128_desc(vb + 32 * j, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(pt);
+#pragma unroll
+    for (int r = 0; r < 64; ++r)
+      acc[r] = fmaf(acc[r], alpha[(r >> 1) & 1], pt[r]);
+    mbar_arrive(empty0 + 8 * s);
+  }
+
+  const float inv[2] = {inv_rowsum(l[0]), inv_rowsum(l[1])};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qa + 8 * r;
     if (qpos >= S) continue;
-    const float inv = l[u] > 0.0f ? 1.0f / l[u] : 0.0f;
-    T* row = o + (static_cast<size_t>(b) * S + qpos) * H * D
-             + static_cast<size_t>(h) * D;
+    float* row = o + ((static_cast<size_t>(bp.b) * S + qpos) * H + bp.h) * D;
 #pragma unroll
-    for (int cc = 0; cc < kFaChunks; ++cc) {
-      const int c = tx + 16 * cc;
-      if (c < nc)
-        store4(row + 4 * c,
-               make_float4(acc[u][cc][0] * inv, acc[u][cc][1] * inv,
-                           acc[u][cc][2] * inv, acc[u][cc][3] * inv));
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col < D)
+        *reinterpret_cast<float2*>(row + col) = make_float2(
+            acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
     }
   }
 }
 
-size_t flash_smem_bytes(int D) {
-  const size_t ld = static_cast<size_t>(D) + 4;
-  const size_t lp = kFaTile + 4;
-  return sizeof(float) * kFaTile * (ld + (ld > lp ? ld : lp) + D);
+
+#undef FA_ACC4
+#undef FA_ACC16
+#undef FA_ACC64
+#undef FA_REGS64
+#undef FA_REGS16
+
+// ================================================================= host side
+bool valid_shape(int batch, int S, int H, int KH, int D, int window,
+                 int rows) {
+  if (batch <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH || D <= 0 ||
+      D % 8 || D > kFaMaxDim || window < 0)
+    return false;
+  const long long blocks =
+      static_cast<long long>((S + rows - 1) / rows) * H * batch;
+  return blocks <= 0x7fffffffLL;
 }
 
-template <typename T>
-int launch_flash(const T* q, const T* k, const T* v, T* o, int batch, int S,
-                 int H, int KH, int D, int causal, int window, float scale,
-                 cudaStream_t stream) {
-  if (batch <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH || D <= 0 ||
-      D % 8 || D > kFaMaxDim || window < 0 || batch > 65535 || H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = flash_smem_bytes(D);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in the libcuda already loaded in the
+// process, so the library links against the CUDA runtime alone.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
   }
-  const dim3 grid((S + kFaTile - 1) / kFaTile, H, batch);
-  flash_kernel<T><<<grid, kFaThreads, smem, stream>>>(
-      q, k, v, o, S, H, KH, D, causal, window, scale);
+  return fn;
+}
+
+// A (B, S, heads, D) bf16 tensor as 4-d map (D, heads, S, B) with a box of
+// 64 columns x 1 head x 128 rows x 1 batch under the 128-byte swizzle;
+// reads past D or S fill with zeros.
+bool bf16_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch,
+              int S, int heads, int D) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row = 2ull * D;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {64, 1, kBn, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                const __nv_bfloat16* v, __nv_bfloat16* o, int batch, int S,
+                int H, int KH, int D, int causal, int window, float scale,
+                cudaStream_t stream) {
+  static_assert(kBm == kBn, "Q and K/V tiles share one box shape");
+  if (!valid_shape(batch, S, H, KH, D, window, kBm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap qm, km, vm;
+  if (!bf16_map(enc, &qm, q, batch, S, H, D) ||
+      !bf16_map(enc, &km, k, batch, S, KH, D) ||
+      !bf16_map(enc, &vm, v, batch, S, KH, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kBf16Smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (S + kBm - 1) / kBm * H * batch;
+  flash_wgmma_bf16<<<blocks, kBf16Threads, kBf16Smem, stream>>>(
+      qm, km, vm, o, S, H, KH, D, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               int batch, int S, int H, int KH, int D, int causal, int window,
+               float scale, cudaStream_t stream) {
+  if (!valid_shape(batch, S, H, KH, D, window, kF32Bm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kF32Smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (S + kF32Bm - 1) / kF32Bm * H * batch;
+  flash_wgmma_tf32<<<blocks, kF32Threads, kF32Smem, stream>>>(
+      q, k, v, o, S, H, KH, D, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -302,15 +840,14 @@ int launch_flash(const T* q, const T* k, const T* v, T* o, int batch, int S,
 // stream's device; H % KH == 0, D a multiple of 8 up to 128.  causal != 0
 // masks keys after the query; window > 0 masks keys `window` or more
 // positions before it.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// success), or the error that kept it from launching.
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int batch,
                                    int seqlen, int heads, int kv_heads,
                                    int headdim, int causal, int window,
                                    float scale, cudaStream_t stream) {
-  return repro_torch::launch_flash<float>(q, k, v, o, batch, seqlen, heads,
-                                          kv_heads, headdim, causal, window,
-                                          scale, stream);
+  return repro_torch::launch_f32(q, k, v, o, batch, seqlen, heads, kv_heads,
+                                 headdim, causal, window, scale, stream);
 }
 
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
@@ -320,7 +857,6 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     int kv_heads, int headdim, int causal,
                                     int window, float scale,
                                     cudaStream_t stream) {
-  return repro_torch::launch_flash<__nv_bfloat16>(
-      q, k, v, o, batch, seqlen, heads, kv_heads, headdim, causal, window,
-      scale, stream);
+  return repro_torch::launch_bf16(q, k, v, o, batch, seqlen, heads, kv_heads,
+                                  headdim, causal, window, scale, stream);
 }

@@ -3,9 +3,22 @@
 The port of ``repro.kernels.flash_attention`` (Pallas ``flash_attention``,
 ``kernel.py:94``).  ``flash_attention`` dispatches on where its tensors
 lie: CPU tensors run ``ref.attention_plain``, CUDA tensors launch
-``csrc/flash_attention.cu`` (or raise; nothing falls back).  Unlike the
-reference's wrapper it pads nothing: the kernel masks the ragged last tile
-itself.  ``LAUNCHES`` counts kernel launches.
+``csrc/flash_attention.cu`` (or raise; nothing falls back).  Both entries
+run on the tensor cores, one block per query tile of a (b, h):
+
+* bfloat16: ``wgmma`` fed by TMA.  Two consumer warpgroups (128 query
+  rows) and one producer warp; K and V arrive in 128-key tiles through a
+  two-stage ring, D is padded to 128 by the TMA's zero fill; P is rounded
+  to bfloat16 before P V, as every tensor-core flash attention does;
+* float32: ``wgmma`` on three TF32 products per operand pair
+  (big = tf32(x), small = tf32(x - big); small.big + big.small + big.big),
+  which keeps f32 accuracy.  A splitting warpgroup writes the big and small
+  copies of each 32-key K and V tile (V transposed) into a two-stage ring
+  for one consumer warpgroup of 64 query rows.
+
+Unlike the reference's wrapper it pads nothing: the TMA's zero fill and the
+kernel's masks cover the ragged last tile and D < 128.  ``LAUNCHES``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -18,7 +31,7 @@ import torch
 from .. import runtime
 from .ref import attention_plain
 
-__all__ = ["LAUNCHES", "flash_attention", "smem_bytes"]
+__all__ = ["LAUNCHES", "block_rows", "flash_attention", "smem_bytes"]
 
 # Kernel launches issued by ``flash_attention`` on CUDA tensors (a plain
 # counter: callers zero it and read it back to prove a path ran through the
@@ -28,14 +41,26 @@ LAUNCHES = 0
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 _MAX_DIM = 128
-_TILE = 64
+# dtype -> (query rows of a kernel block, its dynamic shared memory in
+# bytes; csrc/flash_attention.cu).  bfloat16: Q and two stages of K and V
+# at 128 rows x 128 padded columns; float32: the big and small copies of Q
+# (64 rows) and two stages of K (32 rows) and V^T (128 x 32), 128 padded
+# columns of 4 bytes.  Both add 5 mbarriers and 1 KiB of alignment slack.
+_BLOCK = {torch.bfloat16: (128, 5 * 2 * 128 * 128 + 5 * 8 + 1024),
+          torch.float32: (64, (2 * 4 * 64 + 2 * (2 * 4 * 32 + 2 * 128))
+                          * 128 + 5 * 8 + 1024)}
 
 
-def smem_bytes(headdim: int) -> int:
-    """Dynamic shared memory of one kernel block
-    (``csrc/flash_attention.cu``)."""
-    ld = headdim + 4
-    return 4 * _TILE * (ld + max(ld, _TILE + 4) + headdim)
+def block_rows(dtype) -> int:
+    """Query rows of one kernel block for q of ``dtype``."""
+    return _BLOCK[dtype][0]
+
+
+def smem_bytes(dtype) -> int:
+    """Dynamic shared memory of one kernel block for q of ``dtype``
+    (``csrc/flash_attention.cu``; it does not depend on the head
+    dimension, which the tiles pad to 128)."""
+    return _BLOCK[dtype][1]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

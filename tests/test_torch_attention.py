@@ -9,12 +9,22 @@ plus h2o-danube-3-4b's head shape (D = 120, GQA 4:1, a window shorter than
 the sequence).  Tolerances are that suite's: 2e-5 (rtol and atol) in f32,
 2e-2 in bf16.
 
+Kernel numerics: the CUDA kernel cannot run here, so plain-PyTorch
+emulations of its two arithmetics (``flash_emulated``: the online softmax
+over the kernel's key tiles in base 2, with bf16 P before P V in the bf16
+entry, and each f32 product carried as three TF32 products in the f32
+entry) are held to the same references and tolerances, at small shapes
+with D = 120, GQA and a window.  These helpers live here, not in the
+package.
+
 Layer: the port's ``layers.attention`` and ``decode_attention`` against
 the reference's on the single-block path, the windowed and unwindowed
 query-chunked branches, and one-token decode on both sides of the window,
 in f32 to 2e-5; a ragged ``q_chunk`` is refused as the reference refuses
 it.  Inputs are numpy normals from a seed, handed to both packages.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -104,6 +114,136 @@ def test_kernel_wrapper_refuses_other_devices():
     q = torch.zeros((1, 8, 2, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         flash_attention(q, q, q)
+
+
+# ------------------------------------------------- the kernel's numerics
+def tf32_rna(x):
+    """f32 -> TF32 (10-bit mantissa), nearest with ties away from zero, by
+    bit rounding, as the f32 kernel rounds a finite value."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a, b):
+    """a @ b in f32 from three TF32 products: a = ab + as, b = bb + bs with
+    ab = tf32(a), as = tf32(a - ab); as bb + ab bs + ab bb (each product is
+    exact in f32: two 11-bit significands)."""
+    ab, bb = tf32_rna(a), tf32_rna(b)
+    as_, bs = tf32_rna(a - ab), tf32_rna(b - bb)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def flash_emulated(q, k, v, *, causal, window, tile, numerics):
+    """The kernel's arithmetic in plain PyTorch: an online softmax over
+    ``tile``-key tiles, scores in base 2 (scale times log2 e, rounded to
+    f32 as the kernel's launcher rounds it), a row with nothing live yet on
+    base 0.  ``numerics="bf16"``: products of the bf16 inputs summed in
+    f32 and P rounded to bf16 before P V (the wgmma entry, 128-key tiles);
+    ``"tf32x3"``: both products as three TF32 products (the mma.sync
+    entry, 64-key tiles)."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    mm = mm_3xtf32 if numerics == "tf32x3" else torch.matmul
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    sl2 = float(np.float32(1.0 / math.sqrt(d)) * np.float32(math.log2(math.e)))
+    m = torch.full((b, h, s), -torch.inf)
+    l = torch.zeros((b, h, s))
+    acc = torch.zeros((b, h, s, d))
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, s, tile):
+        k1 = min(k0 + tile, s)
+        x = mm(qf, kf[:, :, k0:k1].transpose(-1, -2)) * sl2
+        kpos = torch.arange(k0, k1)[None, :]
+        live = torch.ones((s, k1 - k0), dtype=torch.bool)
+        if causal:
+            live &= qpos >= kpos
+        if window:
+            live &= qpos - kpos < window
+        x = x.masked_fill(~live, -torch.inf)
+        mn = torch.maximum(m, x.amax(-1))
+        base = torch.where(mn == -torch.inf, 0.0, mn)
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(x - base[..., None])
+        l = l * alpha + p.sum(-1)
+        if numerics == "bf16":
+            p = p.to(torch.bfloat16).float()
+        acc = acc * alpha[..., None] + mm(p, vf[:, :, k0:k1])
+        m = mn
+    inv = torch.where(l > 0, 1.0 / l, 0.0)
+    return (acc * inv[..., None]).transpose(1, 2).to(q.dtype)
+
+
+EMU_CASES = {
+    # (B, S, H, KH, D, causal, window): D = 120 with GQA 4:1 and a window
+    # below S, ragged S with a window no multiple of the tiles, MQA
+    # bidirectional
+    "h2o_head": H2O_CASE,
+    "ragged_window_d120": (2, 200, 8, 2, 120, True, 100),
+    "mqa_bidirectional": (1, 160, 4, 1, 32, False, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EMU_CASES))
+def test_bf16_tensor_core_numerics_match_reference(case):
+    """bf16 P before P V (the wgmma entry) stays inside the bf16
+    tolerance of the reference's Pallas kernel and its dense oracle."""
+    b, s, h, kh, d, causal, window = EMU_CASES[case]
+    (jq, jk, jv), (q, k, v) = both(qkv(b, s, h, kh, d, seed=s + 1),
+                                   "bfloat16")
+    got = flash_emulated(q, k, v, causal=causal, window=window, tile=128,
+                         numerics="bf16")
+    assert got.dtype == torch.bfloat16
+    for want in (jax_flash(jq, jk, jv, causal=causal, window=window),
+                 attention_ref(jq, jk, jv, causal=causal, window=window)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("case", sorted(EMU_CASES))
+def test_3xtf32_numerics_match_reference(case):
+    """Three TF32 products per f32 product (the mma.sync entry) keep the
+    f32 tolerance of the reference's Pallas kernel and its dense oracle."""
+    b, s, h, kh, d, causal, window = EMU_CASES[case]
+    (jq, jk, jv), (q, k, v) = both(qkv(b, s, h, kh, d, seed=s + 2),
+                                   "float32")
+    got = flash_emulated(q, k, v, causal=causal, window=window, tile=64,
+                         numerics="tf32x3")
+    for want in (jax_flash(jq, jk, jv, causal=causal, window=window),
+                 attention_ref(jq, jk, jv, causal=causal, window=window)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=TOL["float32"], atol=TOL["float32"])
+
+
+def test_one_tf32_product_misses_the_f32_tolerance():
+    """Why three products: one TF32 pass keeps ~3 digits and misses
+    2e-5 + 2e-5 |o| at the h2o head shape."""
+    b, s, h, kh, d, causal, window = H2O_CASE
+    _, (q, k, v) = both(qkv(b, s, h, kh, d, seed=5), "float32")
+    want = attention_plain(q, k, v, causal=causal, window=window)
+    one = flash_emulated(tf32_rna(q), tf32_rna(k), tf32_rna(v),
+                         causal=causal, window=window, tile=64,
+                         numerics="plain")
+    tol = TOL["float32"]
+    assert float(((one - want).abs() / (tol + tol * want.abs())).max()) > 1
+
+
+def test_tf32_rna_rounds_nearest_ties_away_and_splits_exactly():
+    ulp = 2.0 ** -10  # TF32's unit in the last place at 1.0
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      1 + 3 * ulp / 2, 0.0, -0.0], dtype=torch.float32)
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 0.0, -0.0])
+    torch.testing.assert_close(tf32_rna(x), want, rtol=0, atol=0)
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32)) * 100
+    big = tf32_rna(r)
+    small = tf32_rna(r - big)
+    assert torch.all((big.view(torch.int32) & 0x1FFF) == 0)
+    assert torch.all((small.view(torch.int32) & 0x1FFF) == 0)
+    assert torch.all((r - big).abs() <= r.abs() * 2.0 ** -11)
+    assert torch.all((r - (big + small)).abs() <= r.abs() * 2.0 ** -22)
 
 
 # ------------------------------------------------------------------ layers

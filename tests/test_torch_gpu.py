@@ -173,6 +173,23 @@ FLASH_CASES = {
     "ragged_200": ((1, 200, 4, 4, 64), True, 0, torch.float32, 2e-5),
     "window_not_causal": ((1, 256, 4, 2, 32), False, 64, torch.float32, 2e-5),
     "tiny_d8_mqa": ((2, 70, 4, 1, 8), True, 5, torch.float32, 2e-5),
+    # the tensor-core kernels' edges: D = 128 at H / KH = 4, S below one
+    # 128-row tile, D = 8 (all but 8 of the 128 bf16 columns zero-filled),
+    # a window that is no multiple of either tile, one query, H = KH, and
+    # the bf16 kernel's non-causal masks
+    "gqa4_d128_bf16": ((1, 384, 8, 2, 128), True, 0, torch.bfloat16, 2e-2),
+    "ragged_200_bf16": ((1, 200, 4, 4, 64), True, 0, torch.bfloat16, 2e-2),
+    "tiny_d8_mqa_bf16": ((2, 70, 4, 1, 8), True, 5, torch.bfloat16, 2e-2),
+    "window_100_f32": ((2, 600, 8, 2, 64), True, 100, torch.float32, 2e-5),
+    "window_100_bf16": ((2, 600, 8, 2, 64), True, 100, torch.bfloat16,
+                        2e-2),
+    "single_query_f32": ((2, 1, 4, 2, 32), True, 0, torch.float32, 2e-5),
+    "single_query_bf16": ((2, 1, 4, 2, 32), True, 0, torch.bfloat16, 2e-2),
+    "mha_d120_bf16": ((1, 256, 4, 4, 120), True, 0, torch.bfloat16, 2e-2),
+    "window_not_causal_bf16": ((1, 256, 4, 2, 32), False, 64, torch.bfloat16,
+                               2e-2),
+    "bidirectional_d128_bf16": ((1, 256, 4, 4, 128), False, 0, torch.bfloat16,
+                                2e-2),
 }
 
 
