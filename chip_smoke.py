@@ -48,11 +48,7 @@ failed (see ``hold``).  Kernel launch counters are zeroed just before
 the CUDA path of each main-path phase and read just after it.
 
 Usage: ``python3 chip_smoke.py`` (needs one CUDA device and nvcc).
-``--phases`` runs a subset, for development.  ``--compare a=PATH b=PATH``
-runs no phase: it builds those versions of ``flash_attention.cu`` (for
-example the parent commit's, unpacked with ``git archive`` into a directory
-that ``.gitignore`` lists) and times and checks them in turns on the same
-inputs (``compare_flash``).  Exits non-zero, printing no
+``--phases`` runs a subset, for development.  Exits non-zero, printing no
 result, when no CUDA device is available or a phase fails.  Prints one JSON
 line per phase, the card's name and power limit, the kernel table, and last
 ``{"ok": true, "device": {...}}``.
@@ -605,90 +601,6 @@ def flash_cases(dev, lib, stream_ptr) -> list:
     return rows
 
 
-# --compare: name -> ((B, S, H, KH, D), causal, window, timed calls)
-COMPARE_CASES = {
-    "serve": (FLASH_SERVE, True, 4096, 10),
-    "causal_2048": ((2, 2048, 32, 8, 120), True, 0, 30),
-    "long_16k": ((1, 16384, 8, 2, 128), True, 0, 5),
-    "edges": ((2, 70, 4, 1, 8), True, 5, 10),
-}
-
-
-def compare_flash(builds, cases, dtypes) -> None:
-    """Build each ``NAME=PATH[:FLAG,...]`` flash-attention source (this
-    checkout's ``csrc`` on the include path, ``-Xptxas -v``) into
-    ``build/compare-NAME.so``, all builds started together, then run them
-    on the same inputs for every case and dtype in the order given and in
-    reverse (a, b, b, a): each held against ``attention_plain`` at
-    ``FLASH_TOL`` and timed with CUDA events.  One JSON line per build and
-    per (case, dtype, build, round)."""
-    import ctypes
-    import torch
-    from repro_torch.kernels import runtime
-    from repro_torch.kernels.flash_attention import attention_plain
-
-    runtime.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    specs, procs, libs = {}, {}, {}
-    for item in builds:
-        name, _, rest = item.partition("=")
-        src, _, flags = rest.partition(":")
-        specs[name] = (src, [f for f in flags.split(",") if f])
-        out = runtime.BUILD_DIR / f"compare-{name}.so"
-        procs[name] = (out, subprocess.Popen(
-            [runtime._nvcc(), *runtime.ARCH_FLAGS, *runtime.NVCC_FLAGS,
-             "-shared", "-Xptxas", "-v", "-I", str(runtime.CSRC),
-             *specs[name][1], src, "-o", str(out)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    for name, (out, proc) in procs.items():
-        _, err = proc.communicate()
-        require(proc.returncode == 0,
-                f"build {name} failed:\n{err[-3000:]}")
-        emit({"build": name, "source": specs[name][0],
-              "flags": specs[name][1],
-              "registers": [int(r) for r in
-                            re.findall(r"Used (\d+) registers", err)],
-              "spill_stores": [int(r) for r in re.findall(
-                  r"(\d+) bytes spill stores", err)]})
-        lib = ctypes.CDLL(str(out))
-        for entry in ("flash_attention_f32", "flash_attention_bf16"):
-            fn = getattr(lib, entry)
-            fn.argtypes = runtime._SIGNATURES[entry]
-            fn.restype = ctypes.c_int
-        libs[name] = lib
-    dev = torch.device("cuda")
-    order = list(libs) + list(reversed(list(libs)))
-    for case in cases:
-        (b, s, h, kh, d), causal, window, iters = COMPARE_CASES[case]
-        for tname in dtypes:
-            dtype, tol = getattr(torch, tname), FLASH_TOL[tname]
-            gen = torch.Generator(device=dev).manual_seed(0)
-            q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
-                       for sh in ((b, s, h, d), (b, s, kh, d),
-                                  (b, s, kh, d)))
-            ref = attention_plain(q, k, v, causal=causal,
-                                  window=window).float()
-            o = torch.empty_like(q)
-            entry = ("flash_attention_f32" if dtype == torch.float32
-                     else "flash_attention_bf16")
-            call = ([t.data_ptr() for t in (q, k, v, o)]
-                    + [b, s, h, kh, d, int(causal), window, d ** -0.5,
-                       torch.cuda.current_stream().cuda_stream])
-            for i, name in enumerate(order):
-                fn = getattr(libs[name], entry)
-                o.fill_(float("nan"))
-                code = fn(*call)
-                torch.cuda.synchronize()
-                require(code == 0, f"{name} {case}: CUDA error {code}")
-                err = (o.float() - ref).abs()
-                emit({"case": case, "dtype": tname, "build": name,
-                      "round": i // len(libs),
-                      "max_err_over_tol": float(
-                          (err / (tol + tol * ref.abs())).max()),
-                      "ms": cuda_ms(lambda: fn(*call), iters=iters)})
-            del q, k, v, o, ref
-            torch.cuda.empty_cache()
-
-
 def _counters():
     from repro_torch.kernels.changepoint import ops as cp
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1106,12 +1018,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
-    ap.add_argument("--compare", nargs="+", metavar="NAME=PATH[:FLAGS]",
-                    help="instead of the phases: build these versions of "
-                         "flash_attention.cu and compare them in turns "
-                         "(see compare_flash)")
-    ap.add_argument("--compare-cases", default=",".join(COMPARE_CASES))
-    ap.add_argument("--compare-dtypes", default="float32,bfloat16")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     require(set(phases) <= set(PHASES), f"unknown phase in {phases}")
@@ -1129,11 +1035,6 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    if args.compare:
-        compare_flash(args.compare, args.compare_cases.split(","),
-                      args.compare_dtypes.split(","))
-        print(card, flush=True)
-        return 0
     t0 = time.perf_counter()
     check = ptxas_start()
     try:

@@ -179,6 +179,8 @@ constexpr int kWgThreads = 128;
 constexpr int kBf16Threads = 2 * kWgThreads + 32;  // + one producer warp
 // Q, then K of stages 0-1, then V of stages 0-1, then 5 mbarriers; 1 KiB
 // of slack aligns the tiles to the 1,024 bytes the swizzle repeats over.
+// kBm and kBf16Smem are copied in flash_attention/ops.py (_BLOCK); a test
+// evaluates these constexpr lines and holds the copy to them.
 constexpr int kBarOffset = 5 * kTileBytes;
 constexpr size_t kBf16Smem = kBarOffset + 5 * 8 + 1024;
 
@@ -479,6 +481,7 @@ constexpr int kF32KBytes = 4 * kF32KPanel;
 constexpr int kF32VBytes = 128 * 128;
 constexpr int kF32Stage = 2 * kF32KBytes + 2 * kF32VBytes;
 constexpr int kF32BarOffset = 2 * kF32QBytes + 2 * kF32Stage;
+// Copied with kF32Bm in flash_attention/ops.py (_BLOCK), as kBf16Smem is.
 constexpr size_t kF32Smem = kF32BarOffset + 5 * 8 + 1024;
 
 // Byte offset of 16-byte chunk `chunk` of row `row` in 128-byte swizzled rows.

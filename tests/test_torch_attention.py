@@ -11,9 +11,10 @@ the sequence).  Tolerances are that suite's: 2e-5 (rtol and atol) in f32,
 
 Kernel numerics: the CUDA kernel cannot run here, so plain-PyTorch
 emulations of its two arithmetics (``flash_emulated``: the online softmax
-over the kernel's key tiles in base 2, with bf16 P before P V in the bf16
-entry, and each f32 product carried as three TF32 products in the f32
-entry) are held to the same references and tolerances, at small shapes
+over the kernel's key tiles in base 2, with bf16 P before P V over 128-key
+tiles in the bf16 entry, and each f32 product carried as three TF32
+products over 32-key tiles, each tile's P V a partial added in f32, in the
+f32 entry) are held to the same references and tolerances, at small shapes
 with D = 120, GQA and a window.  These helpers live here, not in the
 package.
 
@@ -25,6 +26,7 @@ it.  Inputs are numpy normals from a seed, handed to both packages.
 """
 
 import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -116,6 +118,22 @@ def test_kernel_wrapper_refuses_other_devices():
         flash_attention(q, q, q)
 
 
+def test_wrapper_block_shape_follows_the_kernel_source():
+    """``ops.block_rows`` and ``ops.smem_bytes`` copy the constants of
+    ``csrc/flash_attention.cu``; evaluate the source's ``constexpr`` chain
+    so that a change there fails here instead of misreporting."""
+    from repro_torch.kernels import runtime
+    src = (runtime.CSRC / "flash_attention.cu").read_text()
+    consts = {}
+    for name, expr in re.findall(
+            r"^constexpr (?:int|size_t) (\w+) = ([^;]+);", src, re.M):
+        consts[name] = eval(expr, {"__builtins__": {}}, consts)
+    assert fa.block_rows(torch.bfloat16) == consts["kBm"]
+    assert fa.smem_bytes(torch.bfloat16) == consts["kBf16Smem"]
+    assert fa.block_rows(torch.float32) == consts["kF32Bm"]
+    assert fa.smem_bytes(torch.float32) == consts["kF32Smem"]
+
+
 # ------------------------------------------------- the kernel's numerics
 def tf32_rna(x):
     """f32 -> TF32 (10-bit mantissa), nearest with ties away from zero, by
@@ -137,10 +155,11 @@ def flash_emulated(q, k, v, *, causal, window, tile, numerics):
     """The kernel's arithmetic in plain PyTorch: an online softmax over
     ``tile``-key tiles, scores in base 2 (scale times log2 e, rounded to
     f32 as the kernel's launcher rounds it), a row with nothing live yet on
-    base 0.  ``numerics="bf16"``: products of the bf16 inputs summed in
-    f32 and P rounded to bf16 before P V (the wgmma entry, 128-key tiles);
-    ``"tf32x3"``: both products as three TF32 products (the mma.sync
-    entry, 64-key tiles)."""
+    base 0.  Each tile's P V is a partial of its own, added to the rescaled
+    accumulator in f32.  ``numerics="bf16"``: products of the bf16 inputs
+    summed in f32 and P rounded to bf16 before P V (``flash_wgmma_bf16``,
+    128-key tiles); ``"tf32x3"``: both products as three TF32 products
+    (``flash_wgmma_tf32``, 32-key tiles)."""
     b, s, h, d = q.shape
     g = h // k.shape[2]
     mm = mm_3xtf32 if numerics == "tf32x3" else torch.matmul
@@ -169,7 +188,8 @@ def flash_emulated(q, k, v, *, causal, window, tile, numerics):
         l = l * alpha + p.sum(-1)
         if numerics == "bf16":
             p = p.to(torch.bfloat16).float()
-        acc = acc * alpha[..., None] + mm(p, vf[:, :, k0:k1])
+        part = mm(p, vf[:, :, k0:k1])
+        acc = acc * alpha[..., None] + part
         m = mn
     inv = torch.where(l > 0, 1.0 / l, 0.0)
     return (acc * inv[..., None]).transpose(1, 2).to(q.dtype)
@@ -187,8 +207,9 @@ EMU_CASES = {
 
 @pytest.mark.parametrize("case", sorted(EMU_CASES))
 def test_bf16_tensor_core_numerics_match_reference(case):
-    """bf16 P before P V (the wgmma entry) stays inside the bf16
-    tolerance of the reference's Pallas kernel and its dense oracle."""
+    """bf16 P before P V over 128-key tiles (the ``flash_wgmma_bf16``
+    entry) stays inside the bf16 tolerance of the reference's Pallas kernel
+    and its dense oracle."""
     b, s, h, kh, d, causal, window = EMU_CASES[case]
     (jq, jk, jv), (q, k, v) = both(qkv(b, s, h, kh, d, seed=s + 1),
                                    "bfloat16")
@@ -204,12 +225,13 @@ def test_bf16_tensor_core_numerics_match_reference(case):
 
 @pytest.mark.parametrize("case", sorted(EMU_CASES))
 def test_3xtf32_numerics_match_reference(case):
-    """Three TF32 products per f32 product (the mma.sync entry) keep the
-    f32 tolerance of the reference's Pallas kernel and its dense oracle."""
+    """Three TF32 products per f32 product over 32-key tiles (the
+    ``flash_wgmma_tf32`` entry) keep the f32 tolerance of the reference's
+    Pallas kernel and its dense oracle."""
     b, s, h, kh, d, causal, window = EMU_CASES[case]
     (jq, jk, jv), (q, k, v) = both(qkv(b, s, h, kh, d, seed=s + 2),
                                    "float32")
-    got = flash_emulated(q, k, v, causal=causal, window=window, tile=64,
+    got = flash_emulated(q, k, v, causal=causal, window=window, tile=32,
                          numerics="tf32x3")
     for want in (jax_flash(jq, jk, jv, causal=causal, window=window),
                  attention_ref(jq, jk, jv, causal=causal, window=window)):
@@ -224,7 +246,7 @@ def test_one_tf32_product_misses_the_f32_tolerance():
     _, (q, k, v) = both(qkv(b, s, h, kh, d, seed=5), "float32")
     want = attention_plain(q, k, v, causal=causal, window=window)
     one = flash_emulated(tf32_rna(q), tf32_rna(k), tf32_rna(v),
-                         causal=causal, window=window, tile=64,
+                         causal=causal, window=window, tile=32,
                          numerics="plain")
     tol = TOL["float32"]
     assert float(((one - want).abs() / (tol + tol * want.abs())).max()) > 1
