@@ -1,8 +1,11 @@
 """Online regime-shift monitoring on the fleet's vet stream.
 
 The port of ``repro.fleet.anomaly``: methods ``numpy`` (the f64 oracle
-scan), ``torch`` (``core.changepoint.estimate_changepoint``) and ``cuda``
-(the change-point kernel, ``kernels.changepoint.changepoint_cuda``).
+scan), ``torch`` (the plain twin ``kernels.changepoint
+.changepoint_ragged_plain``) and ``cuda`` (the change-point kernel,
+``kernels.changepoint.changepoint_ragged``).  A mux tick hands the monitor
+all its streams at once: the due rings go to the card in one buffer, are
+cut by one launch and come back in one copy.
 
 The vet measure turns a profile into a scalar "how far from optimal" score;
 this module turns the *time series* of those scores into an anomaly monitor
@@ -27,12 +30,13 @@ Anomalies in Hadoop" (arXiv:1505.01919) and are modeled one-to-one in
 
 Detection ladder: the monitor accepts the same three backends as the engine
 (``method="numpy" | "torch" | "cuda"``).  The numpy method is the f64
-oracle scan; torch runs ``core.changepoint.estimate_changepoint``; cuda
-runs ``kernels.changepoint.changepoint_cuda``.  Confidence and the
-pre/post levels are always computed host-side in f64 (rings are <= a few
-dozen points — the backend choice only moves the argmin search), so the
-differential suites can require onset agreement across all three within
-the scenario bank's +/-2-tick tolerance.
+oracle scan; torch runs the plain twin of the change-point kernel over
+the tick's rings, one set of ops per ring length; cuda launches the kernel
+once for all of them.  Confidence and the pre/post levels are always
+computed host-side in f64 (rings are <= a few dozen points — the backend
+choice only moves the argmin search), so the differential suites can
+require onset agreement across all three within the scenario bank's
++/-2-tick tolerance.
 
 Heavy-tail hardening — window vets inherit the overhead channel's Pareto
 tail, so a naive mean-shift test on raw vets flags every lucky straggler
@@ -73,9 +77,9 @@ from typing import Dict, Hashable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.changepoint import estimate_changepoint
 from ..kernels import runtime
-from ..kernels.changepoint.ops import changepoint_cuda
+from ..kernels.changepoint.ops import (changepoint_ragged,
+                                       changepoint_ragged_plain, pack_rows)
 
 __all__ = ["AnomalyMonitor", "RegimeShift"]
 
@@ -176,8 +180,9 @@ class AnomalyMonitor:
 
     Args:
         method: argmin backend — ``"numpy"`` (f64 oracle scan), ``"torch"``
-            (``core.changepoint.estimate_changepoint``) or ``"cuda"``
-            (``kernels.changepoint.changepoint_cuda``).
+            (``kernels.changepoint.changepoint_ragged_plain``) or ``"cuda"``
+            (``kernels.changepoint.changepoint_ragged``, one launch per
+            tick).
         device: torch device of the ``torch``/``cuda`` methods, resolved on
             the first scan (``None``: the ``kernels.runtime`` policy).
         ring: newest window vets retained per stream (bounded memory for
@@ -251,11 +256,30 @@ class AnomalyMonitor:
         Returns:
             Tuple of flags raised by this observation (usually empty).
         """
+        return self._observe_tick([(stream_id, vets, first, tenant)])
+
+    def _observe_tick(self, batch) -> Tuple[RegimeShift, ...]:
+        """``observe`` for a whole mux tick: ``batch`` holds ``(stream_id,
+        vets, first, tenant)`` in registration order.  Rings update one by
+        one, then every due ring is scanned together (one change-point call
+        for all of them) and the gates run in the same order, so the flags
+        equal those of ``observe`` called stream by stream."""
+        due = []
+        for stream_id, vets, first, tenant in batch:
+            st = self._ingest(stream_id, vets, first)
+            if st is not None and len(st.ring) >= self.min_points:
+                due.append((stream_id, tenant, st))
+        return self._scan(due) if due else ()
+
+    def _ingest(self, stream_id: Hashable, vets,
+                first: int) -> Optional[_StreamState]:
+        """Append a stream's fresh windows to its ring; the stream's state
+        if anything was new (a scan is due), else ``None``."""
         if vets is None:
-            return ()
+            return None
         v = np.asarray(vets, np.float64).ravel()
         if v.size == 0:
-            return ()
+            return None
         st = self._streams.setdefault(stream_id, _StreamState())
         vetted = first + v.size  # stream's vetted-window watermark
         if vetted < st.seen or first > st.seen:
@@ -266,25 +290,33 @@ class AnomalyMonitor:
         if not new.size:
             # No fresh windows: rescanning the same ring would let a noise
             # cut "confirm" itself without new evidence.
-            return ()
+            return None
         st.ring.extend(float(x) for x in new)
         st.seen = vetted
         drop = len(st.ring) - self.ring
         if drop > 0:
             del st.ring[:drop]
             st.base += drop
-        return self._scan(stream_id, tenant, st)
+        return st
 
-    def _scan(self, stream_id: Hashable, tenant: str,
-              st: _StreamState) -> Tuple[RegimeShift, ...]:
-        m = len(st.ring)
-        if m < self.min_points:
-            return ()
+    def _scan(self, due) -> Tuple[RegimeShift, ...]:
+        """Scan the due rings ``[(stream_id, tenant, state)]``: one
+        change-point call cuts all of them, then the f64 gates and
+        confirmation run stream by stream in order."""
         # Log vets: a regime shift multiplies the overhead channel, so it
         # is additive here, and a single Pareto-tail spike no longer
         # dominates the SSE.  Levels are reported back as geometric means.
-        z = np.log(np.maximum(np.asarray(st.ring, np.float64), _TINY))
-        t = self._argmin(z)  # 1-indexed prefix length within the ring
+        zs = [np.log(np.maximum(np.asarray(st.ring, np.float64), _TINY))
+              for _, _, st in due]
+        flags = []
+        for (stream_id, tenant, st), z, t in zip(due, zs, self._argmins(zs)):
+            flags.extend(self._gate(stream_id, tenant, st, z, int(t)))
+        return tuple(flags)
+
+    def _gate(self, stream_id: Hashable, tenant: str, st: _StreamState,
+              z: np.ndarray, t: int) -> Tuple[RegimeShift, ...]:
+        """The f64 gates and confirmation of one ring cut after ``t``
+        points (1-indexed prefix length within the ring)."""
         pre = float(np.exp(z[:t].mean()))
         post = float(np.exp(z[t:].mean()))
         sse0 = _single_segment_sse_f64(z)
@@ -311,14 +343,25 @@ class AnomalyMonitor:
         return (RegimeShift(stream_id=stream_id, tenant=tenant, onset=onset,
                             pre=pre, post=post, confidence=confidence),)
 
-    def _argmin(self, y: np.ndarray) -> int:
+    def _argmins(self, zs) -> List[int]:
+        """The cut of every log ring of ``zs``, in order.  ``numpy`` takes
+        the f64 oracle's argmin per ring; ``torch`` and ``cuda`` make one
+        change-point call on the monitor's device (the plain twin, the
+        kernel): the rings go over in one f32 buffer and the cuts come back
+        in one copy."""
         if self.method == "numpy":
-            return int(np.argmin(_closed_form_scan_f64(y, self.omega))) + 1
+            return [int(np.argmin(_closed_form_scan_f64(z, self.omega))) + 1
+                    for z in zs]
         dev = runtime.require_device(runtime.resolve_device(self._device_arg))
-        z = torch.as_tensor(np.asarray(y, np.float32)).to(dev)
+        (values, starts, lengths), span = pack_rows([z[None] for z in zs],
+                                                    dev)
         if self.method == "torch":
-            return int(estimate_changepoint(z, omega=self.omega))
-        return int(changepoint_cuda(z, omega=self.omega))
+            t, _ = changepoint_ragged_plain(values, starts, lengths,
+                                            self.omega)
+        else:
+            t, _ = changepoint_ragged(values, starts, lengths, self.omega,
+                                      span=span)
+        return t.cpu().tolist()
 
     # ------------------------------------------------------------- churn
     def forget(self, stream_id: Hashable) -> None:

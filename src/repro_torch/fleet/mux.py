@@ -483,16 +483,14 @@ class VetMux:
                     elif left > 0:
                         m.staleness += 1
             if self.monitor is not None:
-                # Same observe order as the collect loop (registration
-                # order), so flags are identical to the pre-split single
-                # loop — only the span boundary separates the phases.
+                # One monitor call for the whole tick, in registration order
+                # (the collect loop's), so flags equal observing the streams
+                # one by one; the due rings share one change-point launch.
                 with _span(self.tracer, "mux.anomaly", tid=self.trace_tid):
-                    for sid, m in self._members.items():
-                        if results[sid] is not None:
-                            flags.extend(self.monitor.observe(
-                                sid, results[sid].vet,
-                                first=m.stream.first_retained,
-                                tenant=m.tenant))
+                    flags.extend(self.monitor._observe_tick(
+                        [(sid, results[sid].vet, m.stream.first_retained,
+                          m.tenant) for sid, m in self._members.items()
+                         if results[sid] is not None]))
             tick_span.set(dispatches=dispatches, rows=rows)
 
         self._dispatches += dispatches

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain PyTorch
-twins: ``changepoint`` (the paper's SSE scan, batched, argmin fused),
+twins: ``changepoint`` (the paper's estimator from sorted values to t,
+ragged rows, one launch),
 ``windowvet`` (the whole vet pipeline per ragged window, one launch),
 ``ssd`` (the Mamba2 chunked scan, one block per batch row and head) and
 ``flash_attention`` (causal / sliding-window GQA attention, one block per

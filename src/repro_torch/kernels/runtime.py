@@ -69,7 +69,7 @@ _F = ctypes.c_float
 # entry point -> argtypes (every pointer and the stream as c_void_p, a
 # float as c_float).
 _SIGNATURES = {
-    "changepoint_sse_argmin": [_P] * 10 + [_I, _I, _I, _P],
+    "changepoint_scan": [_P] * 3 + [_I] * 4 + [_P] * 3 + [_I, _I, _P],
     "windowvet_fused": [_P] * 5 + [_I, _I, _I, _I, _P],
     "ssd_scan_f32": [_P] * 7 + [_I] * 6 + [_P],
     "ssd_scan_bf16": [_P] * 7 + [_I] * 6 + [_P],

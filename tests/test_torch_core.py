@@ -139,8 +139,8 @@ class TestXlaOrder:
 
     @pytest.mark.parametrize("n", [64, 1000, 8192])
     def test_kernel_operands_are_contiguous(self, n):
-        """The change-point kernel refuses non-contiguous operands, and the
-        XLA-order scan slices its zero-padded tail away."""
+        """The plain decomposition's operands (``prefix_inputs``) are
+        contiguous: the XLA-order scan slices its zero-padded tail away."""
         from repro_torch.kernels.changepoint.ops import prefix_inputs
         z = torch.from_numpy(log_curves(3, n, seed=n))
         cy, cyy, cxy, totals, forms = prefix_inputs(z)

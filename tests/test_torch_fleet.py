@@ -11,18 +11,23 @@ packages in both directions.  The batched port backends run on
 
 import numpy as np
 import pytest
+import torch
 
 from repro.engine import VetEngine as RefEngine
 from repro.engine import VetStream as RefStream
 from repro.fleet import ANOMALY_SCENARIOS, build, play
 from repro.fleet import AnomalyMonitor as RefMonitor
 from repro.fleet import VetMux as RefMux
+from repro.fleet import anomaly as ref_anomaly
 from repro.fleet.schedule import StreamRequest as RefRequest
 from repro.fleet.schedule import plan_tick as ref_plan_tick
+from repro_torch.core.changepoint import estimate_changepoint as port_estimate
 from repro_torch.engine import VetEngine, VetStream
 from repro_torch.fleet import (AnomalyMonitor, StreamRequest, VetMux,
                                plan_tick)
+from repro_torch.fleet import anomaly
 from repro_torch.kernels import runtime
+from repro_torch.kernels.changepoint import changepoint_cuda
 
 from torch_port_contract import assert_contract, sim_matrix
 
@@ -244,6 +249,96 @@ def test_monitor_unit_step_flag():
     assert mon.observe("w0", series[:11], first=0) == ()
     (flag,) = mon.observe("w0", series, first=0)
     assert (flag.onset, flag.pre < flag.post, mon.raised) == (6, True, 1)
+
+
+class _PerRingMonitor(AnomalyMonitor):
+    """The monitor cutting one ring per call through the port's per-row
+    estimators (``core.estimate_changepoint`` for ``torch``, the dense
+    ``changepoint_cuda`` entry for ``cuda``): the per-stream oracle a
+    batched tick must reproduce."""
+
+    def _argmins(self, zs):
+        est = port_estimate if self.method == "torch" else changepoint_cuda
+        return [int(est(torch.from_numpy(np.asarray(z, np.float32)),
+                        omega=self.omega)) for z in zs]
+
+
+@pytest.mark.parametrize("method", ["torch", "cuda"])
+@pytest.mark.parametrize("name", sorted(ANOMALY_SCENARIOS))
+def test_batched_tick_equals_observing_stream_by_stream(name, method):
+    """A mux tick scans its due rings together; a monitor fed the same
+    streams one at a time through ``observe``, cutting each ring on its own
+    with the per-row estimator, raises exactly the same flags (values
+    included) on every tick and ends in the same state."""
+    batched = AnomalyMonitor(method, device="cpu")
+    solo = _PerRingMonitor(method, device="cpu")
+    tick_call = batched._observe_tick
+    sizes = []
+
+    def spy(batch):
+        flags = tick_call(batch)
+        one_by_one = tuple(
+            f for sid, vets, first, tenant in batch
+            for f in solo.observe(sid, vets, first=first, tenant=tenant))
+        assert flags == one_by_one
+        sizes.append(len(batch))
+        return flags
+
+    batched._observe_tick = spy
+    mux = VetMux(VetEngine("numpy", buckets=64), monitor=batched)
+    ticks = play(build(name, seed=1), mux)
+    assert max(sizes) > 1 and len(sizes) == len(ticks)
+    assert batched.raised == solo.raised == sum(len(t.flags) for t in ticks)
+    assert batched.raised > 0
+    assert batched.state_dict() == solo.state_dict()
+
+
+@pytest.mark.parametrize("method,entry", [("cuda", "changepoint_ragged"),
+                                          ("torch",
+                                           "changepoint_ragged_plain")])
+def test_one_changepoint_call_per_mux_tick(monkeypatch, method, entry):
+    """Every due stream of a tick shares one change-point call."""
+    calls = []
+    real = getattr(anomaly, entry)
+
+    def counted(values, starts, lengths, *args, **kw):
+        calls.append(int(lengths.numel()))
+        return real(values, starts, lengths, *args, **kw)
+
+    monkeypatch.setattr(anomaly, entry, counted)
+    mux = VetMux(VetEngine("numpy", buckets=64),
+                 monitor=AnomalyMonitor(method, device="cpu"))
+    for i in range(12):
+        mux.register(i, window=32, stride=16)
+    records = sim_matrix(12, 32 * 8, seed=21)
+    per_tick = []
+    for k in range(8):
+        for i in range(12):
+            mux.feed(i, records[i, 32 * k:32 * (k + 1)])
+        before = len(calls)
+        mux.tick()
+        per_tick.append(len(calls) - before)
+    # windows per stream after tick k: 2k - 1; rings scan from 6 (tick 4)
+    assert per_tick == [0, 0, 0, 1, 1, 1, 1, 1]
+    assert calls == [12] * 5
+
+
+def test_ring_gates_equal_the_reference_per_ring_formulas():
+    """The monitor's f64 gates are the reference's per-ring formulas bit for
+    bit (SSE landscape, null-model SSE), and the ``numpy`` method's cuts are
+    the landscape's argmin ring by ring."""
+    rng = np.random.default_rng(3)
+    rings = np.exp(rng.normal(0.0, 0.3, (50, 24))
+                   + np.where(np.arange(24) >= 14, 1.0, 0.0))
+    zs = list(np.log(rings))
+    t = AnomalyMonitor("numpy")._argmins(zs)
+    for i, z in enumerate(zs):
+        sse = ref_anomaly._closed_form_scan_f64(z, 3)
+        np.testing.assert_array_equal(anomaly._closed_form_scan_f64(z, 3),
+                                      sse)
+        assert anomaly._single_segment_sse_f64(z) == \
+            ref_anomaly._single_segment_sse_f64(z)
+        assert t[i] == int(np.argmin(sse)) + 1
 
 
 # ------------------------------------------------------------ state dicts

@@ -4,10 +4,10 @@ engine.  Marked ``gpu``; each test skips (inside the ``cuda`` fixture) when
 no CUDA device is present.  Run on a card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 
-Tolerances: the change-point kernel's landscape equals the plain version's
-to 1e-5 relative (the same f32 operations, no contraction); windows whose
-cut agrees agree to 1e-5; a differing cut must be a near-tie (1e-4 relative
-on the plain landscape).  SSD and flash attention take the reference
+Tolerances: the change-point kernel's cuts and landscape equal the plain
+twin's exactly (the same f32 operations in the same order, no
+contraction); windowvet windows whose cut agrees agree to 1e-5, and a
+differing cut must be a near-tie (1e-4 relative on the plain landscape).  SSD and flash attention take the reference
 suite's tolerances (tests/test_kernels.py): SSD 2e-4 in f32 and 5e-2 in
 bf16, attention 2e-5 in f32 and 2e-2 in bf16; model prefill logits 1e-4.
 """
@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.changepoint import two_segment_sse
 from repro_torch.engine import VetEngine
+from repro_torch.fleet import VetMux
 from repro_torch.kernels.changepoint import ops as cp
 from repro_torch.kernels.windowvet import ops as wv
 from repro_torch.profiling import simulate_records
@@ -42,19 +43,66 @@ def near_tie(z, a, b):
     return abs(sse[a - 1] - sse[b - 1]) / abs(sse[b - 1]) <= 1e-4
 
 
-@pytest.mark.parametrize("n_rows,n", [(64, 1000), (1, 8192), (256, 64)])
-def test_changepoint_kernel_matches_plain(cuda, n_rows, n):
-    z = np.log(np.sort(rows(n_rows, n), axis=1)).astype(np.float32)
-    ops_in = cp.prefix_inputs(torch.from_numpy(z).to(cuda))
+CHANGEPOINT_CASES = {
+    # name: lengths of the rows (ragged, packed end to end)
+    "ragged_6_64": np.random.default_rng(5).integers(6, 65, 4096),
+    "job_1024x1000": np.full(1024, 1000),
+    "one_8192": np.array([8192]),
+    "one_65536_global_scratch": np.array([65536]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHANGEPOINT_CASES))
+def test_changepoint_kernel_matches_plain(cuda, case):
+    """The kernel's cuts and landscape equal the plain twin's bit for bit
+    (the same f32 operations in the same order, no contraction)."""
+    lengths = CHANGEPOINT_CASES[case]
+    groups = [np.log(np.sort(rows(1, int(n), seed=i)[0]))[None]
+              for i, n in enumerate(lengths)]
+    (values, starts, lengths_t), span = cp.pack_rows(groups, cuda)
+    assert (cp.scan_floats(span[1]) > cp.SHARED_FLOATS) == \
+        case.endswith("global_scratch")
     before = cp.LAUNCHES
-    sse_k, t_k = cp.sse_scan(*ops_in)
-    sse_p, t_p = cp.sse_scan_plain(*ops_in)
+    t_k, sse_k = cp.changepoint_ragged(values, starts, lengths_t,
+                                       landscape=True, span=span)
+    t_p, sse_p = cp.changepoint_ragged_plain(values, starts, lengths_t,
+                                             landscape=True)
     assert cp.LAUNCHES == before + 1
-    fin = torch.isfinite(sse_p)
-    assert torch.equal(fin, torch.isfinite(sse_k))
-    torch.testing.assert_close(sse_k[fin], sse_p[fin], rtol=1e-5, atol=0)
-    for i in torch.nonzero(t_k != t_p).flatten().tolist():
-        assert near_tie(z[i], int(t_k[i]), int(t_p[i]))
+    assert torch.equal(t_k, t_p)
+    assert torch.equal(sse_k, sse_p)
+    dense = values.reshape(-1, int(lengths[0])) if np.all(
+        lengths == lengths[0]) else None
+    if dense is not None:  # the dense entries take the same kernel
+        assert torch.equal(cp.changepoint_cuda(dense), t_k)
+        assert torch.equal(cp.two_segment_sse_cuda(dense).flatten(), sse_k)
+
+
+def test_changepoint_kernel_refuses_short_rows(cuda):
+    y = torch.linspace(0.0, 1.0, 5, device=cuda)
+    with pytest.raises(ValueError, match="2\\*omega"):
+        cp.changepoint_cuda(y)
+    (values, starts, lengths), span = cp.pack_rows(
+        [np.ones((2, 8)), np.ones((1, 5))], cuda)
+    with pytest.raises(ValueError, match="2\\*omega"):
+        cp.changepoint_ragged(values, starts, lengths, span=span)
+
+
+def test_cuda_mux_tick_makes_one_changepoint_launch(cuda):
+    """Every due ring of a monitored tick goes through one launch."""
+    mux = VetMux(VetEngine("cuda", buckets=64))
+    assert mux.monitor.method == "cuda"
+    for i in range(64):
+        mux.register(i, window=64, stride=32)
+    m = rows(64, 64 * 8, seed=11)
+    for k in range(8):
+        for i in range(64):
+            mux.feed(i, m[i, 64 * k:64 * (k + 1)])
+        before = (cp.LAUNCHES, wv.LAUNCHES)
+        mux.tick()
+        # one fused windowvet launch; from tick 4 on the rings hold >= 6
+        # windows and the monitor scans them all in one launch
+        assert (cp.LAUNCHES - before[0], wv.LAUNCHES - before[1]) == \
+            ((1 if k >= 3 else 0), 1)
 
 
 @pytest.mark.parametrize("lengths", [np.tile([64, 128, 192], 100),

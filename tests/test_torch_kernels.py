@@ -8,21 +8,28 @@ themselves are held to the same plain versions on the card by
 ``torch_port_contract``.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from repro.core.changepoint import estimate_changepoint as ref_estimate
 from repro.kernels.changepoint.ops import (auto_block, changepoint_pallas,
                                            two_segment_sse_pallas)
 from repro.kernels.windowvet.ops import fused_window_vet as ref_fused
 from repro.kernels.windowvet.ops import staged_bytes as ref_staged_bytes
 from repro.kernels.windowvet.ref import ref_window_vet as ref_scalar
+from repro_torch.core.changepoint import estimate_changepoint as port_estimate
+from repro_torch.core.changepoint import two_segment_sse
+from repro_torch.kernels import runtime
 from repro_torch.kernels.changepoint import ops as cp
 from repro_torch.kernels.changepoint import changepoint_ref
 from repro_torch.kernels.windowvet import ops as wv
 from repro_torch.kernels.windowvet import ref_window_vet
+from repro_torch.profiling import simulate_records
 
 from torch_port_contract import assert_contract, cut_gap, sim_matrix
 
@@ -41,12 +48,25 @@ def ragged(lengths, seed=0):
 
 
 # ------------------------------------------------------------ changepoint
+def ragged_entry(groups, omega=3, landscape=False):
+    """The ragged entry on CPU tensors over ``groups`` packed end to end."""
+    (values, starts, lengths), span = cp.pack_rows(groups, "cpu")
+    return cp.changepoint_ragged(values, starts, lengths, omega,
+                                 landscape=landscape, span=span)
+
+
+def simulated_log_rows(lengths, seed):
+    return [np.log(np.sort(simulate_records(int(n), seed=seed + i).times))
+            .astype(np.float32) for i, n in enumerate(lengths)]
+
+
 class TestChangepointPlain:
     @pytest.mark.parametrize("n", [6, 64, 200, 1000])
     def test_landscape_and_cut_match_pallas_interpret(self, n):
         z = log_curves(8, n, seed=n)
-        sse, t = cp.sse_scan(*cp.prefix_inputs(torch.from_numpy(z)))
-        assert sse.shape == (8, n) and t.shape == (8,) and t.dtype == torch.int32
+        t, sse = ragged_entry([z], landscape=True)
+        sse = sse.reshape(8, n)
+        assert t.shape == (8,) and t.dtype == torch.int32
         for i, row in enumerate(z):
             want = np.asarray(two_segment_sse_pallas(
                 jnp.asarray(row), block=auto_block(n), interpret=True))
@@ -61,12 +81,16 @@ class TestChangepointPlain:
                 assert cut_gap(row, int(t[i]), t_ref) <= 1e-4
 
     def test_wrapper_is_the_plain_version_on_cpu(self):
-        z = torch.from_numpy(log_curves(5, 300, seed=1))
+        """On CPU tensors the entry is the plain twin, and the twin is the
+        prefix-sum decomposition bit for bit."""
+        z = log_curves(5, 300, seed=1)
         before = cp.LAUNCHES
-        got = cp.sse_scan(*cp.prefix_inputs(z))
-        want = cp.sse_scan_plain(*cp.prefix_inputs(z))
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        t, sse = ragged_entry([z], landscape=True)
+        want_sse, want_t = cp.sse_scan_plain(
+            *cp.prefix_inputs(torch.from_numpy(z)))
+        torch.testing.assert_close(sse.reshape(5, 300), want_sse, rtol=0,
+                                   atol=0)
+        torch.testing.assert_close(t, want_t, rtol=0, atol=0)
         assert cp.LAUNCHES == before  # the plain path launches nothing
 
     def test_changepoint_cuda_equals_core_on_cpu(self):
@@ -74,13 +98,22 @@ class TestChangepointPlain:
         torch.testing.assert_close(cp.changepoint_cuda(z), changepoint_ref(z),
                                    rtol=0, atol=0)
         assert cp.changepoint_cuda(z[0]).shape == ()
+        torch.testing.assert_close(cp.two_segment_sse_cuda(z),
+                                   two_segment_sse(z), rtol=0, atol=0)
 
     def test_all_inf_row_gives_t1_and_ties_take_the_lowest_index(self):
         n = 8
-        z = torch.zeros(2, n)  # flat rows: every valid k ties
-        sse, t = cp.sse_scan(*cp.prefix_inputs(z), omega=3)
+        z = np.zeros((2, n), np.float32)  # flat rows: every valid k ties
+        t, _ = ragged_entry([z], omega=3)
         assert t.tolist() == [3, 3]  # first valid candidate wins the tie
-        sse, t = cp.sse_scan(*cp.prefix_inputs(z), omega=5)  # n < 2*omega
+        # n < 2*omega: the entry refuses, the plain twin's landscape is
+        # all +inf and its cut 1, as the kernel's.
+        (values, starts, lengths), _ = cp.pack_rows([z], "cpu")
+        t, sse = cp.changepoint_ragged_plain(values, starts, lengths, omega=5,
+                                             landscape=True)
+        assert torch.isinf(sse).all() and t.tolist() == [1, 1]
+        sse, t = cp.sse_scan_plain(*cp.prefix_inputs(torch.from_numpy(z)),
+                                   omega=5)
         assert torch.isinf(sse).all() and t.tolist() == [1, 1]
 
     @pytest.mark.parametrize("n,omega", [(1, 3), (5, 3), (7, 4)])
@@ -90,13 +123,67 @@ class TestChangepointPlain:
             changepoint_pallas(y, omega=omega, interpret=True)
         with pytest.raises(ValueError, match="2\\*omega"):
             cp.changepoint_cuda(torch.from_numpy(y), omega=omega)
+        long_row = np.linspace(1.0, 2.0, 4 * omega).astype(np.float32)
+        with pytest.raises(ValueError, match="2\\*omega"):
+            ragged_entry([long_row[None], y[None]], omega=omega)
 
     def test_wrong_device_raises_instead_of_falling_back(self):
-        z = torch.zeros(2, 16, device="meta")
-        ops_in = (z, z, z, torch.zeros(2, 3, device="meta"),
-                  tuple(torch.zeros(16, device="meta") for _ in range(4)))
+        values = torch.zeros(32, device="meta")
+        meta = torch.zeros(2, dtype=torch.int32, device="meta")
         with pytest.raises(ValueError, match="cpu or cuda"):
-            cp.sse_scan(*ops_in)
+            cp.changepoint_ragged(values, meta, meta, span=(16, 16))
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            cp.changepoint_cuda(values.reshape(2, 16))
+
+    def test_ragged_plain_twin_cuts_equal_every_per_row_estimator(self):
+        """Mixed lengths in one arena: the plain twin's cut on every row
+        equals the port's per-row ``estimate_changepoint`` and the
+        reference's; on a few rows also its Pallas kernel (interpret)."""
+        rng = np.random.default_rng(15)
+        lengths = np.concatenate([rng.integers(6, 65, 40), [1000] * 3,
+                                  [8192] * 2])
+        rng.shuffle(lengths)
+        rows = simulated_log_rows(lengths, seed=300)
+        arena = np.concatenate(rows)
+        starts = np.cumsum(lengths) - lengths
+        t, _ = cp.changepoint_ragged_plain(torch.from_numpy(arena),
+                                           torch.from_numpy(starts),
+                                           torch.from_numpy(lengths))
+        for i, row in enumerate(rows):
+            got = int(t[i])
+            assert got == int(port_estimate(torch.from_numpy(row)))
+            assert got == int(ref_estimate(jnp.asarray(row)))
+        for i in (0, int(np.argmax(lengths == 1000)),
+                  int(np.argmax(lengths == 8192))):
+            row = rows[i]
+            assert int(t[i]) == int(changepoint_pallas(
+                jnp.asarray(row), block=auto_block(row.size), interpret=True))
+
+    def test_ragged_rows_may_sit_anywhere_in_the_arena(self):
+        """Gaps and overlapping windows: each row's cut and landscape are
+        those of the row alone."""
+        arena = torch.from_numpy(simulated_log_rows([400], seed=9)[0])
+        starts = torch.tensor([0, 5, 300, 120], dtype=torch.int32)
+        lengths = torch.tensor([40, 64, 100, 7], dtype=torch.int32)
+        t, _ = cp.changepoint_ragged(arena, starts, lengths, span=(7, 100))
+        for r in range(4):
+            row = arena[starts[r]:starts[r] + lengths[r]]
+            assert int(t[r]) == int(changepoint_ref(row))
+
+    def test_scan_layout_mirrors_the_kernel_source(self):
+        """The wrapper sizes the kernel's scans (shared memory or global
+        scratch) from the ``.cu``'s constants."""
+        src = (runtime.CSRC / "changepoint.cu").read_text()
+        consts = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
+        assert consts["kScanBlock"] == str(cp._SCAN_BLOCK)
+        assert consts["kScanPad"] == "kScanBlock + 1" and \
+            cp._SCAN_PAD == cp._SCAN_BLOCK + 1
+        assert eval(consts["kSharedFloats"].replace("/", "//")) == \
+            cp.SHARED_FLOATS
+        # about 12.8 bytes per element; 8192 in shared memory, 65,536 not
+        assert cp.scan_floats(16) == 3 * 17
+        assert cp.scan_floats(1000) == 3 * 17 * (63 + 4 + 1)
+        assert cp.scan_floats(8192) <= cp.SHARED_FLOATS < cp.scan_floats(65536)
 
 
 # -------------------------------------------------------------- windowvet

@@ -101,3 +101,32 @@ def test_merge_job_algebra_and_empty_partials():
     mux.register("a", window=8, stride=4)
     mux.feed("a", np.linspace(1e-3, 2e-3, 4))  # below one window
     assert job_reduce(mux.tick()) is None
+
+
+def test_each_shard_scans_its_rings_in_one_call_per_tick(monkeypatch):
+    """A sharded fleet's monitors batch per shard: one change-point call
+    per shard on each tick that has due rings."""
+    from repro_torch.fleet import anomaly
+    calls = []
+    real = anomaly.changepoint_ragged
+
+    def counted(values, starts, lengths, *args, **kw):
+        calls.append(int(lengths.numel()))
+        return real(values, starts, lengths, *args, **kw)
+
+    monkeypatch.setattr(anomaly, "changepoint_ragged", counted)
+    mux = ShardedVetMux(2, engine=VetEngine("cuda", buckets=64, device="cpu"),
+                        placement="round_robin")
+    for i in range(8):
+        mux.register(i, window=32, stride=16)
+    records = np.random.default_rng(4).pareto(3.0, (8, 32 * 6)) + 1e-3
+    per_tick = []
+    for k in range(6):
+        for i in range(8):
+            mux.feed(i, records[i, 32 * k:32 * (k + 1)])
+        before = len(calls)
+        mux.tick()
+        per_tick.append(len(calls) - before)
+    # 2k - 1 windows per stream after tick k: rings are due from tick 4
+    assert per_tick == [0, 0, 0, 2, 2, 2]
+    assert calls == [4] * 6
