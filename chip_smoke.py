@@ -2,18 +2,20 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
 Builds the CUDA kernel library from ``src/repro_torch/kernels/csrc`` (and,
-alongside, the flash-attention and change-point sources once more with
+alongside, the flash-attention, SSD and change-point sources once more with
 ``-Xptxas -v``: their kernels' registers and spills, none allowed in the
-flash kernels, and the flash kernels' HGMMA / HMMA counts from ``cuobjdump
--sass`` print on the ``compiled`` line) and drives the port's main paths on
+flash and SSD kernels, and the tensor-core instructions of the flash and
+SSD kernels from ``cuobjdump -sass`` (HGMMA required in flash, HMMA in
+SSD) print on the ``compiled`` line) and drives the port's main paths on
 one GPU, in six phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with CUDA-event times, bounds and,
    for flash attention, ``scaled_dot_product_attention`` on the same inputs
    as a yardstick (timed here, never called by the port); flash attention's
-   bounds are on the tensor cores (bf16 at 989 TFLOP/s, f32 as three TF32
-   passes at 495/3).  The change-point kernel runs five ragged batches (a
+   and SSD's bounds are on the tensor cores (bf16 at 989 TFLOP/s, TF32 at
+   495 TFLOP/s with three passes a product in f32), with SSD's bound on
+   the f32 units beside it.  The change-point kernel runs five ragged batches (a
    monitor tick's 6-64-point rings, the job's and ``fleet_gather``'s
    curves, one 8192 and one 65,536-point row, the last through global
    scratch) and must give the plain twin's cuts on every row;
@@ -31,7 +33,8 @@ one GPU, in six phases:
    SSD path on the same card and weights (|kernel - plain| <= 1e-3 of the
    largest logit), the greedy tokens of the first decode steps must be
    equal, and the reduced config's prefill on the card is held against the
-   same weights on the CPU;
+   same weights on the CPU.  The prefill is timed once more over 20 calls
+   (CUDA events) and traced once for device time by kernel;
 6. ``serve_attn`` — the same entry point on full-width h2o-danube-3-4b
    (3.84 B parameters, f32, sliding window 4096; batch 2, 7,168-token
    prompts, 331 generated tokens): the flash-attention kernel in every
@@ -81,9 +84,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
-# f32-accurate products on the tensor cores: three TF32 passes (495 TFLOP/s
-# dense), the least an f32 attention can take there
-TF32X3_OPS_PER_S = 495e12 / 3
+# TF32 on the tensor cores (dense); an f32-accurate product there takes
+# three TF32 passes, the least an f32 attention can take there
+TF32_OPS_PER_S = 495e12
+TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 RTOL = 1e-5  # vet/ei/oc/pr where the cut agrees
 GAP = 1e-4  # relative SSE gap allowed between two near-tie cuts
 PHASES = ("kernels", "job", "fleet_fused", "fleet_gather", "serve",
@@ -96,11 +100,18 @@ LOGIT_TOL = 1e-3
 # flash-attention kernel functions (csrc/flash_attention.cu) -> C entry
 FLASH_KERNELS = {"flash_wgmma_bf16": "flash_attention_bf16",
                  "flash_wgmma_tf32": "flash_attention_f32"}
+# SSD kernel instantiations (csrc/ssd.cu) -> a substring of their mangled
+# names
+SSD_KERNELS = {"ssd_mma_f32": "ssd_mma_kernelIf",
+               "ssd_mma_bf16": "ssd_mma_kernelI13__nv_bfloat16"}
 # kernel functions whose registers and spills the ``compiled`` line reports
-# -> their source in csrc/
-PTXAS_KERNELS = {"flash_wgmma_bf16": "flash_attention.cu",
-                 "flash_wgmma_tf32": "flash_attention.cu",
-                 "changepoint_kernel": "changepoint.cu"}
+# -> (their source in csrc/, a substring of their mangled names)
+PTXAS_KERNELS = {"flash_wgmma_bf16": ("flash_attention.cu", "flash_wgmma_bf16"),
+                 "flash_wgmma_tf32": ("flash_attention.cu", "flash_wgmma_tf32"),
+                 **{k: ("ssd.cu", v) for k, v in SSD_KERNELS.items()},
+                 "changepoint_kernel": ("changepoint.cu", "changepoint_kernel")}
+# the kernels held to no spill
+NO_SPILL = (*FLASH_KERNELS, *SSD_KERNELS)
 
 
 class SmokeError(RuntimeError):
@@ -150,13 +161,13 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
 
 # ------------------------------------------------------------ the compiled
 def ptxas_start():
-    """Compile ``csrc/flash_attention.cu`` and ``csrc/changepoint.cu`` once
-    more with ``-Xptxas -v``, in parallel with the library build, for their
-    kernels' registers and spills."""
+    """Compile the sources of ``PTXAS_KERNELS`` once more with ``-Xptxas
+    -v``, in parallel with the library build, for their kernels' registers
+    and spills."""
     from repro_torch.kernels import runtime
     runtime.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     checks = []
-    for src in sorted(set(PTXAS_KERNELS.values())):
+    for src in sorted({src for src, _ in PTXAS_KERNELS.values()}):
         obj = runtime.BUILD_DIR / f"ptxas-check-{os.getpid()}-{src}.o"
         checks.append((obj, subprocess.Popen(
             [runtime._nvcc(), *runtime.ARCH_FLAGS, *runtime.NVCC_FLAGS,
@@ -167,8 +178,8 @@ def ptxas_start():
 
 def ptxas_report(checks) -> dict:
     """Registers, stack and spills of each checked kernel from ptxas; fails
-    on a spill in a flash kernel.  Keeps ptxas's warnings, such as a wgmma
-    it had to serialise (which costs time)."""
+    on a spill in a flash or SSD kernel.  Keeps ptxas's warnings, such as a
+    wgmma it had to serialise (which costs time)."""
     out, notes, err = {}, [], ""
     for obj, proc in checks:
         _, err = proc.communicate()
@@ -178,8 +189,8 @@ def ptxas_report(checks) -> dict:
         for line in err.splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
-                name = next((k for k in PTXAS_KERNELS if k in m.group(1)),
-                            None)
+                name = next((k for k, (_, pat) in PTXAS_KERNELS.items()
+                             if pat in m.group(1)), None)
                 continue
             if name is None:
                 continue
@@ -198,15 +209,15 @@ def ptxas_report(checks) -> dict:
         "registers" in r and "spill_stores" in r for r in out.values()),
         f"ptxas check: no report for every kernel in\n{err[-3000:]}")
     require(all(out[k]["spill_stores"] == 0 and out[k]["spill_loads"] == 0
-                for k in FLASH_KERNELS), f"flash kernels spill: {out}")
+                for k in NO_SPILL), f"flash or SSD kernels spill: {out}")
     out["notes"] = notes[:8]
     return out
 
 
 def sass_counts(lib_path) -> dict:
-    """Tensor-core instructions of each flash kernel in the built library
-    (``cuobjdump -sass``): HGMMA is wgmma, HMMA is mma.sync.  Both kernels
-    must hold HGMMA."""
+    """Tensor-core instructions of each flash and SSD kernel in the built
+    library (``cuobjdump -sass``): HGMMA is wgmma, HMMA is mma.sync.  Both
+    flash kernels must hold HGMMA, both SSD kernels HMMA."""
     from repro_torch.kernels import runtime
     tool = (shutil.which("cuobjdump")
             or str(Path(runtime._nvcc()).parent / "cuobjdump"))
@@ -216,7 +227,9 @@ def sass_counts(lib_path) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = next((k for k in FLASH_KERNELS if k in m.group(1)), None)
+            name = next((k for k, pat in {**{f: f for f in FLASH_KERNELS},
+                                          **SSD_KERNELS}.items()
+                         if pat in m.group(1)), None)
             if name:
                 out[name] = {"HGMMA": 0, "HMMA": 0}
             continue
@@ -226,6 +239,8 @@ def sass_counts(lib_path) -> dict:
                     out[name][op] += 1
     require(all(out.get(k, {}).get("HGMMA", 0) > 0 for k in FLASH_KERNELS),
             f"a flash kernel has no HGMMA: {out}")
+    require(all(out.get(k, {}).get("HMMA", 0) > 0 for k in SSD_KERNELS),
+            f"an SSD kernel has no HMMA: {out}")
     return out
 
 
@@ -490,20 +505,25 @@ def ssd_inputs(b, t, h, p, n, dtype, dev, seed=0):
     return x, dt, a_log, bb, cc, torch.ones(h, device=dev)
 
 
-def ssd_flops(b, t, h, p, n, chunk) -> float:
-    """f32 operations the chunked SSD needs: C B^T once per (batch, chunk)
-    (shared by the heads), the intra-chunk scores X over the lower triangle,
-    C h^T and the state update per (batch, head, chunk)."""
+def ssd_flops(b, t, h, p, n, chunk) -> tuple:
+    """f32 operations the chunked SSD needs, as (C B^T, the rest): C B^T
+    once per (batch, chunk) (shared by the heads); the intra-chunk scores X
+    over the lower triangle, C h^T and the state update per (batch, head,
+    chunk)."""
     nc = t // chunk
     cb = 2.0 * chunk * chunk * n * b * nc
     per_head = chunk * (chunk + 1) * p + 4.0 * chunk * p * n
-    return cb + per_head * b * h * nc
+    return cb, per_head * b * h * nc
 
 
 def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128)) -> list:
     """SSD kernel against its plain version at the serve shape (B=4, T=512,
     H=24, P=64, N=128): f32 and bf16 at chunk 64, and chunk 32 against
-    chunk 64 in f32; elementwise |a - b| <= rtol + rtol |b|."""
+    chunk 64 in f32; elementwise |a - b| <= rtol + rtol |b|.  The bound is
+    on the tensor cores in TF32 (495 TFLOP/s): three passes a product in
+    f32; in bf16 one for C B^T (both operands exact in TF32) and two for
+    the rest.  ``f32_unit_bound_ms`` keeps the bound on the f32 units (67
+    TFLOP/s), the basis before the kernel used the tensor cores."""
     import torch
     from repro_torch.kernels.ssd import ops as sd
     from repro_torch.kernels.ssd.ref import ssd_scan_plain
@@ -545,14 +565,22 @@ def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128)) -> list:
         el = x.element_size()
         nbytes = (2 * el * b_ * t_ * h_ * p_ + 2 * el * b_ * t_ * n_
                   + 4 * b_ * t_ * h_ + 2 * 4 * h_)
-        bms, by = bound_ms(nbytes, ssd_flops(*shape, chunk))
+        cb, rest = ssd_flops(*shape, chunk)
+        passes = (1, 2) if dtype == torch.bfloat16 else (3, 3)
+        bms, by = bound_ms(nbytes, passes[0] * cb + passes[1] * rest,
+                           TF32_OPS_PER_S)
+        gx, gy = sd.grid(b_, h_, p_)
         rows.append({"dtype": name, "chunk": chunk, "against": against,
                      "shape": list(shape), "tol": tol,
                      "max_abs_err": float(err.max()),
                      "max_err_over_tol": worst, "ms": ms, "call_ms": call_ms,
                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                     "smem_bytes": sd.smem_bytes(p_, n_, chunk),
-                     "blocks": b_ * h_})
+                     "bound_basis": f"TF32 tensor cores, {passes[0]}/"
+                                    f"{passes[1]} passes (C B^T / rest)",
+                     "f32_unit_bound_ms": bound_ms(nbytes, cb + rest)[0],
+                     "gflop": (cb + rest) / 1e9,
+                     "smem_bytes": sd.smem_bytes(p_, n_, chunk, dtype),
+                     "blocks": gx * gy})
     return rows
 
 
@@ -912,12 +940,19 @@ def phase_serve(card: str, cfg=None, device: str = "cuda", batch: int = 4,
         same.append(bool(torch.equal(tk, tp)))
     require(all(same), f"serve: greedy tokens differ between the kernel and "
                        f"plain paths at steps {same}")
+    # The prefill once more, steady: mean of 20 back-to-back calls (CUDA
+    # events) and one call traced for device ms by kernel (SSD among them).
+    batch_in = {"tokens": prompts}
+    steady_ms = cuda_ms(lambda: prefill(cfg, params, cache, batch_in))
+    traced = device_time(lambda: prefill(cfg, params, cache, batch_in))
     small = reduced_vs_cpu(dev)
     ms = res.mux
     return {"phase": "serve", "card": card, "arch": cfg.name,
             "params": cfg.param_count(), "batch": batch,
             "prompt_len": prompt_len, "gen_len": gen_len,
-            "prefill_ms": res.prefill_s * 1e3, "launches": launches,
+            "prefill_ms": res.prefill_s * 1e3,
+            "prefill_steady_ms": steady_ms, "traced_prefill": traced,
+            "launches": launches,
             "tokens_per_s": res.tokens_per_s, "vet": res.vet, "ei": res.ei,
             "pr": res.pr, "window_vets": [float(v) for v in res.windows.vet],
             "mux_ticks": ms.ticks, "mux_dispatches": ms.dispatches,
@@ -1197,6 +1232,8 @@ def main(argv=None) -> int:
              "max_abs_err": sdk["max_abs_err"],
              "ms": sdk["ms"], "plain_ms": sdk["plain_ms"],
              "bound_ms": sdk["bound_ms"], "bound_by": sdk["bound_by"],
+             "bound_basis": sdk["bound_basis"],
+             "f32_unit_bound_ms": sdk["f32_unit_bound_ms"],
              "library_ms": None},
             {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

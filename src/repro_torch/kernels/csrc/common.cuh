@@ -9,6 +9,7 @@
 #pragma once
 
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace repro_torch {
@@ -21,6 +22,24 @@ __device__ __forceinline__ float rn_add(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ float rn_sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float rn_mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float rn_div(float a, float b) { return __fdiv_rn(a, b); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// x rounded to TF32 (10-bit mantissa), nearest with ties away from zero, as
+// cvt.rna.tf32.f32 rounds a finite x, in two integer operations: the
+// magnitude sits below the sign bit, so adding half a unit carries into
+// the kept bits away from zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+// x = big + small, both TF32 (10-bit mantissas, nearest, ties away).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
+}
 
 // SSE of the best linear fit from raw segment sums; the same expression
 // order as core.changepoint.segment_sse_terms.

@@ -86,10 +86,6 @@ namespace {
 constexpr int kFaMaxDim = 128;  // largest head dimension
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Keys [k0, k0 + bn) of query rows [qr0, qr0 + rows): does any pair need a
 // mask (past S, after the query, or out of the window)?
 __device__ __forceinline__ bool crosses_mask(int k0, int bn, int qr0,
@@ -453,19 +449,6 @@ flash_wgmma_bf16(const __grid_constant__ CUtensorMap qmap,
 
 
 // ================================================= f32: 3xTF32 on wgmma
-// x rounded to TF32 (10-bit mantissa), nearest with ties away from zero, as
-// cvt.rna.tf32.f32 rounds a finite x, in two integer operations: the
-// magnitude sits below the sign bit, so adding half a unit carries into
-// the kept bits away from zero.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-// x = big + small, both TF32 (10-bit mantissas, nearest, ties away).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
-}
 // Every tile holds f32 (TF32) values in 128-byte rows under the 128-byte
 // swizzle that wgmma reads, D padded to 128 as four 32-column panels: the
 // big and the small copy of Q (64 rows) and, per stage, of K (32 rows)

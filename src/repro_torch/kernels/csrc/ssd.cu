@@ -1,210 +1,692 @@
-// Mamba2 SSD chunked scan (state-space duality) for Hopper (sm_90a).
+// Mamba2 SSD chunked scan (state-space duality) on Hopper's tensor cores
+// (sm_90a).
 //
 // Replaces: src/repro/kernels/ssd/kernel.py::ssd_scan (the Pallas body
 // _kernel), whose grid (B, H, chunks) runs the chunk axis in sequence and
 // carries the (P, N) state in VMEM scratch.
 //
-// What bounds it on an H100: operations.  Per (batch, head, chunk) the scan
-// does four small products (C B^T, scores X, C h^T and the state update
-// (x w)^T B), about 3.7 MFLOP at C = 64, P = 64, N = 128, against 57 KiB of
-// inputs and 16 KiB of output: some 60 f32 operations per byte, above the
-// ~20 where the f32 units (67 TFLOP/s against 3.35 TB/s) become the limit.
+// The function.  Per batch b, head h and chunk of C steps, with
+// seg = cumsum(dt a) over the chunk, last = seg[C - 1] and G = C_c B_c^T
+// (C x C, shared by every head):
+//   y   = (G o exp(seg_i - seg_j) o dt_j) X + exp(seg_i) (C h^T) + d X,
+//   h  <- h exp(last) + (X o w)^T B,  w_j = exp(last - seg_j) dt_j,
+// the exponent masked to -inf above the diagonal (exp gives 0, never
+// inf * 0); y in the input type, all recurrence math in f32.
 //
-// Design.  Blocks run in parallel and in no order, so the sequential chunk
-// axis becomes a loop inside the block: one thread block per (b, h) walks
-// the T/C chunks in order, and the f32 state h (P x N, 32 KiB at 64 x 128)
-// never leaves shared memory.  Per chunk the block stages x (C x P), B and
-// C (C x N each), dt and the scan of dt * a in shared memory; seg is a
-// serial scan by one thread (C <= 64 dependent adds, rounded as the plain
-// version rounds: dt * a, then the running sum).  Then three tiled passes,
-// each thread owning a 4 x 4 register tile whose rows and columns are
-// strided across the tile grid, so a warp reads consecutive rows of a
-// padded (stride N + 1) array and hits 32 different banks:
-//   1. scores[i][j] = (c_i . b_j) * exp(seg_i - seg_j) * dt_j, the exponent
-//      masked to -inf above the diagonal (exp gives 0, never inf * 0);
-//   2. y[i][p] = sum_j scores[i][j] x[j][p] + exp(seg_i) (c_i . h_p)
-//      + d x[i][p], written in the input type;
-//   3. h[p][n] = exp(seg_last) h[p][n] + sum_j x[j][p] w_j b[j][n] with
-//      w_j = exp(seg_last - seg_j) dt_j, after every read of h in pass 2.
-// Shared memory is (P + 2C)(N + 1) + C P + C^2 + 4C floats: 130 KiB at
-// C = 64, P = 64, N = 128, above the 48 KiB default, so the launcher raises
-// cudaFuncAttributeMaxDynamicSharedMemorySize; one block fits an SM.  The
-// grid is B * H blocks (96 at the smoke's serve shape: under one wave of
-// 132 SMs).  The products run on the f32 units, not the tensor cores:
-// wgmma, TMA and TF32 are later work.
+// What bounds it on an H100: operations.  Per (batch, head, chunk) the scan
+// does three products (scores X, C h^T and the state update) and G once per
+// (batch, chunk): 1.85 GFLOP at the serve shape of mamba2-130m (B = 4,
+// T = 512, H = 24, P = 64, N = 128, C = 64) against 27.5 MB of inputs and
+// output, some 67 operations per byte.  On the tensor cores at f32
+// accuracy (three TF32 products each) that is 0.0112 ms (3 x 1.85 GFLOP at
+// 495 TFLOP/s), above the 0.0082 ms the bytes take.
+//
+// Design.
+//   * The state splits along P: row p of h reads only column p of x and
+//     writes only column p of y.  A block owns one head and kSsdWidth of
+//     its P columns (at P = 64 the whole head) as kSsdUnits slices of 16
+//     and walks the chunks in order; each slice's f32 state (16 x N) stays
+//     in shared memory for the whole walk and is updated in the reference's
+//     order, h = h exp(last) + S with S summed from zero, in IEEE f32.
+//   * Products on the tensor cores with mma.sync m16n8k8 in TF32, carried at
+//     f32 accuracy as three products (3xTF32): each f32 operand x splits
+//     into big = tf32_rna(x) and small = tf32_rna(x - big), and
+//     small.big + big.small + big.big goes into the f32 accumulator.  x, B
+//     and C in bf16 are exact in TF32 (small = 0), so the bf16 entry takes
+//     one product for G and two for the others.  The products are
+//     transposed so that every operand fragment comes straight from shared
+//     memory with no conflicting bank and the state never leaves its slice:
+//       G      = C B^T               (chunk x chunk, over N);
+//       y^T   += h C^T               (16 x chunk per slice, over N);
+//       S      = (X o w)^T B         (16 x N per slice, over the chunk);
+//       y^T    = exp(seg_i) y^T + X^T scores^T   (at the chunk's end).
+//   * Warps by role, kSsdUnits of each, so that a loaded fragment feeds
+//     several tiles: Y warps own two 8-column steps of y^T for every slice
+//     (h C^T over the pieces, X^T scores^T and the store at the chunk's
+//     end); S warps own one slice's S and its state; G warps own strips of
+//     G.  Named barriers order the state's reads before its update and seg
+//     before S.  Each product site runs one TF32 pass over all its tiles
+//     before the next, so consecutive mma are independent.
+//   * G is computed once per block and chunk and shared by its slices
+//     (H ceil(P / kSsdWidth) times per (batch, chunk) in all: the C entries
+//     take no workspace, so G never goes to device memory).  From G the
+//     block forms scores = G o exp(seg_i - seg_j) o dt_j once, in TF32
+//     parts, the exponent masked above the diagonal (0 there).
+//   * Overlap: B and C arrive in pieces of kSsdPiece state columns through a
+//     two-stage cp.async ring that runs across chunk boundaries, so the next
+//     piece (and, with a chunk's first piece, the x slice and dt) lands
+//     while this piece's products run; shared memory holds two pieces, not
+//     two chunks of B and C.  Each thread splits the f32 values it staged
+//     once, after its own copies land, so the products read ready TF32
+//     parts.
+//   * seg adds dt_j a in sequence in f32, as the plain version's cumsum
+//     adds on the card (a shuffle chain, so no lane waits on shared
+//     memory), by the first G warp for the block.  seg reaches hundreds at
+//     the serve shape and exp(seg_i - seg_j) passes its rounding on to y: a
+//     tree-ordered scan lands ~1x the f32 tolerance away from the plain
+//     version there, the serial one does not.
+//   * Shapes: the chunk pads to a multiple of 16, N to a multiple of
+//     kSsdPiece, P to the block's kSsdWidth columns; the padding is
+//     zero-filled by cp.async (dt = 0 there, so padded steps add nothing)
+//     and never stored.
+//   * Shared memory (ssd_smem): 185.25 KiB at the serve shape in f32
+//     (107.25 in bf16), so one block of kSsdThreads runs per SM, under 168
+//     registers a thread; N fits up to 288 in f32 at every chunk.  The grid
+//     is H ceil(P / kSsdWidth) x B blocks (96 at the serve shape).
 #include <cuda_bf16.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kSsdThreads = 256;
+// kSsdUnits, kSsdThreads, kSsdPiece and kSsdPad are copied in ssd/ops.py
+// (smem_bytes, grid); a test evaluates these constexpr lines and holds the
+// copy to them.
+constexpr int kSsdUnits = 4;                 // 16-column state slices a block
+constexpr int kSsdWarps = 3 * kSsdUnits;     // a Y, an S and a G warp a slice
+constexpr int kSsdThreads = 32 * kSsdWarps;
+constexpr int kSsdWidth = 16 * kSsdUnits;    // state rows a block
+constexpr int kSsdPiece = 32;                // state columns a staged piece
+constexpr int kSsdPad = 8;                   // row padding of tiles (elements)
 constexpr int kSsdMaxChunk = 64;
+constexpr size_t kSsdMaxSmem = 232448;       // dynamic shared memory a block
+constexpr int kBarState = 1;  // the Y warps have read a piece of the state
+constexpr int kBarSeg = 2;    // seg, w and exp(seg) of a chunk are ready
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+template <typename T>
+struct ExactTf32 {
+  static constexpr bool value = false;
+};
+template <>
+struct ExactTf32<__nv_bfloat16> {  // 8-bit mantissa: exact in TF32
+  static constexpr bool value = true;
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// Copies kBytes from global to shared memory asynchronously, or writes
+// zeros when !valid (src is then not read).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(kBytes), "r"(valid ? kBytes : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Named barrier `id` (1-15) over `count` threads: unit_sync waits for
+// them all, unit_arrive signals without waiting (a producer's side).
+__device__ __forceinline__ void unit_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void unit_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// d (16 x 8, f32) += a (16 x 8, TF32) b (8 x 8, TF32).  Lane (g, t) =
+// (lane / 4, lane % 4) holds a at (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); b at (t, g), (t + 4, g); d at (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+// big and small TF32 parts of v; a value exact in TF32 is its own big part.
+template <bool kExact>
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  if (kExact) {
+    hi = __float_as_uint(v);
+    lo = 0u;
+  } else {
+    split_tf32(v, hi, lo);
+  }
+}
+template <bool kExact>
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
+                                        float a3) {
+  FragA f;
+  split<kExact>(a0, f.hi[0], f.lo[0]);
+  split<kExact>(a1, f.hi[1], f.lo[1]);
+  split<kExact>(a2, f.hi[2], f.lo[2]);
+  split<kExact>(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+// d += a b at f32 accuracy is three products, in this order: pass 0
+// small.big, pass 1 big.small, pass 2 big.big; a pass whose small operand
+// is exact in TF32 (0) is skipped.  The call sites run a pass over all
+// their tiles before the next, so consecutive mma are independent and the
+// tensor pipe overlaps them (a pass chained on the one before waits the
+// whole mma latency).
+__device__ __forceinline__ void mma_pass(int pass, float (&d)[4],
+                                         const FragA& a, const FragB& b) {
+  if (pass == 0)
+    mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+  else if (pass == 1)
+    mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+  else
+    mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+}
+template <bool kAExact, bool kBExact>
+__device__ __forceinline__ constexpr bool takes(int pass) {
+  return pass == 2 || (pass == 0 && !kAExact) || (pass == 1 && !kBExact);
+}
+
+// Two neighbouring elements (an even offset) of a staged B or C piece as
+// TF32 parts: an f32 piece holds the big parts in place and the small ones
+// in `lo`; a bf16 value is exact (small part 0, `lo` unused).
+__device__ __forceinline__ void piece_pair(const float* hi, const float* lo,
+                                           int off, uint32_t (&h)[2],
+                                           uint32_t (&l)[2]) {
+  const float2 a = *reinterpret_cast<const float2*>(hi + off);
+  const float2 b = *reinterpret_cast<const float2*>(lo + off);
+  h[0] = __float_as_uint(a.x);
+  h[1] = __float_as_uint(a.y);
+  l[0] = __float_as_uint(b.x);
+  l[1] = __float_as_uint(b.y);
+}
+__device__ __forceinline__ void piece_pair(const __nv_bfloat16* hi,
+                                           const float*, int off,
+                                           uint32_t (&h)[2],
+                                           uint32_t (&l)[2]) {
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hi + off));
+  h[0] = __float_as_uint(a.x);
+  h[1] = __float_as_uint(a.y);
+  l[0] = l[1] = 0u;
+}
+__device__ __forceinline__ void piece_one(const float* hi, const float* lo,
+                                          int off, uint32_t& h, uint32_t& l) {
+  h = __float_as_uint(hi[off]);
+  l = __float_as_uint(lo[off]);
+}
+__device__ __forceinline__ void piece_one(const __nv_bfloat16* hi,
+                                          const float*, int off, uint32_t& h,
+                                          uint32_t& l) {
+  h = __float_as_uint(__bfloat162float(hi[off]));
+  l = 0u;
+}
+
+// Byte offsets of the shared-memory regions (each 16-byte aligned) for a
+// chunk padded to cp, a state padded to npad columns and inputs of esize
+// bytes (4: f32, whose pieces keep their small TF32 parts beside them).
+struct SsdSmem {
+  size_t c, b, cl, bl, x, dt, h, g, gl, w, total;
+};
+__host__ __device__ __forceinline__ size_t align16(size_t v) {
+  return (v + 15) & ~static_cast<size_t>(15);
+}
+__host__ __device__ __forceinline__ SsdSmem ssd_smem(int cp, int npad,
+                                                     int esize) {
+  const size_t tile = static_cast<size_t>(cp) * (kSsdPiece + kSsdPad);
+  const size_t lo = esize == 4 ? align16(2 * tile * 4) : 0;
+  const size_t grid = align16(static_cast<size_t>(cp) * (cp + 4) * 4);
+  SsdSmem s;
+  size_t off = 0;
+  s.c = off;  // C pieces [2][cp][kSsdPiece + kSsdPad], input type
+  off += align16(2 * tile * esize);
+  s.b = off;  // B pieces, the same
+  off += align16(2 * tile * esize);
+  s.cl = off;  // small TF32 parts of the f32 C pieces
+  off += lo;
+  s.bl = off;  // and of B
+  off += lo;
+  s.x = off;  // x slices [2][cp][kSsdWidth + kSsdPad], input type
+  off += align16(2 * static_cast<size_t>(cp) * (kSsdWidth + kSsdPad) * esize);
+  s.dt = off;  // dt [2][cp]
+  off += align16(2 * static_cast<size_t>(cp) * 4);
+  s.h = off;  // state [kSsdWidth][npad + kSsdPad]
+  off += align16(static_cast<size_t>(kSsdWidth) * (npad + kSsdPad) * 4);
+  s.g = off;  // G, then the scores' big TF32 parts [cp][cp + 4]
+  off += grid;
+  s.gl = off;  // the scores' small parts
+  off += grid;
+  s.w = off;  // seg, w, exp(seg) [3][cp]
+  off += align16(static_cast<size_t>(3) * cp * 4);
+  s.total = off;
+  return s;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kSsdThreads)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ a_neg, const T* __restrict__ bm,
-           const T* __restrict__ cm, const float* __restrict__ dskip,
-           T* __restrict__ y, int seqlen, int nheads, int P, int N, int C) {
-  extern __shared__ float smem[];
-  const int NP = N + 1;  // padded row stride of h, B and C
-  float* hs = smem;          // [P][NP] state
-  float* bs = hs + P * NP;   // [C][NP]
-  float* cs = bs + C * NP;   // [C][NP]
-  float* xs = cs + C * NP;   // [C][P]
-  float* ss = xs + C * P;    // [C][C] scores
-  float* dts = ss + C * C;   // [C]
-  float* segs = dts + C;     // [C]
-  float* ws = segs + C;      // [C] exp(seg_last - seg_j) * dt_j
-  float* es = ws + C;        // [C] exp(seg_i)
+__global__ void __launch_bounds__(kSsdThreads, 1)
+ssd_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ a_neg, const T* __restrict__ bm,
+               const T* __restrict__ cm, const float* __restrict__ dskip,
+               T* __restrict__ y, int seqlen, int nheads, int P, int N,
+               int C) {
+  constexpr bool kX = ExactTf32<T>::value;  // x, B and C exact in TF32
+  constexpr int kGran = 4 * sizeof(T);      // one cp.async: 4 elements
+  constexpr int kPieceGran = kSsdPiece / 4;
+  constexpr int kNt = kSsdPiece / 8;  // 8-column tiles a piece
+  const int cp = (C + 15) & ~15;
+  const int npad = (N + kSsdPiece - 1) / kSsdPiece * kSsdPiece;
+  const int pieces = npad / kSsdPiece;
+  const int total = seqlen / C * pieces;
+  const int qs = kSsdPiece + kSsdPad;   // row stride of a B / C piece
+  const int xsd = kSsdWidth + kSsdPad;  // row stride of an x slice
+  const int hsd = npad + kSsdPad;       // row stride of the state
+  const int gsd = cp + 4;               // row stride of G and the scores
+  const SsdSmem lay = ssd_smem(cp, npad, sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* cs = reinterpret_cast<T*>(smem + lay.c);
+  T* bs = reinterpret_cast<T*>(smem + lay.b);
+  float* cls = reinterpret_cast<float*>(smem + lay.cl);
+  float* bls = reinterpret_cast<float*>(smem + lay.bl);
+  T* xs = reinterpret_cast<T*>(smem + lay.x);
+  float* ds = reinterpret_cast<float*>(smem + lay.dt);
+  float* hs = reinterpret_cast<float*>(smem + lay.h);
+  float* gs = reinterpret_cast<float*>(smem + lay.g);
+  float* gls = reinterpret_cast<float*>(smem + lay.gl);
+  float* seg = reinterpret_cast<float*>(smem + lay.w);
+  float* wv = seg + cp;  // exp(last - seg_j) dt_j
+  float* ev = wv + cp;   // exp(seg_i)
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pchunks = (P + kSsdWidth - 1) / kSsdWidth;
+  const int h = blockIdx.x / pchunks;
+  const int pb = (blockIdx.x - h * pchunks) * kSsdWidth;  // block's first p
   const float a = a_neg[h], dd = dskip[h];
-  for (int i = tid; i < P * NP; i += nt) hs[i] = 0.0f;
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * seqlen;
+  const int role = warp / kSsdUnits;  // 0: Y warps, 1: S warps, 2: G warps
+  const int q = warp % kSsdUnits;
 
-  const int tc = C / 4, tp = P / 4, tn = N / 4;
-  for (int ic = 0; ic < seqlen / C; ++ic) {
-    const size_t t0 = static_cast<size_t>(b) * seqlen +
-                      static_cast<size_t>(ic) * C;
-    for (int i = tid; i < C * P; i += nt) {
-      const int r = i / P, q = i - r * P;
-      xs[i] = load_f32(x + ((t0 + r) * nheads + h) * P + q);
+  // Stage piece k (global over chunks): columns of B and C, and with a
+  // chunk's first piece its x slice and dt.  One commit group a piece.
+  auto stage_piece = [&](int k) {
+    const int ck = k / pieces, qk = k - ck * pieces;
+    const int t0 = ck * C, n0 = qk * kSsdPiece;
+    const uint32_t cdst = smem_u32(cs + (k & 1) * cp * qs);
+    const uint32_t bdst = smem_u32(bs + (k & 1) * cp * qs);
+    for (int i = tid; i < cp * kPieceGran; i += kSsdThreads) {
+      const int j = i / kPieceGran, c4 = (i - j * kPieceGran) * 4;
+      const bool ok = j < C && n0 + c4 < N;
+      const size_t off = ok ? (row0 + t0 + j) * N + n0 + c4 : 0;
+      const uint32_t o = (j * qs + c4) * sizeof(T);
+      cp_async<kGran>(cdst + o, cm + off, ok);
+      cp_async<kGran>(bdst + o, bm + off, ok);
     }
-    for (int i = tid; i < C * N; i += nt) {
-      const int r = i / N, k = i - r * N;
-      bs[r * NP + k] = load_f32(bm + t0 * N + i);
-      cs[r * NP + k] = load_f32(cm + t0 * N + i);
-    }
-    for (int i = tid; i < C; i += nt) dts[i] = dt[(t0 + i) * nheads + h];
-    __syncthreads();
-    if (tid == 0) {
-      float acc = 0.0f;
-      for (int i = 0; i < C; ++i) {
-        acc = rn_add(acc, rn_mul(dts[i], a));
-        segs[i] = acc;
+    if (qk == 0) {
+      const int slot = ck & 1;
+      const uint32_t xdst = smem_u32(xs + slot * cp * xsd);
+      for (int i = tid; i < cp * (kSsdWidth / 4); i += kSsdThreads) {
+        const int j = i / (kSsdWidth / 4), c4 = (i - j * (kSsdWidth / 4)) * 4;
+        const bool ok = j < C && pb + c4 < P;
+        const size_t off =
+            ok ? ((row0 + t0 + j) * nheads + h) * P + pb + c4 : 0;
+        cp_async<kGran>(xdst + (j * xsd + c4) * sizeof(T), x + off, ok);
+      }
+      const uint32_t ddst = smem_u32(ds + slot * cp);
+      for (int j = tid; j < cp; j += kSsdThreads) {
+        const bool ok = j < C;
+        cp_async<4>(ddst + j * 4, dt + (ok ? (row0 + t0 + j) * nheads + h : 0),
+                    ok);
       }
     }
-    __syncthreads();
-    const float last = segs[C - 1];
-    for (int i = tid; i < C; i += nt) {
-      ws[i] = expf(last - segs[i]) * dts[i];
-      es[i] = expf(segs[i]);
+    cp_async_commit();
+  };
+  // After its own copies of piece k landed, a thread splits the f32 values
+  // it staged into big parts (in place) and small parts.
+  const int split_end = kX ? 0 : cp * kPieceGran;  // bf16 is exact in TF32
+  auto split_piece = [&](int k) {
+    for (int i = tid; i < split_end; i += kSsdThreads) {
+      const int j = i / kPieceGran, c4 = (i - j * kPieceGran) * 4;
+      const int o = (k & 1) * cp * qs + j * qs + c4;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        float* hi = reinterpret_cast<float*>(m ? bs : cs) + o;
+        float* lo = (m ? bls : cls) + o;
+        const float4 v = *reinterpret_cast<const float4*>(hi);
+        uint32_t h4[4], l4[4];
+        split_tf32(v.x, h4[0], l4[0]);
+        split_tf32(v.y, h4[1], l4[1]);
+        split_tf32(v.z, h4[2], l4[2]);
+        split_tf32(v.w, h4[3], l4[3]);
+        *reinterpret_cast<uint4*>(hi) = make_uint4(h4[0], h4[1], h4[2], h4[3]);
+        *reinterpret_cast<uint4*>(lo) = make_uint4(l4[0], l4[1], l4[2], l4[3]);
+      }
+    }
+  };
+
+  // Y warps: output columns (8 steps each) of y^T for every slice; column
+  // steps r and isteps - 1 - r share a warp, so the four get equal
+  // triangle work at chunk 64.  A warp with fewer than two (a chunk below
+  // 64) repeats column 0 and stores nothing of it: the products run
+  // without branches, so the compiler interleaves their chains.
+  const int isteps = cp / 8;
+  int my_i[2] = {0, 0};
+  int n_i = 0;  // at most 2; constant indices keep my_i in registers
+#pragma unroll
+  for (int r = 0; r < kSsdMaxChunk / 8; ++r) {
+    const int owner = (r < isteps / 2 ? r : isteps - 1 - r) & 3;
+    if (r < isteps && owner == q) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+        if (s == n_i) my_i[s] = r * 8;
+      ++n_i;
+    }
+  }
+  // G warps: strips of up to 4 lower-triangle (16 x 8) tiles of G in one
+  // band of 16 rows, sharing their A fragments; G warp gw takes strips gw
+  // and 2 kSsdUnits - 1 - gw (6 strips at chunk 64: 2, 4, 4 + 4 and 2 + 4
+  // tiles).  A strip of fewer tiles repeats its last one and writes it once.
+  int g_row[2] = {-1, -1}, g_col[2] = {0, 0}, g_n[2] = {1, 1};
+  if (role == 2) {
+    int sigma = 0;
+    for (int r = 0; r < cp / 16; ++r)
+      for (int c0 = 0; c0 < 2 * (r + 1); c0 += 4, ++sigma)
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+          if (sigma == (m ? 2 * kSsdUnits - 1 - q : q)) {
+            g_row[m] = r * 16;
+            g_col[m] = c0 * 8;
+            g_n[m] = min(4, 2 * (r + 1) - c0);
+          }
+  }
+
+  for (int i = tid; i < kSsdWidth * hsd; i += kSsdThreads) hs[i] = 0.0f;
+  stage_piece(0);
+
+  float acc[kSsdUnits][2][4];  // Y warps: y^T from the state; G warps: G
+  float dec = 1.0f;
+  for (int k = 0; k < total; ++k) {
+    const int ck = k / pieces, qk = k - ck * pieces, slot = ck & 1;
+    cp_async_wait_all();
+    split_piece(k);
+    __syncthreads();  // piece k landed; every warp is done with piece k - 1
+    if (k + 1 < total) stage_piece(k + 1);
+    const T* cq = cs + (k & 1) * cp * qs;
+    const T* bq = bs + (k & 1) * cp * qs;
+    const float* clq = cls + (k & 1) * cp * qs;
+    const float* blq = bls + (k & 1) * cp * qs;
+    const T* xq = xs + slot * cp * xsd;
+    const float* dq = ds + slot * cp;
+    if (qk == 0) {
+#pragma unroll
+      for (int u = 0; u < kSsdUnits; ++u)
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[u][s][e] = 0.0f;
     }
 
-    // ---- pass 1: scores = (C B^T) o exp(seg_i - seg_j) o dt_j, i >= j ----
-    for (int tile = tid; tile < tc * tc; tile += nt) {
-      const int ri = tile / tc, rj = tile - ri * tc;
-      float acc[4][4] = {};
-      for (int k = 0; k < N; ++k) {
-        float cv[4], bv[4];
+    if (role == 0) {
+      // ---- Y warps: y^T += h_q C_q^T for every slice, this warp's columns
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          cv[u] = cs[(ri + u * tc) * NP + k];
-          bv[u] = bs[(rj + u * tc) * NP + k];
+      for (int kk = 0; kk < kNt; ++kk) {
+        const int n = kk * 8 + 2 * t;
+        FragB fb[2];
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          piece_pair(cq, clq, (my_i[s] + g) * qs + n, fb[s].hi, fb[s].lo);
+#pragma unroll
+        for (int u0 = 0; u0 < kSsdUnits; u0 += 2) {
+          FragA fa[2];
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const float* hq = hs + ((u0 + v) * 16) * hsd + qk * kSsdPiece + n;
+            const float2 h0 = *reinterpret_cast<const float2*>(hq + g * hsd);
+            const float2 h1 =
+                *reinterpret_cast<const float2*>(hq + (g + 8) * hsd);
+            fa[v] = frag_a<false>(h0.x, h1.x, h0.y, h1.y);
+          }
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)
+            if (takes<false, kX>(pass))
+#pragma unroll
+              for (int v = 0; v < 2; ++v)
+#pragma unroll
+                for (int s = 0; s < 2; ++s)
+                  mma_pass(pass, acc[u0 + v][s], fa[v], fb[s]);
+        }
+      }
+      unit_arrive(kBarState, 8 * 32);  // the state of piece k is read
+    } else if (role == 1) {
+      // ---- S warps: S = (X o w)^T B_q for slice q, then its state --------
+      const int u = q;
+      if (qk == 0) {
+        unit_sync(kBarSeg, 5 * 32);  // seg, w of the chunk
+        dec = expf(seg[cp - 1]);
+      }
+      const T* xu = xq + u * 16;
+      float sacc[kNt][4];
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[nt][e] = 0.0f;
+#pragma unroll 2
+      for (int j0 = 0; j0 < cp; j0 += 8) {
+        const int j = j0 + t;
+        const float w0 = wv[j], w1 = wv[j + 4];
+        const T* x0 = xu + j * xsd + g;
+        const T* x1 = xu + (j + 4) * xsd + g;
+        const FragA fa = frag_a<false>(
+            rn_mul(to_f32(x0[0]), w0), rn_mul(to_f32(x0[8]), w0),
+            rn_mul(to_f32(x1[0]), w1), rn_mul(to_f32(x1[8]), w1));
+        FragB fb[kNt];
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          piece_one(bq, blq, j * qs + nt * 8 + g, fb[nt].hi[0], fb[nt].lo[0]);
+          piece_one(bq, blq, (j + 4) * qs + nt * 8 + g, fb[nt].hi[1],
+                    fb[nt].lo[1]);
         }
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
+        for (int pass = 0; pass < 3; ++pass)
+          if (takes<false, kX>(pass))
 #pragma unroll
-          for (int v = 0; v < 4; ++v) acc[u][v] += cv[u] * bv[v];
+            for (int nt = 0; nt < kNt; ++nt)
+              mma_pass(pass, sacc[nt], fa, fb[nt]);
+      }
+      unit_sync(kBarState, 8 * 32);  // the Y warps have read the state
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        const int col = qk * kSsdPiece + nt * 8 + 2 * t;
+        float2* r0 = reinterpret_cast<float2*>(hs + (u * 16 + g) * hsd + col);
+        float2* r1 =
+            reinterpret_cast<float2*>(hs + (u * 16 + g + 8) * hsd + col);
+        float2 v = *r0;
+        *r0 = make_float2(rn_add(rn_mul(v.x, dec), sacc[nt][0]),
+                          rn_add(rn_mul(v.y, dec), sacc[nt][1]));
+        v = *r1;
+        *r1 = make_float2(rn_add(rn_mul(v.x, dec), sacc[nt][2]),
+                          rn_add(rn_mul(v.y, dec), sacc[nt][3]));
+      }
+    } else {
+      // ---- G warps: G += C_q B_q^T on this warp's strip; the first one also
+      // forms seg, w and exp(seg) at a chunk's start
+      if (qk == 0 && q == 0) {
+        // seg_i = ((dt_0 a + dt_1 a) + ...) + dt_i a in f32, in sequence:
+        // every lane carries the sum and keeps its own two steps (dt is 0
+        // past C, so seg stays at last there and the sum ends at last)
+        const float d0 = lane < cp ? rn_mul(dq[lane], a) : 0.0f;
+        const float d1 = lane + 32 < cp ? rn_mul(dq[lane + 32], a) : 0.0f;
+        float sum = 0.0f, s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kSsdMaxChunk; ++i) {
+          sum = rn_add(sum, __shfl_sync(kFullMask, i < 32 ? d0 : d1, i & 31));
+          if (lane == (i & 31)) {
+            if (i < 32)
+              s0 = sum;
+            else
+              s1 = sum;
+          }
+        }
+        if (lane < cp) {
+          seg[lane] = s0;
+          wv[lane] = rn_mul(expf(rn_sub(sum, s0)), dq[lane]);
+          ev[lane] = expf(s0);
+        }
+        if (lane + 32 < cp) {
+          seg[lane + 32] = s1;
+          wv[lane + 32] = rn_mul(expf(rn_sub(sum, s1)), dq[lane + 32]);
+          ev[lane + 32] = expf(s1);
+        }
+        unit_arrive(kBarSeg, 5 * 32);
       }
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int m = 0; m < 2; ++m) {
+        if (g_row[m] < 0) continue;
 #pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const int i = ri + u * tc, j = rj + v * tc;
-          const float li = i >= j ? segs[i] - segs[j] : -inf_f();
-          ss[i * C + j] = acc[u][v] * expf(li) * dts[j];
+        for (int kk = 0; kk < kNt; ++kk) {
+          // k order within the step: column 2t as k = t, 2t + 1 as t + 4
+          const int n = kk * 8 + 2 * t;
+          uint32_t c0h[2], c0l[2], c1h[2], c1l[2];
+          piece_pair(cq, clq, (g_row[m] + g) * qs + n, c0h, c0l);
+          piece_pair(cq, clq, (g_row[m] + g + 8) * qs + n, c1h, c1l);
+          const FragA fa = {{c0h[0], c1h[0], c0h[1], c1h[1]},
+                            {c0l[0], c1l[0], c0l[1], c1l[1]}};
+          FragB fb[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            piece_pair(bq, blq,
+                       (g_col[m] + min(c, g_n[m] - 1) * 8 + g) * qs + n,
+                       fb[c].hi, fb[c].lo);
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)
+            if (takes<kX, kX>(pass))
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                mma_pass(pass, acc[2 * m + (c >> 1)][c & 1], fa, fb[c]);
         }
+      }
     }
-    __syncthreads();
 
-    // ---- pass 2: y = scores X + exp(seg) (C h^T) + d X ------------------
-    for (int tile = tid; tile < tc * tp; tile += nt) {
-      const int ri = tile / tp, rq = tile - ri * tp;
-      float yin[4][4] = {}, yout[4][4] = {};
-      const int jmax = ri + 3 * tc + 1;  // scores vanish above the diagonal
-      for (int j = 0; j < jmax; ++j) {
-        float sv[4], xv[4];
+    if (qk != pieces - 1) continue;
+    // ---- the chunk's last piece: G complete, the scores, then y ----------
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          sv[u] = ss[(ri + u * tc) * C + j];
-          xv[u] = xs[j * P + rq + u * tp];
+    for (int m = 0; m < 2; ++m) {
+      if (g_row[m] < 0) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c < g_n[m]) {
+          float* g0 = gs + (g_row[m] + g) * gsd + g_col[m] + c * 8 + 2 * t;
+          const float* r = acc[2 * m + (c >> 1)][c & 1];
+          *reinterpret_cast<float2*>(g0) = make_float2(r[0], r[1]);
+          *reinterpret_cast<float2*>(g0 + 8 * gsd) = make_float2(r[2], r[3]);
         }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) yin[u][v] += sv[u] * xv[v];
       }
-      for (int k = 0; k < N; ++k) {
-        float cv[4], hv[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          cv[u] = cs[(ri + u * tc) * NP + k];
-          hv[u] = hs[(rq + u * tp) * NP + k];
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) yout[u][v] += cv[u] * hv[v];
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const int i = ri + u * tc, q = rq + v * tp;
-          const float out = yin[u][v] + es[i] * yout[u][v] + dd * xs[i * P + q];
-          store_as(y + ((t0 + i) * nheads + h) * P + q, out);
-        }
     }
     __syncthreads();
-
-    // ---- pass 3: h = exp(seg_last) h + (X o w)^T B ----------------------
-    const float dec = expf(last);
-    for (int tile = tid; tile < tp * tn; tile += nt) {
-      const int rq = tile / tn, rk = tile - rq * tn;
-      float acc[4][4] = {};
-      for (int j = 0; j < C; ++j) {
-        const float w = ws[j];
-        float xv[4], bv[4];
+    // scores_ij = G_ij exp(seg_i - seg_j) dt_j (0 for j > i), as TF32 parts
+    // in place; once per block, a warp a row
+#pragma unroll 6
+    for (int i = warp; i < cp; i += kSsdWarps) {
+      const float si = seg[i];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          xv[u] = xs[j * P + rq + u * tp] * w;
-          bv[u] = bs[j * NP + rk + u * tn];
+      for (int jj = 0; jj < kSsdMaxChunk; jj += 32) {
+        const int j = jj + lane;
+        if (j < cp) {
+          const float sc =
+              j <= i ? rn_mul(rn_mul(gs[i * gsd + j], expf(rn_sub(si, seg[j]))),
+                              dq[j])
+                     : 0.0f;
+          uint32_t hi, lo;
+          split_tf32(sc, hi, lo);
+          gs[i * gsd + j] = __uint_as_float(hi);
+          gls[i * gsd + j] = __uint_as_float(lo);
         }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[u][v] += xv[u] * bv[v];
       }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          float* hp = hs + (rq + u * tp) * NP + rk + v * tn;
-          *hp = *hp * dec + acc[u][v];
-        }
     }
     __syncthreads();
+    if (role != 0) continue;
+    // ---- Y warps: y^T = exp(seg_i) y^T + X^T scores^T, then y ------------
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float e0 = ev[my_i[s] + 2 * t], e1 = ev[my_i[s] + 2 * t + 1];
+#pragma unroll
+      for (int u = 0; u < kSsdUnits; ++u) {
+        acc[u][s][0] = rn_mul(e0, acc[u][s][0]);
+        acc[u][s][1] = rn_mul(e1, acc[u][s][1]);
+        acc[u][s][2] = rn_mul(e0, acc[u][s][2]);
+        acc[u][s][3] = rn_mul(e1, acc[u][s][3]);
+      }
+    }
+#pragma unroll
+    for (int js = 0; js < kSsdMaxChunk / 8; ++js) {
+      if (js * 8 < cp) {
+        const int j = js * 8 + t;
+        FragB fb[2];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int o = (my_i[s] + g) * gsd + j;
+          fb[s].hi[0] = __float_as_uint(gs[o]);
+          fb[s].hi[1] = __float_as_uint(gs[o + 4]);
+          fb[s].lo[0] = __float_as_uint(gls[o]);
+          fb[s].lo[1] = __float_as_uint(gls[o + 4]);
+        }
+#pragma unroll
+        for (int u0 = 0; u0 < kSsdUnits; u0 += 2) {
+          FragA fa[2];
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const T* xu = xq + (u0 + v) * 16;
+            fa[v] = frag_a<kX>(
+                to_f32(xu[j * xsd + g]), to_f32(xu[j * xsd + g + 8]),
+                to_f32(xu[(j + 4) * xsd + g]), to_f32(xu[(j + 4) * xsd + g + 8]));
+          }
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)
+            if (takes<kX, false>(pass))
+#pragma unroll
+              for (int v = 0; v < 2; ++v)
+#pragma unroll
+                for (int s = 0; s < 2; ++s)
+                  mma_pass(pass, acc[u0 + v][s], fa[v], fb[s]);
+        }
+      }
+    }
+    // y = y^T + d x, in the input type
+    const size_t yrow = row0 + static_cast<size_t>(ck) * C;
+#pragma unroll
+    for (int u = 0; u < kSsdUnits; ++u) {
+      const int p0 = pb + u * 16;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (s < n_i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = g + (e >= 2 ? 8 : 0);
+            const int i = my_i[s] + 2 * t + (e & 1);
+            if (i < C && p0 + p < P) {
+              const float xi = to_f32(xq[i * xsd + u * 16 + p]);
+              store_as(y + ((yrow + i) * nheads + h) * P + p0 + p,
+                       rn_add(acc[u][s][e], rn_mul(dd, xi)));
+            }
+          }
+        }
+      }
+    }
   }
 }
 
-size_t ssd_smem_bytes(int P, int N, int C) {
-  const size_t np = static_cast<size_t>(N) + 1;
-  return sizeof(float) * ((static_cast<size_t>(P) + 2 * C) * np +
-                          static_cast<size_t>(C) * P +
-                          static_cast<size_t>(C) * C + 4 * C);
+size_t ssd_smem_bytes(int N, int C, int esize) {
+  return ssd_smem((C + 15) & ~15, (N + kSsdPiece - 1) / kSsdPiece * kSsdPiece,
+                  esize)
+      .total;
 }
 
 template <typename T>
@@ -214,14 +696,16 @@ int launch_ssd(const T* x, const float* dt, const float* a_neg, const T* b,
   if (batch <= 0 || nheads <= 0 || C < 4 || C > kSsdMaxChunk || C % 4 ||
       P % 4 || N % 4 || P <= 0 || N <= 0 || seqlen <= 0 || seqlen % C)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ssd_smem_bytes(P, N, C);
+  const size_t smem = ssd_smem_bytes(N, C, sizeof(T));
+  if (smem > kSsdMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  ssd_kernel<T><<<dim3(nheads, batch), kSsdThreads, smem, stream>>>(
+  const dim3 grid(nheads * ((P + kSsdWidth - 1) / kSsdWidth), batch);
+  ssd_mma_kernel<T><<<grid, kSsdThreads, smem, stream>>>(
       x, dt, a_neg, b, c, d, y, seqlen, nheads, P, N, C);
   return static_cast<int>(cudaGetLastError());
 }
@@ -232,7 +716,8 @@ int launch_ssd(const T* x, const float* dt, const float* a_neg, const T* b,
 // y (B, T, H, P) = SSD(x, dt, a_neg, b, c, d).  x (B, T, H, P), b and c
 // (B, T, N) in the entry's type; dt (B, T, H), a_neg = -exp(A_log) (H,) and
 // d (H,) f32; all contiguous on the stream's device.  T % chunk == 0,
-// chunk a multiple of 4 up to 64, P and N multiples of 4.  Returns
+// chunk a multiple of 4 up to 64, P and N multiples of 4, and the shared
+// memory of ssd_smem within a block's 227 KiB.  One launch.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int ssd_scan_f32(const float* x, const float* dt,
                             const float* a_neg, const float* b,

@@ -142,6 +142,11 @@ SSD_CASES = {
     "serve_bf16": ((4, 512, 24, 64, 128), torch.bfloat16, 64, 5e-2),
     "reduced_f32": ((2, 64, 16, 16, 16), torch.float32, 8, 2e-4),
     "chunk32": ((2, 256, 4, 64, 128), torch.float32, 32, 2e-4),
+    # P, N and the chunk multiples of 4 but not of 8 or 16: padded edges
+    "odd_p12_n20_c12": ((2, 96, 3, 12, 20), torch.float32, 12, 2e-4),
+    "odd_p12_n20_c12_bf16": ((2, 96, 3, 12, 20), torch.bfloat16, 12, 5e-2),
+    # two blocks a head (P = 128), eight pieces of the state, chunk 48
+    "p128_n256_c48": ((1, 96, 2, 128, 256), torch.float32, 48, 2e-4),
 }
 
 

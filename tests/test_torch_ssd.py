@@ -5,11 +5,23 @@ oracle) and ``repro.models.layers._ssd_chunked`` in its vectorised and
 version, so this holds the plain version, the wrapper's argument handling
 and the port's own stepwise oracle.
 
+Kernel numerics: the CUDA kernel cannot run here, so ``ssd_emulated``
+repeats its arithmetic in plain PyTorch (16-column P slices, the chunk
+padded to 16 and N to the 32-column pieces, seg added in sequence in f32,
+G = C B^T once per chunk, every product as three TF32 products in the
+``mma`` k-step order, the state updated chunk after chunk
+in IEEE f32) and is held to the reference's Pallas kernel in interpret
+mode, as ``TestSSD`` runs it, and to ``_ssd_chunked``.  A test also holds
+the wrapper's copy of the kernel's shared-memory layout and grid to the
+source's ``constexpr`` lines.
+
 Inputs are TestSSD's (``tests/test_kernels.py``), made with numpy from a
 seed; tolerances are that suite's: 2e-4 (rtol and atol) in f32, 5e-2 with
 bf16 x/B/C, 2e-4 between chunk sizes 32 and 64 (the state carried across
 chunks).
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -17,8 +29,11 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.kernels.ssd.ops import ssd as jax_ssd
 from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref
 from repro.models.layers import _ssd_chunked
+from repro_torch.kernels import runtime
+from repro_torch.kernels.ssd import ops as sd
 from repro_torch.kernels.ssd import ssd, ssd_ref, ssd_scan_plain
 
 
@@ -39,6 +54,9 @@ CASES = {
     "f32_chunk16": ((1, 96, 3, 32, 16), "float32", (16,), 2e-4),
     "bf16": ((1, 128, 2, 32, 16), "bfloat16", (64,), 5e-2),
     "chunk32_vs_64": ((1, 256, 2, 32, 16), "float32", (32, 64), 2e-4),
+    # P, N and the chunk multiples of 4 but not of 8 or 16: padded edges
+    "odd_p12_n20_c12": ((2, 96, 3, 12, 20), "float32", (12,), 2e-4),
+    "odd_p12_n20_c12_bf16": ((2, 96, 3, 12, 20), "bfloat16", (12,), 5e-2),
 }
 
 
@@ -81,3 +99,173 @@ def test_ssd_refuses_a_ragged_chunk():
         ssd(x, dt, a_log, bb, cc, d, chunk=8)
     with pytest.raises(ValueError, match="multiple of the SSD chunk"):
         ssd_scan_plain(x, dt, -torch.exp(a_log), bb, cc, d, chunk=8)
+
+
+# ------------------------------------------------- the kernel's numerics
+def tf32_rna(x):
+    """f32 -> TF32 (10-bit mantissa), nearest with ties away from zero, by
+    bit rounding, as the kernel's ``tf32_rna`` rounds a finite value."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mma3(acc, a, b):
+    """``acc + a @ b`` as the kernel sums each tile over the depth in steps
+    of 8 (``mma.sync`` m16n8k8): a = ab + as, b = bb + bs (TF32 parts),
+    then as bb, ab bs and ab bb in that order (the kernel's passes 0-2),
+    each step's eight products exact and added to the f32 accumulator with
+    one rounding.  An operand exact in TF32 (bf16 inputs) has as = 0, so the
+    kernel's skipped products add exact zeros here."""
+    ab, bb = tf32_rna(a), tf32_rna(b)
+    as_, bs = tf32_rna(a - ab), tf32_rna(b - bb)
+    for k in range(0, a.shape[-1], 8):
+        for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+            acc = (acc.double() + x[..., k:k + 8].double()
+                   @ y[..., k:k + 8, :].double()).float()
+    return acc
+
+
+def serial_scan(v):
+    """Inclusive sums along the last axis added in sequence, each add
+    rounded to f32, as the kernel (and the plain version's cumsum on the
+    card) adds them."""
+    out, acc = torch.empty_like(v), torch.zeros_like(v[..., 0])
+    for j in range(v.shape[-1]):
+        acc = acc + v[..., j]
+        out[..., j] = acc
+    return out
+
+
+def ssd_emulated(x, dt, a_neg, b, c, d, *, chunk, mma=mma3):
+    """The arithmetic of ``csrc/ssd.cu`` in plain PyTorch: P padded to
+    16-column slices, the chunk to a multiple of 16 and N to the 32-column
+    pieces (zeros, dt = 0), then per chunk seg by ``serial_scan``, G = C B^T
+    once for all heads, y^T = h C^T and S = (X o w)^T B, the state
+    h = h exp(last) + S in IEEE f32, then y^T = exp(seg_i) y^T + X^T
+    scores^T (the products added to the scaled sum) and y = y^T + d x,
+    every product by ``mma``."""
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    cp, npad, pp = -(-chunk // 16) * 16, -(-n // 32) * 32, -(-p // 16) * 16
+    xf, bf, cf = x.float(), b.float(), c.float()
+    a, dd = a_neg.float(), d.float()
+    tri = torch.ones(cp, cp, dtype=torch.bool).tril()
+    state = torch.zeros(bsz, h, pp, npad)
+    ys = []
+    for t0 in range(0, t, chunk):
+        sl = slice(t0, t0 + chunk)
+        X = torch.zeros(bsz, h, cp, pp)
+        X[:, :, :chunk, :p] = xf[:, sl].permute(0, 2, 1, 3)
+        B = torch.zeros(bsz, 1, cp, npad)
+        B[:, 0, :chunk, :n] = bf[:, sl]
+        C = torch.zeros(bsz, 1, cp, npad)
+        C[:, 0, :chunk, :n] = cf[:, sl]
+        D = torch.zeros(bsz, h, cp)
+        D[..., :chunk] = dt[:, sl].float().permute(0, 2, 1)
+        seg = serial_scan(D * a[:, None])
+        last = seg[..., -1:]
+        w = torch.exp(last - seg) * D
+        G = mma(torch.zeros(bsz, 1, cp, cp), C, B.transpose(-1, -2))
+        y_out = mma(torch.zeros(bsz, h, pp, cp), state, C.transpose(-1, -2))
+        s_chunk = mma(torch.zeros(bsz, h, pp, npad),
+                       (X * w[..., None]).transpose(-1, -2), B)
+        state = state * torch.exp(last)[..., None] + s_chunk
+        li = torch.where(tri, seg[..., :, None] - seg[..., None, :],
+                         -torch.inf)
+        scores = G * torch.exp(li) * D[..., None, :]
+        y = mma(torch.exp(seg)[..., None, :] * y_out, X.transpose(-1, -2),
+                scores.transpose(-1, -2)) + dd[:, None, None] * X.transpose(-1, -2)
+        ys.append(y[:, :, :p, :chunk])
+    return torch.cat(ys, dim=-1).permute(0, 3, 1, 2).to(x.dtype)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_numerics_match_reference(case):
+    """The kernel's arithmetic (``ssd_emulated``) against the reference's
+    Pallas kernel in interpret mode and ``_ssd_chunked``, at TestSSD's
+    tolerances; chunk 32 against chunk 64 where the case asks."""
+    shape, dtype, chunks, tol = CASES[case]
+    x, dt, a_log, bb, cc, d = make_inputs(*shape, seed=len(case) + 1)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jargs = (jnp.asarray(x).astype(jdt), jnp.asarray(dt), jnp.asarray(a_log),
+             jnp.asarray(bb).astype(jdt), jnp.asarray(cc).astype(jdt),
+             jnp.asarray(d))
+    tx, tb, tc = (torch.from_numpy(v).to(tdt) for v in (x, bb, cc))
+    a_neg = -torch.exp(torch.from_numpy(a_log))
+    outs = []
+    for chunk in chunks:
+        got = ssd_emulated(tx, torch.from_numpy(dt), a_neg, tb, tc,
+                           torch.from_numpy(d), chunk=chunk)
+        assert got.dtype == tdt and tuple(got.shape) == shape[:4]
+        got = got.float().numpy()
+        for want in (jax_ssd(*jargs, chunk=chunk),
+                     _ssd_chunked(*jargs, chunk)):
+            np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                       rtol=tol, atol=tol)
+        outs.append(got)
+    for other in outs[1:]:
+        np.testing.assert_allclose(other, outs[0], rtol=tol, atol=tol)
+
+
+def test_one_tf32_product_misses_the_f32_tolerance():
+    """Why three products: one TF32 pass keeps ~3 digits and misses
+    2e-4 + 2e-4 |y| on TestSSD's reduced case."""
+    shape, _, (chunk,), tol = CASES["f32_reduced"]
+    x, dt, a_log, bb, cc, d = (torch.from_numpy(v)
+                               for v in make_inputs(*shape, seed=4))
+    a_neg = -torch.exp(a_log)
+    want = ssd_scan_plain(x, dt, a_neg, bb, cc, d, chunk=chunk)
+
+    def one_product(acc, a, b):
+        a, b = tf32_rna(a), tf32_rna(b)
+        return (acc.double() + a.double() @ b.double()).float()
+
+    one = ssd_emulated(x, dt, a_neg, bb, cc, d, chunk=chunk, mma=one_product)
+    got = ssd_emulated(x, dt, a_neg, bb, cc, d, chunk=chunk)
+    assert float(((got - want).abs() / (tol + tol * want.abs())).max()) < 1
+    assert float(((one - want).abs() / (tol + tol * want.abs())).max()) > 1
+
+
+def test_wrapper_geometry_follows_the_kernel_source():
+    """``ops.smem_bytes`` and ``ops.grid`` copy the constants of
+    ``csrc/ssd.cu``; evaluate the source's ``constexpr`` chain and its
+    ``ssd_smem`` layout so that a change there fails here instead of
+    misreporting (or refusing) shapes."""
+    src = (runtime.CSRC / "ssd.cu").read_text()
+    k = {}
+    for name, expr in re.findall(
+            r"^constexpr (?:int|size_t) (\w+) = ([^;]+);", src, re.M):
+        k[name] = eval(expr, {"__builtins__": {}}, k)
+    assert (sd._UNITS, sd._THREADS, sd._PIECE, sd._PAD, sd._MAX_CHUNK,
+            sd._MAX_SMEM) == (k["kSsdUnits"], k["kSsdThreads"],
+                              k["kSsdPiece"], k["kSsdPad"],
+                              k["kSsdMaxChunk"], k["kSsdMaxSmem"])
+
+    def a16(v):
+        return (v + 15) // 16 * 16
+
+    for p, n, chunk, dtype, esize in ((64, 128, 64, torch.float32, 4),
+                                      (64, 128, 64, torch.bfloat16, 2),
+                                      (64, 128, 32, torch.float32, 4),
+                                      (16, 16, 8, torch.float32, 4),
+                                      (12, 20, 12, torch.bfloat16, 2)):
+        cp = -(-chunk // 16) * 16
+        npad = -(-n // k["kSsdPiece"]) * k["kSsdPiece"]
+        tile = cp * (k["kSsdPiece"] + k["kSsdPad"])
+        lo = a16(2 * tile * 4) if esize == 4 else 0
+        want = (2 * a16(2 * tile * esize) + 2 * lo
+                + a16(2 * cp * (k["kSsdWidth"] + k["kSsdPad"]) * esize)
+                + a16(2 * cp * 4)
+                + a16(k["kSsdWidth"] * (npad + k["kSsdPad"]) * 4)
+                + 2 * a16(cp * (cp + 4) * 4) + a16(3 * cp * 4))
+        assert sd.smem_bytes(p, n, chunk, dtype) == want
+    # the serve shape of mamba2-130m: 96 blocks of 384 threads, 185.25 KiB
+    assert sd.grid(4, 24, 64) == (24, 4)
+    assert k["kSsdThreads"] == 384
+    assert sd.smem_bytes(64, 128, 64) == 189696
+    # N = 288 is the widest f32 state that fits at chunk 64
+    assert sd.smem_bytes(64, 288, 64) <= sd._MAX_SMEM
+    assert sd.smem_bytes(64, 292, 64) > sd._MAX_SMEM
+    # one block a head up to P = 64, two at P = 128; P = 12 pads to 64
+    assert sd.grid(2, 3, 12) == (3, 2)
+    assert sd.grid(1, 2, 128) == (4, 1)
