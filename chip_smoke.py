@@ -100,9 +100,11 @@ LOGIT_TOL = 1e-3
 # flash-attention kernel functions (csrc/flash_attention.cu) -> C entry
 FLASH_KERNELS = {"flash_wgmma_bf16": "flash_attention_bf16",
                  "flash_wgmma_tf32": "flash_attention_f32"}
-# SSD kernel instantiations (csrc/ssd.cu) -> a substring of their mangled
-# names
-SSD_KERNELS = {"ssd_mma_f32": "ssd_mma_kernelIf",
+# SSD kernel instantiations (csrc/ssd.cu: the prologue and the scan) -> a
+# substring of their mangled names
+SSD_KERNELS = {"ssd_gram_f32": "ssd_gram_kernelIf",
+               "ssd_gram_bf16": "ssd_gram_kernelI13__nv_bfloat16",
+               "ssd_mma_f32": "ssd_mma_kernelIf",
                "ssd_mma_bf16": "ssd_mma_kernelI13__nv_bfloat16"}
 # kernel functions whose registers and spills the ``compiled`` line reports
 # -> (their source in csrc/, a substring of their mangled names)
@@ -523,7 +525,10 @@ def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128)) -> list:
     on the tensor cores in TF32 (495 TFLOP/s): three passes a product in
     f32; in bf16 one for C B^T (both operands exact in TF32) and two for
     the rest.  ``f32_unit_bound_ms`` keeps the bound on the f32 units (67
-    TFLOP/s), the basis before the kernel used the tensor cores."""
+    TFLOP/s), the basis before the kernel used the tensor cores.  ``ms``
+    times the C entry: the prologue and the scan.  The wrapper's copy of
+    the scan's shared memory must equal the library's
+    (``ssd_scan_smem_bytes``)."""
     import torch
     from repro_torch.kernels.ssd import ops as sd
     from repro_torch.kernels.ssd.ref import ssd_scan_plain
@@ -569,7 +574,10 @@ def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128)) -> list:
         passes = (1, 2) if dtype == torch.bfloat16 else (3, 3)
         bms, by = bound_ms(nbytes, passes[0] * cb + passes[1] * rest,
                            TF32_OPS_PER_S)
-        gx, gy = sd.grid(b_, h_, p_)
+        smem = sd.smem_bytes(p_, n_, chunk, dtype)
+        require(lib.ssd_scan_smem_bytes(p_, n_, chunk, el) == smem,
+                f"ssd: ops.smem_bytes {smem} is not the library's "
+                f"{lib.ssd_scan_smem_bytes(p_, n_, chunk, el)}")
         rows.append({"dtype": name, "chunk": chunk, "against": against,
                      "shape": list(shape), "tol": tol,
                      "max_abs_err": float(err.max()),
@@ -579,8 +587,8 @@ def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128)) -> list:
                                     f"{passes[1]} passes (C B^T / rest)",
                      "f32_unit_bound_ms": bound_ms(nbytes, cb + rest)[0],
                      "gflop": (cb + rest) / 1e9,
-                     "smem_bytes": sd.smem_bytes(p_, n_, chunk, dtype),
-                     "blocks": gx * gy})
+                     "smem_bytes": smem,
+                     "blocks": h_ * -(-p_ // (16 * sd._UNITS)) * b_})
     return rows
 
 

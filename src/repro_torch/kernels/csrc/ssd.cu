@@ -21,80 +21,94 @@
 // accuracy (three TF32 products each) that is 0.0112 ms (3 x 1.85 GFLOP at
 // 495 TFLOP/s), above the 0.0082 ms the bytes take.
 //
-// Design.
+// Design: two launches on the caller's stream, the first a prologue.
+//   * The prologue (ssd_gram_kernel, kGramSplit blocks a (chunk, batch))
+//     forms what every head and state slice of a chunk shares: G = C B^T
+//     once per (batch, chunk), a warp a 16 x 8 tile, and seg of every head,
+//     a warp a head, added in sequence in f32 as the plain version's cumsum
+//     adds on the card (a shuffle chain; seg reaches hundreds at the serve
+//     shape and exp(seg_i - seg_j) passes its rounding on to y, so a
+//     tree-ordered scan lands ~1x the f32 tolerance away, the serial one
+//     does not).  Both go to a workspace ((B, chunks, cp, cp) and
+//     (B, chunks, H, cp) f32, 0.7 MB at the serve shape, read back from L2)
+//     that the entry points take from a stream-ordered pool of their own,
+//     since their signatures carry none.  The scan is launched as the
+//     prologue's programmatic dependent: its blocks start, zero their state
+//     and stage their first piece while the prologue runs, and wait for it
+//     (griddepcontrol.wait) before they read seg or G.
 //   * The state splits along P: row p of h reads only column p of x and
-//     writes only column p of y.  A block owns one head and kSsdWidth of
-//     its P columns (at P = 64 the whole head) as kSsdUnits slices of 16
-//     and walks the chunks in order; each slice's f32 state (16 x N) stays
-//     in shared memory for the whole walk and is updated in the reference's
-//     order, h = h exp(last) + S with S summed from zero, in IEEE f32.
+//     writes only column p of y.  A scan block (ssd_mma_kernel) owns one
+//     head and kSsdWidth = 32 of its P columns (two 16-row slices), so the
+//     grid is H ceil(P / 32) x B blocks (192 at the serve shape, two an SM),
+//     and walks the chunks in order; its f32 state (32 x N) stays in shared
+//     memory for the whole walk and is updated in the reference's order,
+//     h = h exp(last) + S, in IEEE f32.
 //   * Products on the tensor cores with mma.sync m16n8k8 in TF32, carried at
 //     f32 accuracy as three products (3xTF32): each f32 operand x splits
 //     into big = tf32_rna(x) and small = tf32_rna(x - big), and
 //     small.big + big.small + big.big goes into the f32 accumulator.  x, B
 //     and C in bf16 are exact in TF32 (small = 0), so the bf16 entry takes
 //     one product for G and two for the others.  The products are
-//     transposed so that every operand fragment comes straight from shared
-//     memory with no conflicting bank and the state never leaves its slice:
-//       G      = C B^T               (chunk x chunk, over N);
-//       y^T   += h C^T               (16 x chunk per slice, over N);
-//       S      = (X o w)^T B         (16 x N per slice, over the chunk);
-//       y^T    = exp(seg_i) y^T + X^T scores^T   (at the chunk's end).
-//   * Warps by role, kSsdUnits of each, so that a loaded fragment feeds
-//     several tiles: Y warps own two 8-column steps of y^T for every slice
-//     (h C^T over the pieces, X^T scores^T and the store at the chunk's
-//     end); S warps own one slice's S and its state; G warps own strips of
-//     G.  Named barriers order the state's reads before its update and seg
-//     before S.  Each product site runs one TF32 pass over all its tiles
-//     before the next, so consecutive mma are independent.
-//   * G is computed once per block and chunk and shared by its slices
-//     (H ceil(P / kSsdWidth) times per (batch, chunk) in all: the C entries
-//     take no workspace, so G never goes to device memory).  From G the
-//     block forms scores = G o exp(seg_i - seg_j) o dt_j once, in TF32
-//     parts, the exponent masked above the diagonal (0 there).
+//     transposed so that the state is the A operand in place:
+//       G      = C B^T               (prologue; chunk x chunk, over N);
+//       y^T   += h C^T               (32 x chunk, over N);
+//       S      = (X o w)^T B         (32 x N, over the chunk);
+//       y^T    = exp(seg_i) y^T + X^T scores^T   (at the chunk's end),
+//     with scores = G o exp(seg_i - seg_j) o dt_j formed where they are
+//     loaded, the exponent masked above the diagonal (0 there).  Every
+//     product is summed over its depth in pieces of kSsdPiece steps, each
+//     from zero, and the pieces are added in IEEE f32: the tensor cores'
+//     accumulation is not IEEE, and one chain over a wide state drifts past
+//     the f32 tolerance (the pieces are also independent chains).
+//   * Warps by product: four Y warps own two 8-column steps of y^T each
+//     (h C^T over the pieces, and at the chunk's end the first half of the
+//     chunk's steps of X^T scores^T and the store); four S warps own 8
+//     columns of each piece of S and of the state, and at the chunk's end
+//     the second half of the steps for their Y warp's columns, handed over
+//     in shared memory.  Named barriers order the state's reads before its
+//     update, w before S and the handover before the store.  Each product
+//     site runs one TF32 pass over all its tiles before the next, so
+//     consecutive mma are independent.
 //   * Overlap: B and C arrive in pieces of kSsdPiece state columns through a
 //     two-stage cp.async ring that runs across chunk boundaries, so the next
-//     piece (and, with a chunk's first piece, the x slice and dt) lands
-//     while this piece's products run; shared memory holds two pieces, not
-//     two chunks of B and C.  Each thread splits the f32 values it staged
-//     once, after its own copies land, so the products read ready TF32
-//     parts.
-//   * seg adds dt_j a in sequence in f32, as the plain version's cumsum
-//     adds on the card (a shuffle chain, so no lane waits on shared
-//     memory), by the first G warp for the block.  seg reaches hundreds at
-//     the serve shape and exp(seg_i - seg_j) passes its rounding on to y: a
-//     tree-ordered scan lands ~1x the f32 tolerance away from the plain
-//     version there, the serial one does not.
+//     piece (and, with a chunk's first piece, the x slice, dt and seg)
+//     lands while this piece's products run, and two blocks an SM hide
+//     each other's waits.
 //   * Shapes: the chunk pads to a multiple of 16, N to a multiple of
-//     kSsdPiece, P to the block's kSsdWidth columns; the padding is
-//     zero-filled by cp.async (dt = 0 there, so padded steps add nothing)
-//     and never stored.
-//   * Shared memory (ssd_smem): 185.25 KiB at the serve shape in f32
-//     (107.25 in bf16), so one block of kSsdThreads runs per SM, under 168
-//     registers a thread; N fits up to 288 in f32 at every chunk.  The grid
-//     is H ceil(P / kSsdWidth) x B blocks (96 at the serve shape).
+//     kSsdPiece, P to the block's 32 columns; the padding is zero-filled by
+//     cp.async (dt = 0 there, so padded steps add nothing) and never
+//     stored.  The state holds min(32, P) rows, so shared memory
+//     (ssd_smem: 86.25 KiB at the serve shape in f32) grows with N by
+//     128 bytes a column: N up to 1,248 at P >= 32, chunk 64, f32.
 #include <cuda_bf16.h>
 
+#include <climits>
 #include <cstdint>
+#include <mutex>
 
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
-// kSsdUnits, kSsdThreads, kSsdPiece and kSsdPad are copied in ssd/ops.py
-// (smem_bytes, grid); a test evaluates these constexpr lines and holds the
-// copy to them.
-constexpr int kSsdUnits = 4;                 // 16-column state slices a block
-constexpr int kSsdWarps = 3 * kSsdUnits;     // a Y, an S and a G warp a slice
+// kSsdUnits, kSsdPiece and kSsdPad are copied in ssd/ops.py (smem_bytes);
+// a test evaluates these constexpr lines and ssd_smem's regions and holds
+// the copy to them, and ssd_scan_smem_bytes exports ssd_smem.
+constexpr int kSsdUnits = 2;                 // 16-row state slices a block
+constexpr int kSsdWarps = 8;                 // four Y and four S warps
 constexpr int kSsdThreads = 32 * kSsdWarps;
 constexpr int kSsdWidth = 16 * kSsdUnits;    // state rows a block
-constexpr int kSsdPiece = 32;                // state columns a staged piece
+constexpr int kSsdBlocksPerSm = 2;           // at the serve shape
+constexpr int kSsdPiece = 32;  // columns a staged piece, steps a product's
 constexpr int kSsdPad = 8;                   // row padding of tiles (elements)
 constexpr int kSsdMaxChunk = 64;
 constexpr size_t kSsdMaxSmem = 232448;       // dynamic shared memory a block
+constexpr int kGramWarps = 8;
+constexpr int kGramThreads = 32 * kGramWarps;
+constexpr int kGramSplit = 3;                // prologue blocks a chunk
 constexpr int kBarState = 1;  // the Y warps have read a piece of the state
-constexpr int kBarSeg = 2;    // seg, w and exp(seg) of a chunk are ready
+constexpr int kBarW = 2;      // w of a chunk is ready (S warps)
+constexpr int kBarEnd = 3;    // the S warps' half of the chunk's end is ready
 
 template <typename T>
 struct ExactTf32 {
@@ -112,6 +126,13 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+// Two neighbouring elements (an even offset) as f32.
+__device__ __forceinline__ float2 pair_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // Copies kBytes from global to shared memory asynchronously, or writes
@@ -176,6 +197,13 @@ __device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
   split<kExact>(a3, f.hi[3], f.lo[3]);
   return f;
 }
+template <bool kExact>
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split<kExact>(b0, f.hi[0], f.lo[0]);
+  split<kExact>(b1, f.hi[1], f.lo[1]);
+  return f;
+}
 // d += a b at f32 accuracy is three products, in this order: pass 0
 // small.big, pass 1 big.small, pass 2 big.big; a pass whose small operand
 // is exact in TF32 (0) is skipped.  The call sites run a pass over all
@@ -196,86 +224,135 @@ __device__ __forceinline__ constexpr bool takes(int pass) {
   return pass == 2 || (pass == 0 && !kAExact) || (pass == 1 && !kBExact);
 }
 
-// Two neighbouring elements (an even offset) of a staged B or C piece as
-// TF32 parts: an f32 piece holds the big parts in place and the small ones
-// in `lo`; a bf16 value is exact (small part 0, `lo` unused).
-__device__ __forceinline__ void piece_pair(const float* hi, const float* lo,
-                                           int off, uint32_t (&h)[2],
-                                           uint32_t (&l)[2]) {
-  const float2 a = *reinterpret_cast<const float2*>(hi + off);
-  const float2 b = *reinterpret_cast<const float2*>(lo + off);
-  h[0] = __float_as_uint(a.x);
-  h[1] = __float_as_uint(a.y);
-  l[0] = __float_as_uint(b.x);
-  l[1] = __float_as_uint(b.y);
-}
-__device__ __forceinline__ void piece_pair(const __nv_bfloat16* hi,
-                                           const float*, int off,
-                                           uint32_t (&h)[2],
-                                           uint32_t (&l)[2]) {
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hi + off));
-  h[0] = __float_as_uint(a.x);
-  h[1] = __float_as_uint(a.y);
-  l[0] = l[1] = 0u;
-}
-__device__ __forceinline__ void piece_one(const float* hi, const float* lo,
-                                          int off, uint32_t& h, uint32_t& l) {
-  h = __float_as_uint(hi[off]);
-  l = __float_as_uint(lo[off]);
-}
-__device__ __forceinline__ void piece_one(const __nv_bfloat16* hi,
-                                          const float*, int off, uint32_t& h,
-                                          uint32_t& l) {
-  h = __float_as_uint(__bfloat162float(hi[off]));
-  l = 0u;
-}
-
-// Byte offsets of the shared-memory regions (each 16-byte aligned) for a
-// chunk padded to cp, a state padded to npad columns and inputs of esize
-// bytes (4: f32, whose pieces keep their small TF32 parts beside them).
+// Byte offsets of the main kernel's shared-memory regions (each 16-byte
+// aligned) for a chunk padded to cp, a state of `rows` rows padded to npad
+// columns and inputs of esize bytes.
 struct SsdSmem {
-  size_t c, b, cl, bl, x, dt, h, g, gl, w, total;
+  size_t c, b, x, dt, h, w, yx, total;
 };
 __host__ __device__ __forceinline__ size_t align16(size_t v) {
   return (v + 15) & ~static_cast<size_t>(15);
 }
 __host__ __device__ __forceinline__ SsdSmem ssd_smem(int cp, int npad,
-                                                     int esize) {
+                                                     int rows, int esize) {
   const size_t tile = static_cast<size_t>(cp) * (kSsdPiece + kSsdPad);
-  const size_t lo = esize == 4 ? align16(2 * tile * 4) : 0;
-  const size_t grid = align16(static_cast<size_t>(cp) * (cp + 4) * 4);
   SsdSmem s;
   size_t off = 0;
   s.c = off;  // C pieces [2][cp][kSsdPiece + kSsdPad], input type
   off += align16(2 * tile * esize);
   s.b = off;  // B pieces, the same
   off += align16(2 * tile * esize);
-  s.cl = off;  // small TF32 parts of the f32 C pieces
-  off += lo;
-  s.bl = off;  // and of B
-  off += lo;
   s.x = off;  // x slices [2][cp][kSsdWidth + kSsdPad], input type
   off += align16(2 * static_cast<size_t>(cp) * (kSsdWidth + kSsdPad) * esize);
-  s.dt = off;  // dt [2][cp]
-  off += align16(2 * static_cast<size_t>(cp) * 4);
-  s.h = off;  // state [kSsdWidth][npad + kSsdPad]
-  off += align16(static_cast<size_t>(kSsdWidth) * (npad + kSsdPad) * 4);
-  s.g = off;  // G, then the scores' big TF32 parts [cp][cp + 4]
-  off += grid;
-  s.gl = off;  // the scores' small parts
-  off += grid;
-  s.w = off;  // seg, w, exp(seg) [3][cp]
-  off += align16(static_cast<size_t>(3) * cp * 4);
+  s.dt = off;  // dt [2][cp], then seg [2][cp]
+  off += align16(4 * static_cast<size_t>(cp) * 4);
+  s.h = off;  // state [rows][npad + kSsdPad]
+  off += align16(static_cast<size_t>(rows) * (npad + kSsdPad) * 4);
+  s.w = off;  // w [cp]
+  off += align16(static_cast<size_t>(cp) * 4);
+  s.yx = off;  // the S warps' half of X^T scores^T [4][kSsdUnits][2][4][32]
+  off += align16(static_cast<size_t>(4) * kSsdUnits * 8 * 32 * 4);
   s.total = off;
   return s;
 }
 
+// ---------------------------------------------------------------- prologue
+// Block (chunk, batch, z), z < kGramSplit, so kGramSplit kGramWarps warps
+// a (batch, chunk): seg of every head (a warp a head) and G = C B^T in the
+// lower triangle's 16 x 8 tiles (a warp a tile), each summed over N in
+// k-steps of 8 as three TF32 products, from zero a piece of kSsdPiece
+// columns, the pieces added in IEEE f32.
 template <typename T>
-__global__ void __launch_bounds__(kSsdThreads, 1)
+__global__ void __launch_bounds__(kGramThreads)
+ssd_gram_kernel(const float* __restrict__ dt, const float* __restrict__ a_neg,
+                const T* __restrict__ bm, const T* __restrict__ cm,
+                float* __restrict__ gram, float* __restrict__ segs,
+                int seqlen, int nheads, int N, int C) {
+  constexpr bool kX = ExactTf32<T>::value;  // B and C exact in TF32
+  constexpr int kAll = kGramSplit * kGramWarps;  // warps a (batch, chunk)
+  // the scan's blocks may start (and stage their first piece) meanwhile
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int cp = (C + 15) & ~15;
+  const int nch = seqlen / C;
+  const int lane = threadIdx.x & 31;
+  const int gw = blockIdx.z * kGramWarps + (threadIdx.x >> 5);
+  const int g = lane >> 2, t = lane & 3;
+  const size_t cell = static_cast<size_t>(blockIdx.y) * nch + blockIdx.x;
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * seqlen +
+                      static_cast<size_t>(blockIdx.x) * C;
+
+  // seg_i = ((dt_0 a + dt_1 a) + ...) + dt_i a in f32, in sequence: every
+  // lane carries the sum and keeps its own two steps (dt is 0 past C, so
+  // seg stays at last there)
+  for (int hh = gw; hh < nheads; hh += kAll) {
+    const float a = a_neg[hh];
+    const float d0 =
+        lane < C ? rn_mul(dt[(row0 + lane) * nheads + hh], a) : 0.0f;
+    const float d1 =
+        lane + 32 < C ? rn_mul(dt[(row0 + lane + 32) * nheads + hh], a) : 0.0f;
+    float sum = 0.0f, s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kSsdMaxChunk; ++i) {
+      sum = rn_add(sum, __shfl_sync(kFullMask, i < 32 ? d0 : d1, i & 31));
+      if (lane == (i & 31)) {
+        if (i < 32)
+          s0 = sum;
+        else
+          s1 = sum;
+      }
+    }
+    float* out = segs + (cell * nheads + hh) * cp;
+    if (lane < cp) out[lane] = s0;
+    if (lane + 32 < cp) out[lane + 32] = s1;
+  }
+
+  // G: band r of 16 rows holds 2 (r + 1) tiles of 8 columns
+  float* gout = gram + cell * cp * cp;
+  const int bands = cp / 16, tiles = bands * (bands + 1);
+  for (int tau = gw; tau < tiles; tau += kAll) {
+    int r = 0;
+    while ((r + 1) * (r + 2) <= tau) ++r;
+    const int i0 = r * 16 + g, j0 = (tau - r * (r + 1)) * 8 + g;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int n0 = 0; n0 < N; n0 += kSsdPiece) {
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      FragA fa[kSsdPiece / 8];
+      FragB fb[kSsdPiece / 8];
+#pragma unroll
+      for (int kk = 0; kk < kSsdPiece / 8; ++kk) {
+        // k order within the step: column 2t as k = t, 2t + 1 as t + 4
+        const int n = n0 + kk * 8 + 2 * t;
+        const float2 z = make_float2(0.0f, 0.0f);
+        const float2 c0 =
+            n < N && i0 < C ? pair_f32(cm + (row0 + i0) * N + n) : z;
+        const float2 c1 =
+            n < N && i0 + 8 < C ? pair_f32(cm + (row0 + i0 + 8) * N + n) : z;
+        const float2 bv =
+            n < N && j0 < C ? pair_f32(bm + (row0 + j0) * N + n) : z;
+        fa[kk] = frag_a<kX>(c0.x, c1.x, c0.y, c1.y);
+        fb[kk] = frag_b<kX>(bv.x, bv.y);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kSsdPiece / 8; ++kk)
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+          if (takes<kX, kX>(pass)) mma_pass(pass, part, fa[kk], fb[kk]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[e] = rn_add(acc[e], part[e]);
+    }
+    float* g0 = gout + i0 * cp + j0 - g + 2 * t;
+    *reinterpret_cast<float2*>(g0) = make_float2(acc[0], acc[1]);
+    *reinterpret_cast<float2*>(g0 + 8 * cp) = make_float2(acc[2], acc[3]);
+  }
+}
+
+// ------------------------------------------------------------- main kernel
+template <typename T>
+__global__ void __launch_bounds__(kSsdThreads, kSsdBlocksPerSm)
 ssd_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ a_neg, const T* __restrict__ bm,
-               const T* __restrict__ cm, const float* __restrict__ dskip,
+               const T* __restrict__ bm, const T* __restrict__ cm,
+               const float* __restrict__ dskip,
+               const float* __restrict__ gram, const float* __restrict__ segs,
                T* __restrict__ y, int seqlen, int nheads, int P, int N,
                int C) {
   constexpr bool kX = ExactTf32<T>::value;  // x, B and C exact in TF32
@@ -284,40 +361,46 @@ ssd_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   constexpr int kNt = kSsdPiece / 8;  // 8-column tiles a piece
   const int cp = (C + 15) & ~15;
   const int npad = (N + kSsdPiece - 1) / kSsdPiece * kSsdPiece;
+  const int rows = min(kSsdWidth, P);  // state rows held
   const int pieces = npad / kSsdPiece;
-  const int total = seqlen / C * pieces;
+  const int nch = seqlen / C;
+  const int total = nch * pieces;
   const int qs = kSsdPiece + kSsdPad;   // row stride of a B / C piece
   const int xsd = kSsdWidth + kSsdPad;  // row stride of an x slice
   const int hsd = npad + kSsdPad;       // row stride of the state
-  const int gsd = cp + 4;               // row stride of G and the scores
-  const SsdSmem lay = ssd_smem(cp, npad, sizeof(T));
+  const SsdSmem lay = ssd_smem(cp, npad, rows, sizeof(T));
   extern __shared__ __align__(16) unsigned char smem[];
   T* cs = reinterpret_cast<T*>(smem + lay.c);
   T* bs = reinterpret_cast<T*>(smem + lay.b);
-  float* cls = reinterpret_cast<float*>(smem + lay.cl);
-  float* bls = reinterpret_cast<float*>(smem + lay.bl);
   T* xs = reinterpret_cast<T*>(smem + lay.x);
   float* ds = reinterpret_cast<float*>(smem + lay.dt);
+  float* ss = ds + 2 * cp;  // seg [2][cp]
   float* hs = reinterpret_cast<float*>(smem + lay.h);
-  float* gs = reinterpret_cast<float*>(smem + lay.g);
-  float* gls = reinterpret_cast<float*>(smem + lay.gl);
-  float* seg = reinterpret_cast<float*>(smem + lay.w);
-  float* wv = seg + cp;  // exp(last - seg_j) dt_j
-  float* ev = wv + cp;   // exp(seg_i)
+  float* wv = reinterpret_cast<float*>(smem + lay.w);  // exp(last - seg_j) dt_j
+  float* yx = reinterpret_cast<float*>(smem + lay.yx);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int pchunks = (P + kSsdWidth - 1) / kSsdWidth;
   const int h = blockIdx.x / pchunks;
   const int pb = (blockIdx.x - h * pchunks) * kSsdWidth;  // block's first p
-  const float a = a_neg[h], dd = dskip[h];
+  const float dd = dskip[h];
   const size_t row0 = static_cast<size_t>(blockIdx.y) * seqlen;
-  const int role = warp / kSsdUnits;  // 0: Y warps, 1: S warps, 2: G warps
-  const int q = warp % kSsdUnits;
+  const float* gram_b = gram + static_cast<size_t>(blockIdx.y) * nch * cp * cp;
+  const float* seg_bh =
+      segs + (static_cast<size_t>(blockIdx.y) * nch * nheads + h) * cp;
+  const bool ywarp = warp < 4;  // else an S warp
+  const int q = warp & 3;
 
+  auto stage_seg = [&](int ck) {
+    const uint32_t sdst = smem_u32(ss + (ck & 1) * cp);
+    const float* sg = seg_bh + static_cast<size_t>(ck) * nheads * cp;
+    for (int i = tid; i < cp / 4; i += kSsdThreads)
+      cp_async<16>(sdst + i * 16, sg + i * 4, true);
+  };
   // Stage piece k (global over chunks): columns of B and C, and with a
-  // chunk's first piece its x slice and dt.  One commit group a piece.
-  auto stage_piece = [&](int k) {
+  // chunk's first piece its x slice, dt and seg.  One commit group a piece.
+  auto stage_piece = [&](int k, bool with_seg) {
     const int ck = k / pieces, qk = k - ck * pieces;
     const int t0 = ck * C, n0 = qk * kSsdPiece;
     const uint32_t cdst = smem_u32(cs + (k & 1) * cp * qs);
@@ -346,37 +429,16 @@ ssd_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         cp_async<4>(ddst + j * 4, dt + (ok ? (row0 + t0 + j) * nheads + h : 0),
                     ok);
       }
+      if (with_seg) stage_seg(ck);
     }
     cp_async_commit();
   };
-  // After its own copies of piece k landed, a thread splits the f32 values
-  // it staged into big parts (in place) and small parts.
-  const int split_end = kX ? 0 : cp * kPieceGran;  // bf16 is exact in TF32
-  auto split_piece = [&](int k) {
-    for (int i = tid; i < split_end; i += kSsdThreads) {
-      const int j = i / kPieceGran, c4 = (i - j * kPieceGran) * 4;
-      const int o = (k & 1) * cp * qs + j * qs + c4;
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        float* hi = reinterpret_cast<float*>(m ? bs : cs) + o;
-        float* lo = (m ? bls : cls) + o;
-        const float4 v = *reinterpret_cast<const float4*>(hi);
-        uint32_t h4[4], l4[4];
-        split_tf32(v.x, h4[0], l4[0]);
-        split_tf32(v.y, h4[1], l4[1]);
-        split_tf32(v.z, h4[2], l4[2]);
-        split_tf32(v.w, h4[3], l4[3]);
-        *reinterpret_cast<uint4*>(hi) = make_uint4(h4[0], h4[1], h4[2], h4[3]);
-        *reinterpret_cast<uint4*>(lo) = make_uint4(l4[0], l4[1], l4[2], l4[3]);
-      }
-    }
-  };
 
-  // Y warps: output columns (8 steps each) of y^T for every slice; column
-  // steps r and isteps - 1 - r share a warp, so the four get equal
-  // triangle work at chunk 64.  A warp with fewer than two (a chunk below
-  // 64) repeats column 0 and stores nothing of it: the products run
-  // without branches, so the compiler interleaves their chains.
+  // Y warps: output columns (8 steps each) of y^T; column steps r and
+  // isteps - 1 - r share a warp, so the four get equal triangle work at
+  // chunk 64.  A warp with fewer than two (a chunk below 64) repeats
+  // column 0 and stores nothing of it: the products run without branches,
+  // so the compiler interleaves their chains.
   const int isteps = cp / 8;
   int my_i[2] = {0, 0};
   int n_i = 0;  // at most 2; constant indices keep my_i in registers
@@ -390,273 +452,235 @@ ssd_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       ++n_i;
     }
   }
-  // G warps: strips of up to 4 lower-triangle (16 x 8) tiles of G in one
-  // band of 16 rows, sharing their A fragments; G warp gw takes strips gw
-  // and 2 kSsdUnits - 1 - gw (6 strips at chunk 64: 2, 4, 4 + 4 and 2 + 4
-  // tiles).  A strip of fewer tiles repeats its last one and writes it once.
-  int g_row[2] = {-1, -1}, g_col[2] = {0, 0}, g_n[2] = {1, 1};
-  if (role == 2) {
-    int sigma = 0;
-    for (int r = 0; r < cp / 16; ++r)
-      for (int c0 = 0; c0 < 2 * (r + 1); c0 += 4, ++sigma)
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-          if (sigma == (m ? 2 * kSsdUnits - 1 - q : q)) {
-            g_row[m] = r * 16;
-            g_col[m] = c0 * 8;
-            g_n[m] = min(4, 2 * (r + 1) - c0);
-          }
-  }
 
-  for (int i = tid; i < kSsdWidth * hsd; i += kSsdThreads) hs[i] = 0.0f;
-  stage_piece(0);
+  for (int i = tid; i < rows * hsd; i += kSsdThreads) hs[i] = 0.0f;
+  stage_piece(0, false);
+  // the prologue's seg and G are complete and visible past this point (the
+  // scan is launched as its programmatic dependent)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  stage_seg(0);
+  cp_async_commit();
 
-  float acc[kSsdUnits][2][4];  // Y warps: y^T from the state; G warps: G
-  float dec = 1.0f;
+  float acc[kSsdUnits][2][4];  // Y warps: y^T of the chunk
+  float dec = 1.0f;            // S warps: exp(last)
   for (int k = 0; k < total; ++k) {
     const int ck = k / pieces, qk = k - ck * pieces, slot = ck & 1;
     cp_async_wait_all();
-    split_piece(k);
     __syncthreads();  // piece k landed; every warp is done with piece k - 1
-    if (k + 1 < total) stage_piece(k + 1);
+    if (k + 1 < total) stage_piece(k + 1, true);
     const T* cq = cs + (k & 1) * cp * qs;
     const T* bq = bs + (k & 1) * cp * qs;
-    const float* clq = cls + (k & 1) * cp * qs;
-    const float* blq = bls + (k & 1) * cp * qs;
     const T* xq = xs + slot * cp * xsd;
     const float* dq = ds + slot * cp;
-    if (qk == 0) {
+    const float* sq = ss + slot * cp;
+
+    if (ywarp) {
+      // ---- Y warps: y^T += h_q C_q^T, this warp's columns ----------------
+      if (qk == 0) {
+#pragma unroll
+        for (int u = 0; u < kSsdUnits; ++u)
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[u][s][e] = 0.0f;
+      }
+      float part[kSsdUnits][2][4];
 #pragma unroll
       for (int u = 0; u < kSsdUnits; ++u)
 #pragma unroll
         for (int s = 0; s < 2; ++s)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[u][s][e] = 0.0f;
-    }
-
-    if (role == 0) {
-      // ---- Y warps: y^T += h_q C_q^T for every slice, this warp's columns
+          for (int e = 0; e < 4; ++e) part[u][s][e] = 0.0f;
 #pragma unroll
       for (int kk = 0; kk < kNt; ++kk) {
+        // k order within the step: column 2t as k = t, 2t + 1 as t + 4
         const int n = kk * 8 + 2 * t;
         FragB fb[2];
 #pragma unroll
-        for (int s = 0; s < 2; ++s)
-          piece_pair(cq, clq, (my_i[s] + g) * qs + n, fb[s].hi, fb[s].lo);
-#pragma unroll
-        for (int u0 = 0; u0 < kSsdUnits; u0 += 2) {
-          FragA fa[2];
-#pragma unroll
-          for (int v = 0; v < 2; ++v) {
-            const float* hq = hs + ((u0 + v) * 16) * hsd + qk * kSsdPiece + n;
-            const float2 h0 = *reinterpret_cast<const float2*>(hq + g * hsd);
-            const float2 h1 =
-                *reinterpret_cast<const float2*>(hq + (g + 8) * hsd);
-            fa[v] = frag_a<false>(h0.x, h1.x, h0.y, h1.y);
-          }
-#pragma unroll
-          for (int pass = 0; pass < 3; ++pass)
-            if (takes<false, kX>(pass))
-#pragma unroll
-              for (int v = 0; v < 2; ++v)
-#pragma unroll
-                for (int s = 0; s < 2; ++s)
-                  mma_pass(pass, acc[u0 + v][s], fa[v], fb[s]);
+        for (int s = 0; s < 2; ++s) {
+          const float2 cv = pair_f32(cq + (my_i[s] + g) * qs + n);
+          fb[s] = frag_b<kX>(cv.x, cv.y);
         }
-      }
-      unit_arrive(kBarState, 8 * 32);  // the state of piece k is read
-    } else if (role == 1) {
-      // ---- S warps: S = (X o w)^T B_q for slice q, then its state --------
-      const int u = q;
-      if (qk == 0) {
-        unit_sync(kBarSeg, 5 * 32);  // seg, w of the chunk
-        dec = expf(seg[cp - 1]);
-      }
-      const T* xu = xq + u * 16;
-      float sacc[kNt][4];
+        FragA fa[kSsdUnits];
 #pragma unroll
-      for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sacc[nt][e] = 0.0f;
-#pragma unroll 2
-      for (int j0 = 0; j0 < cp; j0 += 8) {
-        const int j = j0 + t;
-        const float w0 = wv[j], w1 = wv[j + 4];
-        const T* x0 = xu + j * xsd + g;
-        const T* x1 = xu + (j + 4) * xsd + g;
-        const FragA fa = frag_a<false>(
-            rn_mul(to_f32(x0[0]), w0), rn_mul(to_f32(x0[8]), w0),
-            rn_mul(to_f32(x1[0]), w1), rn_mul(to_f32(x1[8]), w1));
-        FragB fb[kNt];
-#pragma unroll
-        for (int nt = 0; nt < kNt; ++nt) {
-          piece_one(bq, blq, j * qs + nt * 8 + g, fb[nt].hi[0], fb[nt].lo[0]);
-          piece_one(bq, blq, (j + 4) * qs + nt * 8 + g, fb[nt].hi[1],
-                    fb[nt].lo[1]);
+        for (int u = 0; u < kSsdUnits; ++u) {
+          const int r0 = u * 16 + g;
+          const float* hq = hs + qk * kSsdPiece + n;
+          const float2 h0 = r0 < rows ? pair_f32(hq + r0 * hsd)
+                                      : make_float2(0.0f, 0.0f);
+          const float2 h1 = r0 + 8 < rows ? pair_f32(hq + (r0 + 8) * hsd)
+                                          : make_float2(0.0f, 0.0f);
+          fa[u] = frag_a<false>(h0.x, h1.x, h0.y, h1.y);
         }
 #pragma unroll
         for (int pass = 0; pass < 3; ++pass)
           if (takes<false, kX>(pass))
 #pragma unroll
-            for (int nt = 0; nt < kNt; ++nt)
-              mma_pass(pass, sacc[nt], fa, fb[nt]);
-      }
-      unit_sync(kBarState, 8 * 32);  // the Y warps have read the state
+            for (int u = 0; u < kSsdUnits; ++u)
 #pragma unroll
-      for (int nt = 0; nt < kNt; ++nt) {
-        const int col = qk * kSsdPiece + nt * 8 + 2 * t;
-        float2* r0 = reinterpret_cast<float2*>(hs + (u * 16 + g) * hsd + col);
-        float2* r1 =
-            reinterpret_cast<float2*>(hs + (u * 16 + g + 8) * hsd + col);
-        float2 v = *r0;
-        *r0 = make_float2(rn_add(rn_mul(v.x, dec), sacc[nt][0]),
-                          rn_add(rn_mul(v.y, dec), sacc[nt][1]));
-        v = *r1;
-        *r1 = make_float2(rn_add(rn_mul(v.x, dec), sacc[nt][2]),
-                          rn_add(rn_mul(v.y, dec), sacc[nt][3]));
+              for (int s = 0; s < 2; ++s)
+                mma_pass(pass, part[u][s], fa[u], fb[s]);
       }
+      unit_arrive(kBarState, kSsdThreads);  // the state of piece k is read
+#pragma unroll
+      for (int u = 0; u < kSsdUnits; ++u)
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[u][s][e] = rn_add(acc[u][s][e], part[u][s][e]);
     } else {
-      // ---- G warps: G += C_q B_q^T on this warp's strip; the first one also
-      // forms seg, w and exp(seg) at a chunk's start
-      if (qk == 0 && q == 0) {
-        // seg_i = ((dt_0 a + dt_1 a) + ...) + dt_i a in f32, in sequence:
-        // every lane carries the sum and keeps its own two steps (dt is 0
-        // past C, so seg stays at last there and the sum ends at last)
-        const float d0 = lane < cp ? rn_mul(dq[lane], a) : 0.0f;
-        const float d1 = lane + 32 < cp ? rn_mul(dq[lane + 32], a) : 0.0f;
-        float sum = 0.0f, s0 = 0.0f, s1 = 0.0f;
-#pragma unroll
-        for (int i = 0; i < kSsdMaxChunk; ++i) {
-          sum = rn_add(sum, __shfl_sync(kFullMask, i < 32 ? d0 : d1, i & 31));
-          if (lane == (i & 31)) {
-            if (i < 32)
-              s0 = sum;
-            else
-              s1 = sum;
-          }
-        }
-        if (lane < cp) {
-          seg[lane] = s0;
-          wv[lane] = rn_mul(expf(rn_sub(sum, s0)), dq[lane]);
-          ev[lane] = expf(s0);
-        }
-        if (lane + 32 < cp) {
-          seg[lane + 32] = s1;
-          wv[lane + 32] = rn_mul(expf(rn_sub(sum, s1)), dq[lane + 32]);
-          ev[lane + 32] = expf(s1);
-        }
-        unit_arrive(kBarSeg, 5 * 32);
+      // ---- S warps: S = (X o w)^T B_q on 8 columns, then their state -----
+      if (qk == 0) {
+        const int j = tid - 4 * 32;
+        if (j < cp) wv[j] = rn_mul(expf(rn_sub(sq[cp - 1], sq[j])), dq[j]);
+        dec = expf(sq[cp - 1]);
+        unit_sync(kBarW, 4 * 32);
       }
+      // over the chunk's steps in halves of kSsdPiece, each summed from
+      // zero (two independent chains), then added in IEEE f32
+      float sacc[2][kSsdUnits][4];
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        if (g_row[m] < 0) continue;
+      for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-        for (int kk = 0; kk < kNt; ++kk) {
-          // k order within the step: column 2t as k = t, 2t + 1 as t + 4
-          const int n = kk * 8 + 2 * t;
-          uint32_t c0h[2], c0l[2], c1h[2], c1l[2];
-          piece_pair(cq, clq, (g_row[m] + g) * qs + n, c0h, c0l);
-          piece_pair(cq, clq, (g_row[m] + g + 8) * qs + n, c1h, c1l);
-          const FragA fa = {{c0h[0], c1h[0], c0h[1], c1h[1]},
-                            {c0l[0], c1l[0], c0l[1], c1l[1]}};
-          FragB fb[4];
+        for (int u = 0; u < kSsdUnits; ++u)
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            piece_pair(bq, blq,
-                       (g_col[m] + min(c, g_n[m] - 1) * 8 + g) * qs + n,
-                       fb[c].hi, fb[c].lo);
+          for (int e = 0; e < 4; ++e) sacc[hf][u][e] = 0.0f;
+#pragma unroll
+      for (int j0 = 0; j0 < kSsdMaxChunk / 2; j0 += 8) {
+        if (j0 < cp) {
+          FragA fa[2][kSsdUnits];
+          FragB fb[2];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            // past cp the second half reads the first's rows and adds 0
+            const int j =
+                (hf * kSsdPiece + j0 < cp ? hf * kSsdPiece : 0) + j0 + t;
+            const float w0 = wv[j], w1 = wv[j + 4];
+            fb[hf] = frag_b<kX>(to_f32(bq[j * qs + q * 8 + g]),
+                                to_f32(bq[(j + 4) * qs + q * 8 + g]));
+#pragma unroll
+            for (int u = 0; u < kSsdUnits; ++u) {
+              const T* x0 = xq + j * xsd + u * 16 + g;
+              const T* x1 = xq + (j + 4) * xsd + u * 16 + g;
+              fa[hf][u] = frag_a<false>(
+                  rn_mul(to_f32(x0[0]), w0), rn_mul(to_f32(x0[8]), w0),
+                  rn_mul(to_f32(x1[0]), w1), rn_mul(to_f32(x1[8]), w1));
+            }
+          }
+          const bool second = kSsdPiece + j0 < cp;
 #pragma unroll
           for (int pass = 0; pass < 3; ++pass)
-            if (takes<kX, kX>(pass))
+            if (takes<false, kX>(pass))
 #pragma unroll
-              for (int c = 0; c < 4; ++c)
-                mma_pass(pass, acc[2 * m + (c >> 1)][c & 1], fa, fb[c]);
+              for (int u = 0; u < kSsdUnits; ++u) {
+                mma_pass(pass, sacc[0][u], fa[0][u], fb[0]);
+                if (second) mma_pass(pass, sacc[1][u], fa[1][u], fb[1]);
+              }
+        }
+      }
+      unit_sync(kBarState, kSsdThreads);  // the Y warps have read the state
+      const int col = qk * kSsdPiece + q * 8 + 2 * t;
+#pragma unroll
+      for (int u = 0; u < kSsdUnits; ++u) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = u * 16 + g + 8 * half;
+          if (r < rows) {
+            float2* hp = reinterpret_cast<float2*>(hs + r * hsd + col);
+            const float2 v = *hp;
+            const float s0 = rn_add(sacc[0][u][2 * half], sacc[1][u][2 * half]);
+            const float s1 =
+                rn_add(sacc[0][u][2 * half + 1], sacc[1][u][2 * half + 1]);
+            *hp = make_float2(rn_add(rn_mul(v.x, dec), s0),
+                              rn_add(rn_mul(v.y, dec), s1));
+          }
         }
       }
     }
 
     if (qk != pieces - 1) continue;
-    // ---- the chunk's last piece: G complete, the scores, then y ----------
+    // ---- the chunk's end: y^T = exp(seg_i) y^T + X^T scores^T, with
+    // scores_ij = G_ij exp(seg_i - seg_j) dt_j (0 for j > i), the product
+    // over the chunk's steps in halves of kSsdPiece, each summed from zero:
+    // Y warp q takes the first half, S warp q the second, of the same
+    // columns (my_i), and hands its sum over in shared memory
+    const float* gck = gram_b + static_cast<size_t>(ck) * cp * cp;
+    const int hf = ywarp ? 0 : 1;
+    const bool halves = cp > kSsdPiece;
+    float part[kSsdUnits][2][4];
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      if (g_row[m] < 0) continue;
+    for (int u = 0; u < kSsdUnits; ++u)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (c < g_n[m]) {
-          float* g0 = gs + (g_row[m] + g) * gsd + g_col[m] + c * 8 + 2 * t;
-          const float* r = acc[2 * m + (c >> 1)][c & 1];
-          *reinterpret_cast<float2*>(g0) = make_float2(r[0], r[1]);
-          *reinterpret_cast<float2*>(g0 + 8 * gsd) = make_float2(r[2], r[3]);
-        }
-      }
-    }
-    __syncthreads();
-    // scores_ij = G_ij exp(seg_i - seg_j) dt_j (0 for j > i), as TF32 parts
-    // in place; once per block, a warp a row
-#pragma unroll 6
-    for (int i = warp; i < cp; i += kSsdWarps) {
-      const float si = seg[i];
+      for (int s = 0; s < 2; ++s)
 #pragma unroll
-      for (int jj = 0; jj < kSsdMaxChunk; jj += 32) {
-        const int j = jj + lane;
-        if (j < cp) {
-          const float sc =
-              j <= i ? rn_mul(rn_mul(gs[i * gsd + j], expf(rn_sub(si, seg[j]))),
-                              dq[j])
-                     : 0.0f;
-          uint32_t hi, lo;
-          split_tf32(sc, hi, lo);
-          gs[i * gsd + j] = __uint_as_float(hi);
-          gls[i * gsd + j] = __uint_as_float(lo);
-        }
-      }
-    }
-    __syncthreads();
-    if (role != 0) continue;
-    // ---- Y warps: y^T = exp(seg_i) y^T + X^T scores^T, then y ------------
+        for (int e = 0; e < 4; ++e) part[u][s][e] = 0.0f;
+    if (!ywarp && !halves) continue;
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const float e0 = ev[my_i[s] + 2 * t], e1 = ev[my_i[s] + 2 * t + 1];
-#pragma unroll
-      for (int u = 0; u < kSsdUnits; ++u) {
-        acc[u][s][0] = rn_mul(e0, acc[u][s][0]);
-        acc[u][s][1] = rn_mul(e1, acc[u][s][1]);
-        acc[u][s][2] = rn_mul(e0, acc[u][s][2]);
-        acc[u][s][3] = rn_mul(e1, acc[u][s][3]);
-      }
-    }
-#pragma unroll
-    for (int js = 0; js < kSsdMaxChunk / 8; ++js) {
+    for (int jh = 0; jh < kSsdPiece / 8; ++jh) {
+      const int js = hf * (kSsdPiece / 8) + jh;
       if (js * 8 < cp) {
         const int j = js * 8 + t;
         FragB fb[2];
 #pragma unroll
         for (int s = 0; s < 2; ++s) {
-          const int o = (my_i[s] + g) * gsd + j;
-          fb[s].hi[0] = __float_as_uint(gs[o]);
-          fb[s].hi[1] = __float_as_uint(gs[o + 4]);
-          fb[s].lo[0] = __float_as_uint(gls[o]);
-          fb[s].lo[1] = __float_as_uint(gls[o + 4]);
+          const int i = my_i[s] + g;
+          const float si = sq[i];
+          const float v0 =
+              j <= i ? rn_mul(rn_mul(gck[i * cp + j], expf(rn_sub(si, sq[j]))),
+                              dq[j])
+                     : 0.0f;
+          const float v1 =
+              j + 4 <= i
+                  ? rn_mul(rn_mul(gck[i * cp + j + 4],
+                                  expf(rn_sub(si, sq[j + 4]))),
+                           dq[j + 4])
+                  : 0.0f;
+          fb[s] = frag_b<false>(v0, v1);
+        }
+        FragA fa[kSsdUnits];
+#pragma unroll
+        for (int u = 0; u < kSsdUnits; ++u) {
+          const T* xu = xq + u * 16;
+          fa[u] = frag_a<kX>(
+              to_f32(xu[j * xsd + g]), to_f32(xu[j * xsd + g + 8]),
+              to_f32(xu[(j + 4) * xsd + g]), to_f32(xu[(j + 4) * xsd + g + 8]));
         }
 #pragma unroll
-        for (int u0 = 0; u0 < kSsdUnits; u0 += 2) {
-          FragA fa[2];
+        for (int pass = 0; pass < 3; ++pass)
+          if (takes<kX, false>(pass))
 #pragma unroll
-          for (int v = 0; v < 2; ++v) {
-            const T* xu = xq + (u0 + v) * 16;
-            fa[v] = frag_a<kX>(
-                to_f32(xu[j * xsd + g]), to_f32(xu[j * xsd + g + 8]),
-                to_f32(xu[(j + 4) * xsd + g]), to_f32(xu[(j + 4) * xsd + g + 8]));
-          }
+            for (int u = 0; u < kSsdUnits; ++u)
 #pragma unroll
-          for (int pass = 0; pass < 3; ++pass)
-            if (takes<kX, false>(pass))
+              for (int s = 0; s < 2; ++s)
+                mma_pass(pass, part[u][s], fa[u], fb[s]);
+      }
+    }
+    float* handed = yx + (q * kSsdUnits * 8) * 32 + lane;
+    if (!ywarp) {
 #pragma unroll
-              for (int v = 0; v < 2; ++v)
+      for (int u = 0; u < kSsdUnits; ++u)
 #pragma unroll
-                for (int s = 0; s < 2; ++s)
-                  mma_pass(pass, acc[u0 + v][s], fa[v], fb[s]);
-        }
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            handed[((u * 2 + s) * 4 + e) * 32] = part[u][s][e];
+      unit_arrive(kBarEnd, kSsdThreads);
+      continue;
+    }
+    if (halves) unit_sync(kBarEnd, kSsdThreads);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float e0 = expf(sq[my_i[s] + 2 * t]);
+      const float e1 = expf(sq[my_i[s] + 2 * t + 1]);
+#pragma unroll
+      for (int u = 0; u < kSsdUnits; ++u) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[u][s][e] = rn_add(
+              rn_mul(e & 1 ? e1 : e0, acc[u][s][e]),
+              rn_add(part[u][s][e],
+                     halves ? handed[((u * 2 + s) * 4 + e) * 32] : 0.0f));
       }
     }
     // y = y^T + d x, in the input type
@@ -683,10 +707,41 @@ ssd_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-size_t ssd_smem_bytes(int N, int C, int esize) {
+size_t ssd_smem_bytes(int P, int N, int C, int esize) {
   return ssd_smem((C + 15) & ~15, (N + kSsdPiece - 1) / kSsdPiece * kSsdPiece,
-                  esize)
+                  P < kSsdWidth ? P : kSsdWidth, esize)
       .total;
+}
+
+// `bytes` from a stream-ordered pool of the current device that keeps its
+// memory between calls (a pool of this library's own, so the setting
+// touches no other user of the device's default pool).
+cudaError_t ssd_workspace(size_t bytes, cudaStream_t stream, void** out) {
+  constexpr int kMaxDevices = 64;
+  static std::mutex mu;
+  static cudaMemPool_t pools[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!pools[dev]) {
+      cudaMemPoolProps props = {};
+      props.allocType = cudaMemAllocationTypePinned;
+      props.location.type = cudaMemLocationTypeDevice;
+      props.location.id = dev;
+      cudaMemPool_t pool;
+      err = cudaMemPoolCreate(&pool, &props);
+      if (err != cudaSuccess) return err;
+      uint64_t keep = UINT64_MAX;
+      err = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold,
+                                    &keep);
+      if (err != cudaSuccess) return err;
+      pools[dev] = pool;
+    }
+  }
+  return cudaMallocFromPoolAsync(out, bytes, pools[dev], stream);
 }
 
 template <typename T>
@@ -696,7 +751,7 @@ int launch_ssd(const T* x, const float* dt, const float* a_neg, const T* b,
   if (batch <= 0 || nheads <= 0 || C < 4 || C > kSsdMaxChunk || C % 4 ||
       P % 4 || N % 4 || P <= 0 || N <= 0 || seqlen <= 0 || seqlen % C)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ssd_smem_bytes(N, C, sizeof(T));
+  const size_t smem = ssd_smem_bytes(P, N, C, sizeof(T));
   if (smem > kSsdMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -704,10 +759,43 @@ int launch_ssd(const T* x, const float* dt, const float* a_neg, const T* b,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(nheads * ((P + kSsdWidth - 1) / kSsdWidth), batch);
-  ssd_mma_kernel<T><<<grid, kSsdThreads, smem, stream>>>(
-      x, dt, a_neg, b, c, d, y, seqlen, nheads, P, N, C);
-  return static_cast<int>(cudaGetLastError());
+  {  // all of L1 as shared memory, so kSsdBlocksPerSm blocks fit
+    const cudaError_t err = cudaFuncSetAttribute(
+        ssd_mma_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        100);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int cp = (C + 15) & ~15, nch = seqlen / C;
+  const size_t gram_n = static_cast<size_t>(batch) * nch * cp * cp;
+  const size_t seg_n = static_cast<size_t>(batch) * nch * nheads * cp;
+  void* ws = nullptr;
+  cudaError_t err =
+      ssd_workspace((gram_n + seg_n) * sizeof(float), stream, &ws);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* gram = static_cast<float*>(ws);
+  float* segs = gram + gram_n;
+  ssd_gram_kernel<T><<<dim3(nch, batch, kGramSplit), kGramThreads, 0,
+                       stream>>>(
+      dt, a_neg, b, c, gram, segs, seqlen, nheads, N, C);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(nheads * ((P + kSsdWidth - 1) / kSsdWidth), batch);
+    cfg.blockDim = dim3(kSsdThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, ssd_mma_kernel<T>, x, dt, b, c, d,
+                             static_cast<const float*>(gram),
+                             static_cast<const float*>(segs), y, seqlen,
+                             nheads, P, N, C);
+  }
+  const cudaError_t freed = cudaFreeAsync(ws, stream);
+  return static_cast<int>(err != cudaSuccess ? err : freed);
 }
 
 }  // namespace
@@ -717,8 +805,9 @@ int launch_ssd(const T* x, const float* dt, const float* a_neg, const T* b,
 // (B, T, N) in the entry's type; dt (B, T, H), a_neg = -exp(A_log) (H,) and
 // d (H,) f32; all contiguous on the stream's device.  T % chunk == 0,
 // chunk a multiple of 4 up to 64, P and N multiples of 4, and the shared
-// memory of ssd_smem within a block's 227 KiB.  One launch.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// memory of ssd_smem within a block's 227 KiB.  Two launches (the prologue,
+// then the scan) and a workspace from the library's pool, returned to it
+// on the stream.  Returns the first CUDA error (0 on success).
 extern "C" int ssd_scan_f32(const float* x, const float* dt,
                             const float* a_neg, const float* b,
                             const float* c, const float* d, float* y,
@@ -739,4 +828,12 @@ extern "C" int ssd_scan_bf16(const __nv_bfloat16* x, const float* dt,
                                                 batch, seqlen, nheads,
                                                 headdim, nstate, chunk,
                                                 stream);
+}
+
+// Dynamic shared memory of one scan block (ssd_smem) for x, B and C of
+// esize bytes, capped at INT_MAX: what ssd/ops.py's smem_bytes copies.
+extern "C" int ssd_scan_smem_bytes(int headdim, int nstate, int chunk,
+                                   int esize) {
+  const size_t s = repro_torch::ssd_smem_bytes(headdim, nstate, chunk, esize);
+  return s > static_cast<size_t>(INT_MAX) ? INT_MAX : static_cast<int>(s);
 }

@@ -4,14 +4,15 @@ entry.
 The port of ``repro.kernels.ssd`` (Pallas ``ssd_scan``, ``kernel.py:80``;
 host wrapper ``ops.py::ssd``).  ``ssd_scan`` dispatches on where its
 tensors lie: CPU tensors run ``ref.ssd_scan_plain``, CUDA tensors launch
-``csrc/ssd.cu`` (or raise; nothing falls back): one launch a call, whose
-blocks each own one head and up to ``16 * _UNITS`` of its P columns and
-carry their f32 state through the chunks, with the products on the tensor
-cores in TF32 at f32 accuracy (three products each) and their warps split
-by product (the source's note).
+``csrc/ssd.cu`` (or raise; nothing falls back): per call a prologue that
+forms G = C B^T once per (batch, chunk) and seg of every head, then the
+scan, whose blocks each own one head and ``16 * _UNITS`` of its P columns
+and carry their f32 state through the chunks, with the products on the
+tensor cores in TF32 at f32 accuracy (three products each; the source's
+note).
 ``ssd`` takes the model layer's conventions (``A_log``, ``D``) and
 precomputes ``-exp(A_log)`` as the reference's wrapper does.  ``LAUNCHES``
-counts kernel launches.
+counts the kernel's calls (each the prologue and the scan).
 """
 
 from __future__ import annotations
@@ -21,19 +22,19 @@ import torch
 from .. import runtime
 from .ref import ssd_scan_plain
 
-__all__ = ["LAUNCHES", "grid", "smem_bytes", "ssd", "ssd_scan"]
+__all__ = ["LAUNCHES", "smem_bytes", "ssd", "ssd_scan"]
 
-# Kernel launches issued by ``ssd_scan`` on CUDA tensors (a plain counter:
-# callers zero it and read it back to prove a path ran through the kernel).
+# Kernel calls issued by ``ssd_scan`` on CUDA tensors, one a call (the
+# prologue and the scan; a plain counter: callers zero it and read it back
+# to prove a path ran through the kernel).
 LAUNCHES = 0
 
 _ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 _MAX_CHUNK = 64
 _MAX_SMEM = 232448  # dynamic shared memory one H100 block may use
-# Copied from csrc/ssd.cu (kSsdUnits, kSsdThreads, kSsdPiece, kSsdPad); a
-# test holds these to the source's constexpr lines.
-_UNITS = 4  # 16-column slices of one head's P a block
-_THREADS = 384  # a Y, an S and a G warp a slice
+# Copied from csrc/ssd.cu (kSsdUnits, kSsdPiece, kSsdPad); a test holds
+# these and ``smem_bytes`` to the source.
+_UNITS = 2  # 16-row slices of one head's P a block
 _PIECE = 32  # state columns of B and C a staged piece
 _PAD = 8  # row padding of the staged tiles and the state (elements)
 
@@ -44,31 +45,22 @@ def _align16(v: int) -> int:
 
 def smem_bytes(headdim: int, nstate: int, chunk: int,
                dtype=torch.float32) -> int:
-    """Dynamic shared memory of one kernel block (``ssd_smem`` in
+    """Dynamic shared memory of one scan block (``ssd_smem`` in
     ``csrc/ssd.cu``) for x, B and C of ``dtype``: two staged pieces of B and
-    C (and, in f32, their small TF32 parts), two chunks of x and dt, the f32
-    state of the block's ``16 * _UNITS`` columns, G with the scores' TF32
-    parts, and seg, w and exp(seg).  It does not depend on ``headdim``."""
-    del headdim
+    C, two chunks of the x slice, dt and seg, the f32 state of
+    ``min(16 * _UNITS, headdim)`` rows, w, and the S warps' half of the
+    chunk's end."""
     esize = torch.empty((), dtype=dtype).element_size()
     cp = (chunk + 15) // 16 * 16
     npad = (nstate + _PIECE - 1) // _PIECE * _PIECE
     width = 16 * _UNITS
     tile = cp * (_PIECE + _PAD)
-    lo = _align16(2 * tile * 4) if esize == 4 else 0
-    return (2 * _align16(2 * tile * esize) + 2 * lo
+    return (2 * _align16(2 * tile * esize)
             + _align16(2 * cp * (width + _PAD) * esize)
-            + _align16(2 * cp * 4)
-            + _align16(width * (npad + _PAD) * 4)
-            + 2 * _align16(cp * (cp + 4) * 4)
-            + _align16(3 * cp * 4))
-
-
-def grid(batch: int, nheads: int, headdim: int) -> tuple:
-    """The kernel's grid ``(x, y)``: one block per head and ``16 * _UNITS``
-    columns of P along x, the batch along y."""
-    width = 16 * _UNITS
-    return (nheads * -(-headdim // width), batch)
+            + _align16(4 * cp * 4)
+            + _align16(min(width, headdim) * (npad + _PAD) * 4)
+            + _align16(cp * 4)
+            + _align16(4 * _UNITS * 8 * 32 * 4))
 
 
 def _check(name, t, dtype, shape, device):
@@ -89,8 +81,10 @@ def ssd_scan(x, dt, a_neg, b, c, d, *, chunk: int = 64) -> torch.Tensor:
 
     On CUDA: x, b and c are f32 or bf16 (one type), dt, a_neg and d f32,
     all contiguous; ``T % chunk == 0``, ``chunk`` a multiple of 4 up to 64,
-    P and N multiples of 4, N up to 288 in f32 (``smem_bytes``).  The kernel
-    launches once on the current stream without synchronising.
+    P and N multiples of 4, and ``smem_bytes`` within a block's limit
+    (N up to 1,248 at any P, chunk and type; more at P below 32).  The
+    prologue and the scan launch on the current stream without
+    synchronising.
 
     Raises:
         ValueError: ``T % chunk != 0`` (on every device), or a shape,

@@ -145,8 +145,12 @@ SSD_CASES = {
     # P, N and the chunk multiples of 4 but not of 8 or 16: padded edges
     "odd_p12_n20_c12": ((2, 96, 3, 12, 20), torch.float32, 12, 2e-4),
     "odd_p12_n20_c12_bf16": ((2, 96, 3, 12, 20), torch.bfloat16, 12, 5e-2),
-    # two blocks a head (P = 128), eight pieces of the state, chunk 48
+    # four blocks a head (P = 128), eight pieces of the state, chunk 48
     "p128_n256_c48": ((1, 96, 2, 128, 256), torch.float32, 48, 2e-4),
+    # the widest state the SIMT kernel before this one took (4 rows, 150
+    # pieces), and the widest at P = 64 now
+    "p4_n4800_c4": ((1, 32, 2, 4, 4800), torch.float32, 4, 2e-4),
+    "p64_n1248_c64": ((1, 128, 2, 64, 1248), torch.float32, 64, 2e-4),
 }
 
 
@@ -181,6 +185,20 @@ def test_ssd_kernel_matches_plain(cuda, case):
         torch.testing.assert_close(y, y64, rtol=tol, atol=tol)
 
 
+def test_ssd_smem_copy_matches_the_library(cuda):
+    """``ops.smem_bytes`` against the built library's own
+    ``ssd_scan_smem_bytes`` (``ssd_smem`` of ``csrc/ssd.cu``)."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.ssd import ops as sd
+    lib = runtime.load_library()
+    for p in (4, 12, 16, 20, 64, 128):
+        for n in (4, 16, 20, 128, 256, 1248, 4800):
+            for chunk in (4, 8, 12, 32, 48, 64):
+                for dtype, esize in ((torch.float32, 4), (torch.bfloat16, 2)):
+                    assert lib.ssd_scan_smem_bytes(p, n, chunk, esize) == \
+                        sd.smem_bytes(p, n, chunk, dtype), (p, n, chunk, dtype)
+
+
 def test_ssd_kernel_refuses_what_it_cannot_take(cuda):
     from repro_torch.kernels.ssd import ops as sd
     x, dt, a_log, bb, cc, d = ssd_inputs((1, 64, 2, 16, 16), torch.float32,
@@ -194,6 +212,9 @@ def test_ssd_kernel_refuses_what_it_cannot_take(cuda):
         sd.ssd_scan(x.half(), dt, a_neg, bb.half(), cc.half(), d, chunk=16)
     with pytest.raises(TypeError, match="dt must be"):
         sd.ssd_scan(x, dt.double(), a_neg, bb, cc, d, chunk=16)
+    wide = ssd_inputs((1, 64, 2, 32, 1280), torch.float32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        sd.ssd_scan(wide[0], wide[1], -torch.exp(wide[2]), *wide[3:], chunk=64)
 
 
 def test_mamba_prefill_kernel_matches_plain_path(cuda):

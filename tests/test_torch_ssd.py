@@ -11,9 +11,10 @@ padded to 16 and N to the 32-column pieces, seg added in sequence in f32,
 G = C B^T once per chunk, every product as three TF32 products in the
 ``mma`` k-step order, the state updated chunk after chunk
 in IEEE f32) and is held to the reference's Pallas kernel in interpret
-mode, as ``TestSSD`` runs it, and to ``_ssd_chunked``.  A test also holds
-the wrapper's copy of the kernel's shared-memory layout and grid to the
-source's ``constexpr`` lines.
+mode, as ``TestSSD`` runs it, and to ``_ssd_chunked``.  Tests also hold
+the wrapper's copy of the kernel's shared-memory layout to the source's
+``constexpr`` lines and ``ssd_smem`` regions, and check that it takes
+every shape the SIMT kernel before it took.
 
 Inputs are TestSSD's (``tests/test_kernels.py``), made with numpy from a
 seed; tolerances are that suite's: 2e-4 (rtol and atol) in f32, 5e-2 with
@@ -125,6 +126,18 @@ def mma3(acc, a, b):
     return acc
 
 
+def by_piece(mma, acc, a, b, piece=32):
+    """``acc + a @ b`` over the depth in pieces of ``piece``: each piece's
+    ``mma`` sum from zero, then added to ``acc`` with one f32 rounding, as
+    the kernel sums every product (the tensor cores' accumulation is not
+    IEEE, so a long chain into one accumulator drifts; the pieces are
+    also independent chains)."""
+    for k in range(0, a.shape[-1], piece):
+        acc = acc + mma(torch.zeros_like(acc), a[..., k:k + piece],
+                        b[..., k:k + piece, :])
+    return acc
+
+
 def serial_scan(v):
     """Inclusive sums along the last axis added in sequence, each add
     rounded to f32, as the kernel (and the plain version's cumsum on the
@@ -139,11 +152,12 @@ def serial_scan(v):
 def ssd_emulated(x, dt, a_neg, b, c, d, *, chunk, mma=mma3):
     """The arithmetic of ``csrc/ssd.cu`` in plain PyTorch: P padded to
     16-column slices, the chunk to a multiple of 16 and N to the 32-column
-    pieces (zeros, dt = 0), then per chunk seg by ``serial_scan``, G = C B^T
-    once for all heads, y^T = h C^T and S = (X o w)^T B, the state
-    h = h exp(last) + S in IEEE f32, then y^T = exp(seg_i) y^T + X^T
-    scores^T (the products added to the scaled sum) and y = y^T + d x,
-    every product by ``mma``."""
+    pieces (zeros, dt = 0), then per chunk seg by ``serial_scan`` and
+    G = C B^T once for all heads (the kernel's prologue), y^T = h C^T and
+    S = (X o w)^T B, the state h = h exp(last) + S in IEEE f32, then
+    y^T = exp(seg_i) y^T + X^T scores^T (that product summed from zero,
+    then added to the scaled sum) and y = y^T + d x; every product by
+    ``mma``, each over its depth in 32-step pieces by ``by_piece``."""
     bsz, t, h, p = x.shape
     n = b.shape[-1]
     cp, npad, pp = -(-chunk // 16) * 16, -(-n // 32) * 32, -(-p // 16) * 16
@@ -165,16 +179,19 @@ def ssd_emulated(x, dt, a_neg, b, c, d, *, chunk, mma=mma3):
         seg = serial_scan(D * a[:, None])
         last = seg[..., -1:]
         w = torch.exp(last - seg) * D
-        G = mma(torch.zeros(bsz, 1, cp, cp), C, B.transpose(-1, -2))
-        y_out = mma(torch.zeros(bsz, h, pp, cp), state, C.transpose(-1, -2))
-        s_chunk = mma(torch.zeros(bsz, h, pp, npad),
-                       (X * w[..., None]).transpose(-1, -2), B)
+        G = by_piece(mma, torch.zeros(bsz, 1, cp, cp), C, B.transpose(-1, -2))
+        y_out = by_piece(mma, torch.zeros(bsz, h, pp, cp), state,
+                         C.transpose(-1, -2))
+        s_chunk = by_piece(mma, torch.zeros(bsz, h, pp, npad),
+                           (X * w[..., None]).transpose(-1, -2), B)
         state = state * torch.exp(last)[..., None] + s_chunk
         li = torch.where(tri, seg[..., :, None] - seg[..., None, :],
                          -torch.inf)
         scores = G * torch.exp(li) * D[..., None, :]
-        y = mma(torch.exp(seg)[..., None, :] * y_out, X.transpose(-1, -2),
-                scores.transpose(-1, -2)) + dd[:, None, None] * X.transpose(-1, -2)
+        y = (torch.exp(seg)[..., None, :] * y_out
+             + by_piece(mma, torch.zeros_like(y_out), X.transpose(-1, -2),
+                        scores.transpose(-1, -2))
+             ) + dd[:, None, None] * X.transpose(-1, -2)
         ys.append(y[:, :, :p, :chunk])
     return torch.cat(ys, dim=-1).permute(0, 3, 1, 2).to(x.dtype)
 
@@ -226,46 +243,85 @@ def test_one_tf32_product_misses_the_f32_tolerance():
     assert float(((one - want).abs() / (tol + tol * want.abs())).max()) > 1
 
 
-def test_wrapper_geometry_follows_the_kernel_source():
-    """``ops.smem_bytes`` and ``ops.grid`` copy the constants of
-    ``csrc/ssd.cu``; evaluate the source's ``constexpr`` chain and its
-    ``ssd_smem`` layout so that a change there fails here instead of
-    misreporting (or refusing) shapes."""
+def _smem_from_source(src, k):
+    """``ssd_smem`` of ``csrc/ssd.cu`` evaluated from its own lines: its
+    ``const size_t`` locals and each region's ``off += ...;`` in order, as
+    a function of (cp, npad, rows, esize)."""
+    body = src[src.index("SsdSmem ssd_smem("):]
+    body = body[:body.index("return s;")]
+    lines = [ln.strip() for ln in body.splitlines()]
+    locals_ = re.findall(r"const size_t (\w+) = ([^;]+);", body)
+    regions = [ln[len("off += "):-1] for ln in lines
+               if ln.startswith("off += ")]
+    assert regions and all(ln.endswith(";") for ln in lines
+                           if ln.startswith("off += "))
+
+    def py(expr):
+        return expr.replace("static_cast<size_t>", "")
+
+    def smem(cp, npad, rows, esize):
+        env = dict(k, cp=cp, npad=npad, rows=rows, esize=esize,
+                   align16=lambda v: (v + 15) // 16 * 16)
+        for name, expr in locals_:
+            env[name] = eval(py(expr), {"__builtins__": {}}, env)
+        return sum(eval(py(r), {"__builtins__": {}}, env) for r in regions)
+
+    return smem, len(regions)
+
+
+def _source_constants():
     src = (runtime.CSRC / "ssd.cu").read_text()
     k = {}
     for name, expr in re.findall(
             r"^constexpr (?:int|size_t) (\w+) = ([^;]+);", src, re.M):
         k[name] = eval(expr, {"__builtins__": {}}, k)
-    assert (sd._UNITS, sd._THREADS, sd._PIECE, sd._PAD, sd._MAX_CHUNK,
-            sd._MAX_SMEM) == (k["kSsdUnits"], k["kSsdThreads"],
-                              k["kSsdPiece"], k["kSsdPad"],
-                              k["kSsdMaxChunk"], k["kSsdMaxSmem"])
+    return src, k
 
-    def a16(v):
-        return (v + 15) // 16 * 16
 
-    for p, n, chunk, dtype, esize in ((64, 128, 64, torch.float32, 4),
-                                      (64, 128, 64, torch.bfloat16, 2),
-                                      (64, 128, 32, torch.float32, 4),
-                                      (16, 16, 8, torch.float32, 4),
-                                      (12, 20, 12, torch.bfloat16, 2)):
-        cp = -(-chunk // 16) * 16
-        npad = -(-n // k["kSsdPiece"]) * k["kSsdPiece"]
-        tile = cp * (k["kSsdPiece"] + k["kSsdPad"])
-        lo = a16(2 * tile * 4) if esize == 4 else 0
-        want = (2 * a16(2 * tile * esize) + 2 * lo
-                + a16(2 * cp * (k["kSsdWidth"] + k["kSsdPad"]) * esize)
-                + a16(2 * cp * 4)
-                + a16(k["kSsdWidth"] * (npad + k["kSsdPad"]) * 4)
-                + 2 * a16(cp * (cp + 4) * 4) + a16(3 * cp * 4))
-        assert sd.smem_bytes(p, n, chunk, dtype) == want
-    # the serve shape of mamba2-130m: 96 blocks of 384 threads, 185.25 KiB
-    assert sd.grid(4, 24, 64) == (24, 4)
-    assert k["kSsdThreads"] == 384
-    assert sd.smem_bytes(64, 128, 64) == 189696
-    # N = 288 is the widest f32 state that fits at chunk 64
-    assert sd.smem_bytes(64, 288, 64) <= sd._MAX_SMEM
-    assert sd.smem_bytes(64, 292, 64) > sd._MAX_SMEM
-    # one block a head up to P = 64, two at P = 128; P = 12 pads to 64
-    assert sd.grid(2, 3, 12) == (3, 2)
-    assert sd.grid(1, 2, 128) == (4, 1)
+def test_wrapper_geometry_follows_the_kernel_source():
+    """``ops.smem_bytes`` copies ``ssd_smem`` of ``csrc/ssd.cu``: evaluate
+    the source's ``constexpr`` chain and ``ssd_smem``'s own region lines so
+    that a region added, resized or reordered there fails here instead of
+    misreporting (or refusing) shapes.  (On the card,
+    ``tests/test_torch_gpu.py`` holds the copy to the built library's
+    ``ssd_scan_smem_bytes``.)"""
+    src, k = _source_constants()
+    assert (sd._UNITS, sd._PIECE, sd._PAD, sd._MAX_CHUNK, sd._MAX_SMEM) == (
+        k["kSsdUnits"], k["kSsdPiece"], k["kSsdPad"], k["kSsdMaxChunk"],
+        k["kSsdMaxSmem"])
+    smem, n_regions = _smem_from_source(src, k)
+    assert n_regions == 7
+    for p in (4, 12, 16, 64, 128):
+        for n in (4, 16, 20, 128, 256, 1248, 2496):
+            for chunk in (4, 8, 12, 32, 48, 64):
+                for dtype, esize in ((torch.float32, 4), (torch.bfloat16, 2)):
+                    cp = -(-chunk // 16) * 16
+                    npad = -(-n // k["kSsdPiece"]) * k["kSsdPiece"]
+                    rows = min(k["kSsdWidth"], p)
+                    assert sd.smem_bytes(p, n, chunk, dtype) == smem(
+                        cp, npad, rows, esize), (p, n, chunk, dtype)
+    # the serve shape of mamba2-130m: 86.25 KiB in f32, two blocks an SM
+    # (228 KiB, 1 KiB of it reserved a block)
+    assert sd.smem_bytes(64, 128, 64) == 88320
+    assert 2 * (88320 + 1024) <= 228 * 1024 and k["kSsdBlocksPerSm"] == 2
+    assert sd.smem_bytes(64, 128, 64, torch.bfloat16) == 57600
+
+
+def test_wrapper_takes_every_shape_the_simt_kernel_took():
+    """The state holds min(32, P) rows of N, so every (P, N, chunk) that the
+    SIMT kernel before it took (its shared memory, 4 ((P + 2 chunk)(N + 1)
+    + chunk P + chunk^2 + 4 chunk) bytes, within a block's limit) fits, in
+    both types; the widest state at P >= 32 is N = 1248."""
+    def simt(p, n, c):
+        return 4 * ((p + 2 * c) * (n + 1) + c * p + c * c + 4 * c)
+
+    for p in range(4, 257, 4):
+        for chunk in range(4, 65, 4):
+            for n in range(4, 6000, 4):
+                if simt(p, n, chunk) > sd._MAX_SMEM:
+                    break
+                for dtype in (torch.float32, torch.bfloat16):
+                    assert sd.smem_bytes(p, n, chunk, dtype) <= sd._MAX_SMEM, (
+                        p, n, chunk, dtype)
+    assert sd.smem_bytes(64, 1248, 64) <= sd._MAX_SMEM
+    assert sd.smem_bytes(64, 1280, 64) > sd._MAX_SMEM
