@@ -2,12 +2,12 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
 Builds the CUDA kernel library from ``src/repro_torch/kernels/csrc`` (and,
-alongside, the flash-attention, SSD and change-point sources once more with
-``-Xptxas -v``: their kernels' registers and spills, none allowed in the
-flash and SSD kernels, and the tensor-core instructions of the flash and
-SSD kernels from ``cuobjdump -sass`` (HGMMA required in flash, HMMA in
-SSD) print on the ``compiled`` line) and drives the port's main paths on
-one GPU, in six phases:
+alongside, the flash-attention, SSD, change-point and window-vet sources
+once more with ``-Xptxas -v``: their kernels' registers and spills, none
+allowed in the flash, SSD and window-vet kernels, and the tensor-core
+instructions of the flash and SSD kernels from ``cuobjdump -sass`` (HGMMA
+required in flash, HMMA in SSD) print on the ``compiled`` line) and drives
+the port's main paths on one GPU, in six phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with CUDA-event times, bounds and,
@@ -18,7 +18,11 @@ one GPU, in six phases:
    the f32 units beside it.  The change-point kernel runs five ragged batches (a
    monitor tick's 6-64-point rings, the job's and ``fleet_gather``'s
    curves, one 8192 and one 65,536-point row, the last through global
-   scratch) and must give the plain twin's cuts on every row;
+   scratch) and must give the plain twin's cuts on every row; the
+   window-vet kernel runs four (the fleet tick's 64/128/192-record windows
+   on its warp path, rows of 600-1000 and of 2000-4000 records on its
+   block path, rows of 2-5 records), prints each case's path, and must give
+   the plain version's cut on every row;
 2. ``job``      — the paper's post-hoc measure on a 1024-task x 65,536-record
    Hadoop job (``VetEngine("cuda").vet_batch`` and ``vet_job``);
 3. ``fleet_fused``  — a 4096-stream ``VetMux`` on the fused window-vet path;
@@ -106,14 +110,21 @@ SSD_KERNELS = {"ssd_gram_f32": "ssd_gram_kernelIf",
                "ssd_gram_bf16": "ssd_gram_kernelI13__nv_bfloat16",
                "ssd_mma_f32": "ssd_mma_kernelIf",
                "ssd_mma_bf16": "ssd_mma_kernelI13__nv_bfloat16"}
+# window-vet kernels (csrc/windowvet.cu: the warp path per values-per-lane
+# instantiation, the block path) -> a substring of their mangled names
+WINDOWVET_KERNELS = {**{f"windowvet_warp_e{e}": f"windowvet_warp_kernelILi{e}EE"
+                        for e in (1, 2, 4, 8, 16)},
+                     "windowvet_block": "windowvet_block_kernel"}
 # kernel functions whose registers and spills the ``compiled`` line reports
 # -> (their source in csrc/, a substring of their mangled names)
 PTXAS_KERNELS = {"flash_wgmma_bf16": ("flash_attention.cu", "flash_wgmma_bf16"),
                  "flash_wgmma_tf32": ("flash_attention.cu", "flash_wgmma_tf32"),
                  **{k: ("ssd.cu", v) for k, v in SSD_KERNELS.items()},
-                 "changepoint_kernel": ("changepoint.cu", "changepoint_kernel")}
+                 "changepoint_kernel": ("changepoint.cu", "changepoint_kernel"),
+                 **{k: ("windowvet.cu", v)
+                    for k, v in WINDOWVET_KERNELS.items()}}
 # the kernels held to no spill
-NO_SPILL = (*FLASH_KERNELS, *SSD_KERNELS)
+NO_SPILL = (*FLASH_KERNELS, *SSD_KERNELS, *WINDOWVET_KERNELS)
 
 
 class SmokeError(RuntimeError):
@@ -180,8 +191,8 @@ def ptxas_start():
 
 def ptxas_report(checks) -> dict:
     """Registers, stack and spills of each checked kernel from ptxas; fails
-    on a spill in a flash or SSD kernel.  Keeps ptxas's warnings, such as a
-    wgmma it had to serialise (which costs time)."""
+    on a spill in a flash, SSD or window-vet kernel.  Keeps ptxas's
+    warnings, such as a wgmma it had to serialise (which costs time)."""
     out, notes, err = {}, [], ""
     for obj, proc in checks:
         _, err = proc.communicate()
@@ -211,7 +222,8 @@ def ptxas_report(checks) -> dict:
         "registers" in r and "spill_stores" in r for r in out.values()),
         f"ptxas check: no report for every kernel in\n{err[-3000:]}")
     require(all(out[k]["spill_stores"] == 0 and out[k]["spill_loads"] == 0
-                for k in NO_SPILL), f"flash or SSD kernels spill: {out}")
+                for k in NO_SPILL), f"flash, SSD or window-vet kernels spill: "
+                                   f"{out}")
     out["notes"] = notes[:8]
     return out
 
@@ -445,10 +457,12 @@ def phase_kernels(card: str, device: str = "cuda") -> dict:
             "prefix_ms": prefix_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by})
         del values, starts, lens, sse_o, t_o, scratch
 
-    # ---- windowvet: ragged fleet tick, long rows, degenerate rows -------
+    # ---- windowvet: the fleet tick (warp path), rows of 600-1000 and of
+    # 2000-4000 records (block path), degenerate rows ----------------------
     rng = np.random.default_rng(7)
     cases = {
         "ragged_64_128_192": np.tile([64, 128, 192], 8192 // 3 + 1)[:8192],
+        "long_600_1000": rng.integers(600, 1001, 2048),
         "long_to_4000": rng.integers(2000, 4001, 512),
         "degenerate_2_5": np.tile([2, 3, 4, 5], 16),
     }
@@ -469,6 +483,11 @@ def phase_kernels(card: str, device: str = "cuda") -> dict:
         summary = hold(got, ref, lambda i: arena[starts[i]:starts[i]
                                                   + lengths[i]],
                        None, f"windowvet {name}", device=dev)
+        # the same f32 operations in the same order: the cuts are the plain
+        # version's
+        require(summary["cut_flips"] == 0,
+                f"windowvet {name}: {summary['cut_flips']} cuts differ from "
+                f"the plain version")
         out_o = torch.empty((tensors[1].shape[0], wv.LANES),
                             dtype=torch.float32, device=dev)
         args = ([x.data_ptr() for x in (*tensors, out_o)]
@@ -484,7 +503,9 @@ def phase_kernels(card: str, device: str = "cuda") -> dict:
         ops = float((n * np.log2(n) + 60.0 * n).sum())
         bms, by = bound_ms(nbytes, ops)
         out["windowvet"].append({
-            "case": name, "rows": int(rows), "lmax": lmax, **summary,
+            "case": name, "path": wv.kernel_path(lmax), "rows": int(rows),
+            "lmax": lmax, **summary,
+            "lanes_bitwise": bool(np.array_equal(res_k, res_p)),
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by})
 

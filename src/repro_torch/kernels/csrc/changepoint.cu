@@ -44,53 +44,10 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kScanBlock = 16;  // XLA's base for the blocked cumsum
-constexpr int kScanPad = kScanBlock + 1;  // one pad word per 16 values
-constexpr int kMaxLevels = 8;  // 16^8 > any int32 row length
 constexpr int kMaxThreads = 1024;
 // Dynamic shared memory a block may take for the scans: the opt-in limit
 // (232,448 bytes) less 1 KiB kept for the static argmin scratch.
 constexpr int kSharedFloats = (232448 - 1024) / 4;
-
-__device__ __forceinline__ int padded(int i) { return i + (i >> 4); }
-
-// Level geometry of one row: level 0 scans the row's n values, level l+1
-// the nb[l] block totals of level l, up to the first level of one block.
-struct Levels {
-  int count;
-  int len[kMaxLevels];  // values scanned at this level
-  int nb[kMaxLevels];  // its 16-blocks
-  int off[kMaxLevels];  // float offset of its three channels
-};
-
-__device__ __forceinline__ Levels levels_of(int n) {
-  Levels lv;
-  lv.count = 0;
-  int m = n, off = 0;
-  while (true) {
-    const int nb = (m + kScanBlock - 1) / kScanBlock;
-    lv.len[lv.count] = m;
-    lv.nb[lv.count] = nb;
-    lv.off[lv.count] = off;
-    off += 3 * kScanPad * nb;
-    ++lv.count;
-    if (nb == 1) break;
-    m = nb;
-  }
-  return lv;
-}
-
-// The three channels (0: z, 1: z*z, 2: k*z) of level l.
-struct Chans {
-  float* c[3];
-};
-
-__device__ __forceinline__ Chans chans(float* buf, const Levels& lv, int l) {
-  Chans ch;
-  for (int c = 0; c < 3; ++c)
-    ch.c[c] = buf + lv.off[l] + c * kScanPad * lv.nb[l];
-  return ch;
-}
 
 // k(k+1)/2 and k(k+1)(2k+1)/6 in f64, in index_closed_forms' order (the
 // halving as a product by 0.5, which rounds as the division by 2 does).
@@ -132,73 +89,11 @@ changepoint_kernel(const float* __restrict__ values,
       s0.c[0][padded(i)] = i < n ? rn_sub(y[i], ymid) : 0.0f;
     __syncthreads();
 
-    // 2a. level 0: serial adds inside each 16-block, z in place.
-    for (int b = tid; b < lv.nb[0]; b += nt) {
-      float a[3];
-#pragma unroll
-      for (int j = 0; j < kScanBlock; ++j) {
-        const int i = b * kScanBlock + j, p = padded(i);
-        const float z = s0.c[0][p];
-        const float v[3] = {z, rn_mul(z, z),
-                            rn_mul(static_cast<float>(i + 1), z)};
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          a[c] = j == 0 ? v[c] : rn_add(a[c], v[c]);
-          s0.c[c][p] = a[c];
-        }
-      }
-    }
-    __syncthreads();
-
-    // 2b. upper levels: serial adds over the block totals below.
-    for (int l = 1; l < lv.count; ++l) {
-      const Chans below = chans(buf, lv, l - 1), here = chans(buf, lv, l);
-      const int len = lv.len[l];
-      for (int b = tid; b < lv.nb[l]; b += nt) {
-        float a[3];
-#pragma unroll
-        for (int j = 0; j < kScanBlock; ++j) {
-          const int i = b * kScanBlock + j;
-          const int src = padded(i * kScanBlock + kScanBlock - 1);
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const float v = i < len ? below.c[c][src] : 0.0f;
-            a[c] = j == 0 ? v : rn_add(a[c], v);
-            here.c[c][padded(i)] = a[c];
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    // 2c. carries, top down: every level of more than one block adds the
-    // exclusive prefix of its block totals (+0 for block 0) last.
-    for (int l = lv.count - 2; l >= 1; --l) {
-      const Chans here = chans(buf, lv, l), above = chans(buf, lv, l + 1);
-      for (int i = tid; i < lv.len[l]; i += nt) {
-        const int b = i / kScanBlock;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float carry = b > 0 ? above.c[c][padded(b - 1)] : 0.0f;
-          here.c[c][padded(i)] = rn_add(here.c[c][padded(i)], carry);
-        }
-      }
-      __syncthreads();
-    }
-
-    // Level 0's carry is added as each prefix sum is read.
-    const bool carried = lv.count > 1;
-    const Chans s1 = carried ? chans(buf, lv, 1) : s0;
+    // 2. the three prefix sums in XLA's order (common.cuh).
+    xla_scan3(buf, lv, tid, nt);
+    const ScanView scan = scan_view(buf, lv);
     float tot[3];
-    {
-      const int b = (n - 1) / kScanBlock;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        tot[c] = s0.c[c][padded(n - 1)];
-        if (carried)
-          tot[c] = rn_add(tot[c], b > 0 ? s1.c[c][padded(b - 1)] : 0.0f);
-      }
-    }
+    prefix3(scan, n - 1, tot);
 
     // 3-4. closed forms, SSE, mask, landscape, argmin.
     const float nf = static_cast<float>(n);
@@ -209,14 +104,8 @@ changepoint_kernel(const float* __restrict__ values,
     float best = inf_f();
     int best_i = INT_MAX;
     for (int i = tid; i < n; i += nt) {
-      const int p = padded(i), b = i / kScanBlock;
       float cs[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        cs[c] = s0.c[c][p];
-        if (carried)
-          cs[c] = rn_add(cs[c], b > 0 ? s1.c[c][padded(b - 1)] : 0.0f);
-      }
+      prefix3(scan, i, cs);
       const float k = static_cast<float>(i + 1);
       const double kd = static_cast<double>(i + 1);
       const double sx1d = sx_of(kd), sxx1d = sxx_of(kd);

@@ -92,4 +92,146 @@ __device__ __forceinline__ int block_argmin(float v, int i, float* sv,
   return best;
 }
 
+// ---- inclusive prefix sums in XLA's order -------------------------------
+// The order in which XLA adds jnp.cumsum on the CPU
+// (core/changepoint.py::xla_order_cumsum): serial adds inside blocks of 16
+// with the tail zero-padded, the block totals scanned by the same rule
+// recursively, each block's exclusive carry (+0 for block 0) added last.
+// A block scans its row level by level in shared memory, one thread per
+// 16-block; a level's arrays hold one pad word after every 16 values so
+// those threads hit distinct banks.
+constexpr int kScanBlock = 16;  // XLA's base for the blocked cumsum
+constexpr int kScanPad = kScanBlock + 1;  // one pad word per 16 values
+constexpr int kMaxLevels = 8;  // 16^8 > any int32 row length
+
+__device__ __forceinline__ int padded(int i) { return i + (i >> 4); }
+
+// Level geometry of one row: level 0 scans the row's n values, level l+1
+// the nb[l] block totals of level l, up to the first level of one block.
+struct Levels {
+  int count;
+  int len[kMaxLevels];  // values scanned at this level
+  int nb[kMaxLevels];  // its 16-blocks
+  int off[kMaxLevels];  // float offset of its three channels
+};
+
+__device__ __forceinline__ Levels levels_of(int n) {
+  Levels lv;
+  lv.count = 0;
+  int m = n, off = 0;
+  while (true) {
+    const int nb = (m + kScanBlock - 1) / kScanBlock;
+    lv.len[lv.count] = m;
+    lv.nb[lv.count] = nb;
+    lv.off[lv.count] = off;
+    off += 3 * kScanPad * nb;
+    ++lv.count;
+    if (nb == 1) break;
+    m = nb;
+  }
+  return lv;
+}
+
+// The three channels (0: z, 1: z*z, 2: k*z) of level l.
+struct Chans {
+  float* c[3];
+};
+
+__device__ __forceinline__ Chans chans(float* buf, const Levels& lv, int l) {
+  Chans ch;
+  for (int c = 0; c < 3; ++c)
+    ch.c[c] = buf + lv.off[l] + c * kScanPad * lv.nb[l];
+  return ch;
+}
+
+// The prefix sums of z, z*z and k*z (k = i + 1) over one row, in place.
+// On entry chans(buf, lv, 0).c[0][padded(i)] holds z for i < nb[0] * 16
+// (zeros past the row), and the block is synced; on exit every level is
+// scanned and carried except level 0, whose carry prefix3 adds as it
+// reads, and the block is synced.  Every thread of the block calls it.
+__device__ __forceinline__ void xla_scan3(float* buf, const Levels& lv,
+                                          int tid, int nt) {
+  const Chans s0 = chans(buf, lv, 0);
+  // level 0: serial adds inside each 16-block, z in place.
+  for (int b = tid; b < lv.nb[0]; b += nt) {
+    float a[3];
+#pragma unroll
+    for (int j = 0; j < kScanBlock; ++j) {
+      const int i = b * kScanBlock + j, p = padded(i);
+      const float z = s0.c[0][p];
+      const float v[3] = {z, rn_mul(z, z),
+                          rn_mul(static_cast<float>(i + 1), z)};
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        a[c] = j == 0 ? v[c] : rn_add(a[c], v[c]);
+        s0.c[c][p] = a[c];
+      }
+    }
+  }
+  __syncthreads();
+
+  // upper levels: serial adds over the block totals below.
+  for (int l = 1; l < lv.count; ++l) {
+    const Chans below = chans(buf, lv, l - 1), here = chans(buf, lv, l);
+    const int len = lv.len[l];
+    for (int b = tid; b < lv.nb[l]; b += nt) {
+      float a[3];
+#pragma unroll
+      for (int j = 0; j < kScanBlock; ++j) {
+        const int i = b * kScanBlock + j;
+        const int src = padded(i * kScanBlock + kScanBlock - 1);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float v = i < len ? below.c[c][src] : 0.0f;
+          a[c] = j == 0 ? v : rn_add(a[c], v);
+          here.c[c][padded(i)] = a[c];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // carries, top down: every level of more than one block adds the
+  // exclusive prefix of its block totals (+0 for block 0) last.
+  for (int l = lv.count - 2; l >= 1; --l) {
+    const Chans here = chans(buf, lv, l), above = chans(buf, lv, l + 1);
+    for (int i = tid; i < lv.len[l]; i += nt) {
+      const int b = i / kScanBlock;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float carry = b > 0 ? above.c[c][padded(b - 1)] : 0.0f;
+        here.c[c][padded(i)] = rn_add(here.c[c][padded(i)], carry);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Where xla_scan3 left a row's scans: level 0 and, when the row has more
+// than one 16-block, level 1, whose values are level 0's carries.
+struct ScanView {
+  Chans s0, s1;
+  bool carried;
+};
+
+__device__ __forceinline__ ScanView scan_view(float* buf, const Levels& lv) {
+  ScanView v;
+  v.s0 = chans(buf, lv, 0);
+  v.carried = lv.count > 1;
+  v.s1 = v.carried ? chans(buf, lv, 1) : v.s0;
+  return v;
+}
+
+// The three inclusive prefix sums at position i, level 0's carry added.
+__device__ __forceinline__ void prefix3(const ScanView& v, int i,
+                                        float cs[3]) {
+  const int p = padded(i), b = i / kScanBlock;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    cs[c] = v.s0.c[c][p];
+    if (v.carried)
+      cs[c] = rn_add(cs[c], b > 0 ? v.s1.c[c][padded(b - 1)] : 0.0f);
+  }
+}
+
 }  // namespace repro_torch

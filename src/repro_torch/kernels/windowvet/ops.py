@@ -14,16 +14,20 @@ Three layers, as in the reference:
   the arena, pads rows to a power of two (>= ``BLOCK_ROWS``) by repeating
   the last row, sets ``lmax = max(8, pow2(longest window))``, pads the arena
   to ``pow2(arena + lmax)``, launches once, and finishes ``vet = pr64/ei``
-  in f64.  Windows longer than ``MAX_LMAX`` are refused (the kernel keeps a
-  sorted row and three scans of ``lmax`` floats in shared memory).
+  in f64.  Windows longer than ``MAX_LMAX`` are refused (the kernel's
+  block path holds a row in 512 threads, 8 values each).
 - ``fused_window_vet_scan`` — the tensor-level dispatch: CPU tensors run
   ``fused_window_vet_plain``, CUDA tensors launch ``csrc/windowvet.cu`` on
   the current stream (or raise; nothing falls back).  ``LAUNCHES`` counts
   kernel launches.
 - ``fused_window_vet_plain`` — the batched plain PyTorch version (gather,
   ``torch.sort``, masked reductions; no per-row loop).  It repeats the
-  kernel's arithmetic: its prefix sums (``block_scan``) add in the kernel's
-  order, so on the same device the two pick the same cut.
+  kernel's arithmetic: the log is ``xla_order_log``, the prefix sums add in
+  ``xla_order_cumsum``'s order, and EI/OC are pairwise trees
+  (``_tree_sum``), so on the same device the kernel's lanes are its lanes.
+  Every step depends only on the row's own values, never on the padded
+  width ``lmax``: a row vets the same alone or in a launch padded to
+  ``MAX_LMAX``.
 
 As in the reference kernel, the index sums ``sx1``/``sxx1`` are evaluated
 in f32 with the reference's expression order (``kernel.py:191-194``), not
@@ -34,21 +38,20 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from ...core.changepoint import segment_sse_terms
+from ...core.changepoint import (segment_sse_terms, xla_order_cumsum,
+                                 xla_order_log)
 from .. import runtime
 
-__all__ = ["BLOCK_ROWS", "LANES", "LAUNCHES", "MAX_LMAX", "block_scan",
-           "fused_window_vet",
-           "fused_window_vet_plain", "fused_window_vet_scan", "launch_inputs",
-           "staged_bytes"]
+__all__ = ["BLOCK_ROWS", "LANES", "LAUNCHES", "MAX_LMAX", "WARP_MAX_LMAX",
+           "fused_window_vet", "fused_window_vet_plain",
+           "fused_window_vet_scan", "kernel_path", "launch_inputs",
+           "sorted_scans", "staged_bytes"]
 
 BLOCK_ROWS = 8  # rows pad to a power of two at least this large
 LANES = 8  # output lanes per row: [vet, ei, oc, pr, t, n, 0, 0]
 MAX_LMAX = 4096  # longest padded window the CUDA kernel takes
-MAX_THREADS = 1024  # threads per block of the kernel (windowvet.cu)
-_WARP = 32
+WARP_MAX_LMAX = 512  # widest launch of the kernel's warp path (windowvet.cu)
 _TINY = 1e-12  # log-space floor, as core.vet._TINY
 
 # Kernel launches issued by ``fused_window_vet_scan`` on CUDA tensors.
@@ -70,43 +73,44 @@ def staged_bytes(arena_len: int, rows: int, max_len: int) -> int:
     return 4 * _pow2(int(arena_len) + lmax) + 4 * 4 * rows_p
 
 
-def _warp_scan(v: torch.Tensor) -> torch.Tensor:
-    """Inclusive scan over the last dimension (32 lanes) in the order of a
-    ``__shfl_up_sync`` ladder: lane ``l`` adds lane ``l - d`` for
-    d = 1, 2, 4, 8, 16."""
-    lane = torch.arange(_WARP, device=v.device)
-    d = 1
-    while d < _WARP:
-        v = torch.where(lane >= d, v + F.pad(v[..., :-d], (d, 0)), v)
-        d *= 2
-    return v
+def kernel_path(lmax: int) -> str:
+    """The kernel's path for a launch of width ``lmax``: ``"warp"`` (one
+    warp per row, the row in registers) up to ``WARP_MAX_LMAX``, else
+    ``"block"`` (one block per row)."""
+    return "warp" if lmax <= WARP_MAX_LMAX else "block"
 
 
-def block_scan(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum over the last dimension of ``x`` (rows, lmax),
-    adding in the order of the kernel's block scan: each of
-    ``max(32, min(MAX_THREADS, lmax))`` threads sums a contiguous chunk
-    serially, a warp ladder scans the chunk totals, one warp scans the warp
-    totals, and every element gets its offsets added last."""
-    rows, lmax = x.shape
-    nt = max(_WARP, min(MAX_THREADS, lmax))
-    chunk = max(1, lmax // nt)
-    cols = x.reshape(rows, -1, chunk) if lmax >= nt else \
-        F.pad(x, (0, nt - lmax)).reshape(rows, nt, 1)
-    acc = torch.zeros_like(cols[:, :, 0])
-    local = []
-    for j in range(chunk):
-        acc = acc + cols[:, :, j]
-        local.append(acc)
-    local = torch.stack(local, dim=-1)  # (rows, nt, chunk)
-    nw = nt // _WARP
-    inc = _warp_scan(acc.reshape(rows, nw, _WARP))
-    excl = F.pad(inc[..., :-1], (1, 0))  # lane 0 starts at 0
-    warp_inc = _warp_scan(F.pad(inc[..., -1], (0, _WARP - nw)))
-    warp_excl = F.pad(warp_inc[..., :-1], (1, 0))[:, :nw, None]
-    first = torch.arange(nw, device=x.device)[:, None] == 0
-    ex = torch.where(first, excl, warp_excl + excl).reshape(rows, nt, 1)
-    return (local + ex).reshape(rows, -1)[:, :lmax]
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dimension (a power of two) as a balanced pairwise
+    tree: neighbours first, then pairs of pairs.  The zeros past a row's
+    end only add to zero or to the row's own total, so the sum is the same
+    at any padded width; the kernel adds in this order."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def sorted_scans(arena, starts, lengths, *, lmax: int,
+                 log_space: bool = True):
+    """The plain version up to its prefix sums, batched over rows.
+
+    Returns ``(mask, y, z, cy, cyy, cxy)``, each (rows, lmax): the valid
+    positions, the sorted row (+inf past n), its log (``xla_order_log`` of
+    ``max(y, 1e-12)``; y itself when not ``log_space``), and the inclusive
+    prefix sums (``xla_order_cumsum``) of ``zm = z - z[(n-1)//2]``,
+    ``zm^2`` and ``k * zm`` (zero past n).
+    """
+    iota = torch.arange(lmax, device=arena.device)
+    n = lengths.to(torch.int64)[:, None]
+    mask = iota < n
+    y = arena[starts.to(torch.int64)[:, None] + iota]
+    y = torch.sort(torch.where(mask, y, torch.inf), dim=-1).values
+    z = xla_order_log(torch.clamp(y, min=_TINY)) if log_space else y
+    pivot = torch.gather(torch.where(mask, z, 0.0), 1, (n - 1) // 2)
+    zm = torch.where(mask, z - pivot, 0.0)
+    kf = (iota + 1).to(torch.float32)
+    cy, cyy, cxy = xla_order_cumsum(torch.stack([zm, zm * zm, kf * zm]))
+    return mask, y, z, cy, cyy, cxy
 
 
 def fused_window_vet_plain(arena, starts, lengths, pr, *, lmax: int,
@@ -118,18 +122,10 @@ def fused_window_vet_plain(arena, starts, lengths, pr, *, lmax: int,
     Returns (rows, LANES) f32.
     """
     dev = arena.device
-    iota = torch.arange(lmax, device=dev)
+    mask, y, _, cy, cyy, cxy = sorted_scans(arena, starts, lengths,
+                                            lmax=lmax, log_space=log_space)
     n = lengths.to(torch.int64)[:, None]
-    mask = iota < n
-    y = arena[starts.to(torch.int64)[:, None] + iota]
-    y = torch.sort(torch.where(mask, y, torch.inf), dim=-1).values
-    z = torch.log(torch.clamp(y, min=_TINY)) if log_space else y
-    pivot = torch.gather(torch.where(mask, z, 0.0), 1, (n - 1) // 2)
-    zm = torch.where(mask, z - pivot, 0.0)
-    kf = (iota + 1).to(torch.float32)
-    cy = block_scan(zm)
-    cyy = block_scan(zm * zm)
-    cxy = block_scan(kf * zm)
+    kf = torch.arange(1, lmax + 1, device=dev, dtype=torch.float32)
     tot_y, tot_yy, tot_xy = (torch.gather(c, 1, n - 1) for c in (cy, cyy, cxy))
 
     nf = n.to(torch.float32)
@@ -150,11 +146,11 @@ def fused_window_vet_plain(arena, starts, lengths, pr, *, lmax: int,
     i = torch.clamp(tb - 1, min=torch.ones_like(n), max=n - 1)
     anchor = torch.gather(y, 1, i)
     slope = torch.clamp(anchor - torch.gather(y, 1, i - 1), min=0.0)
-    rank = iota + 1
+    rank = torch.arange(1, lmax + 1, device=dev)
     prefix = rank <= tb
     g = torch.minimum(anchor + slope * (rank - tb).to(torch.float32), y)
-    ei = torch.where(mask, torch.where(prefix, y, g), 0.0).sum(dim=1)
-    oc = torch.where(mask, torch.where(prefix, 0.0, y - g), 0.0).sum(dim=1)
+    ei = _tree_sum(torch.where(mask, torch.where(prefix, y, g), 0.0))
+    oc = _tree_sum(torch.where(mask, torch.where(prefix, 0.0, y - g), 0.0))
     zero = torch.zeros_like(ei)
     return torch.stack([pr / ei, ei, oc, pr, tb[:, 0].to(torch.float32),
                         nf[:, 0], zero, zero], dim=1)
@@ -178,7 +174,9 @@ def fused_window_vet_scan(arena, starts, lengths, pr, *, lmax: int,
 
     Same contract as ``fused_window_vet_plain``; ``lmax`` must be a power of
     two in ``[8, MAX_LMAX]`` covering every length.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel without synchronising.
+    plain version; CUDA tensors launch the kernel without synchronising, on
+    its warp path up to ``WARP_MAX_LMAX`` and its block path above
+    (``kernel_path``).
     """
     if arena.device.type == "cpu":
         return fused_window_vet_plain(arena, starts, lengths, pr, lmax=lmax,

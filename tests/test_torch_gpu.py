@@ -6,8 +6,9 @@ no CUDA device is present.  Run on a card with
 
 Tolerances: the change-point kernel's cuts and landscape equal the plain
 twin's exactly (the same f32 operations in the same order, no
-contraction); windowvet windows whose cut agrees agree to 1e-5, and a
-differing cut must be a near-tie (1e-4 relative on the plain landscape).  SSD and flash attention take the reference
+contraction); the window-vet kernel's cuts equal the plain version's on
+every row, its other lanes agree to 1e-5, and a row's lanes are the same
+alone and padded to 4096.  SSD and flash attention take the reference
 suite's tolerances (tests/test_kernels.py): SSD 2e-4 in f32 and 5e-2 in
 bf16, attention 2e-5 in f32 and 2e-2 in bf16; model prefill logits 1e-4.
 """
@@ -105,23 +106,47 @@ def test_cuda_mux_tick_makes_one_changepoint_launch(cuda):
             ((1 if k >= 3 else 0), 1)
 
 
-@pytest.mark.parametrize("lengths", [np.tile([64, 128, 192], 100),
-                                     np.arange(2, 4001, 97),
-                                     np.tile([2, 3, 4, 5], 4)],
-                         ids=["ragged", "long", "degenerate"])
-def test_windowvet_kernel_matches_plain(cuda, lengths):
+WINDOWVET_CASES = {
+    # name: lengths of the rows, packed end to end (lmax = pow2(longest))
+    "ragged": np.tile([64, 128, 192], 100),  # warp path, lmax 256
+    "degenerate": np.tile([2, 3, 4, 5], 4),  # warp path, lmax 8
+    "warp_lmax32": np.arange(2, 33),  # one value per lane
+    "warp_lmax512": np.random.default_rng(3).integers(2, 513, 300),
+    "block_lmax1024": np.random.default_rng(4).integers(2, 1025, 300),
+    "long": np.arange(2, 4001, 97),  # block path, lmax 4096
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOWVET_CASES))
+def test_windowvet_kernel_matches_plain(cuda, case):
+    """Every row's cut equals the plain version's, and the other lanes
+    agree to 1e-5 (the same f32 operations in the same order: they are
+    expected bit for bit), on both paths and at the limit between them."""
+    lengths = WINDOWVET_CASES[case]
     starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
     arena = rows(1, int(lengths.sum()), seed=3)[0]
     tensors, lmax, _, _ = wv.launch_inputs(arena, starts, lengths, cuda)
+    assert lmax == max(8, 1 << int(lengths.max() - 1).bit_length())
     before = wv.LAUNCHES
     got = wv.fused_window_vet_scan(*tensors, lmax=lmax)[:lengths.size].cpu()
     want = wv.fused_window_vet_plain(*tensors, lmax=lmax)[:lengths.size].cpu()
     assert wv.LAUNCHES == before + 1
-    same = got[:, 4] == want[:, 4]
-    torch.testing.assert_close(got[same], want[same], rtol=1e-5, atol=0)
-    for i in torch.nonzero(~same).flatten().tolist():
-        w = np.sort(arena[starts[i]:starts[i] + lengths[i]])
-        assert near_tie(np.log(w), int(got[i, 4]), int(want[i, 4]))
+    assert torch.equal(got[:, 4], want[:, 4])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n", [2, 33, 100, 256, 512, 700, 2049])
+def test_windowvet_row_alone_equals_the_row_padded_to_4096(cuda, n):
+    """A row vetted alone (lmax = pow2(n), the warp path up to 512) gives
+    the same lanes as in a launch padded to 4096 (the block path)."""
+    arena = rows(1, 3 * wv.MAX_LMAX, seed=5)[0]
+    alone, lmax1, _, _ = wv.launch_inputs(arena, [17], [n], cuda)
+    padded, lmax2, _, _ = wv.launch_inputs(arena, [17, 0], [n, wv.MAX_LMAX],
+                                           cuda)
+    assert lmax2 == wv.MAX_LMAX
+    a = wv.fused_window_vet_scan(*alone, lmax=lmax1)[0].cpu()
+    b = wv.fused_window_vet_scan(*padded, lmax=lmax2)[0].cpu()
+    assert torch.equal(a, b), (a, b)
 
 
 def test_cuda_engine_matches_torch_engine(cuda):
