@@ -7,7 +7,7 @@ once more with ``-Xptxas -v``: their kernels' registers and spills, none
 allowed in the flash, SSD and window-vet kernels, and the tensor-core
 instructions of the flash and SSD kernels from ``cuobjdump -sass`` (HGMMA
 required in flash, HMMA in SSD) print on the ``compiled`` line) and drives
-the port's main paths on one GPU, in six phases:
+the port's main paths on one GPU, in seven phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with CUDA-event times, bounds and,
@@ -50,7 +50,24 @@ the port's main paths on one GPU, in six phases:
    own cache; the greedy tokens of the first decode steps must be equal; the
    reduced config's prefill on the card is held against the CPU.  One
    prefill and a few decode steps are traced with ``torch.profiler`` for
-   device time by kernel.
+   device time by kernel;
+7. ``transport`` — the ``fleet_fused`` fleet as
+   ``TransportVetMux(2, engine=VetEngine("cuda", buckets=64))``: two
+   spawned shard workers, each with its own CUDA context, launch the
+   window-vet and change-point kernels (the driver's own counters must
+   stay 0).  Every tick's schedule, counters, flags and newest rows, and
+   every stream's retained rows, must equal an in-process
+   ``ShardedVetMux(2)`` on the same card bit for bit; the rows are held to
+   the plain sharded fleet under the contract below.  A traced pass must
+   show one fused ``cuda`` dispatch per worker per tick and one
+   change-point call per worker per monitored tick; a pass with shard 0's
+   worker killed in the middle of tick 5 must give the same rows with one
+   respawn.  Then ``serve`` (the ``serve`` phase's model and sizes) with
+   ``transport=True, tune=True, shards=2`` must give the plain serve's
+   tokens and window count, no respawn, and a tuner report naming a
+   ``tick_budget``.  Prints tick ms (transport, in-process, plain), round
+   trips per shard, host ms by span and the workers' device bytes
+   (``torch.cuda.mem_get_info`` from the driver).
 
 Every engine result is held against the ``torch`` backend (the plain path)
 on the card under the near-tie contract: where the change-point agrees,
@@ -95,7 +112,7 @@ TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 RTOL = 1e-5  # vet/ei/oc/pr where the cut agrees
 GAP = 1e-4  # relative SSE gap allowed between two near-tie cuts
 PHASES = ("kernels", "job", "fleet_fused", "fleet_gather", "serve",
-          "serve_attn")
+          "serve_attn", "transport")
 SSD_RTOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py TestSSD
 # tests/test_kernels.py TestFlashAttention
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1162,6 +1179,279 @@ def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
             "reduced_vs_cpu": small}
 
 
+# ------------------------------------------------------------- transport
+FIELDS = ("vet", "ei", "oc", "pr", "t", "n")
+
+
+def fleet_records(sids, window_of, ticks, seed0: int = 1000):
+    """The ``fleet_fused`` records and per-tick chunks (window records a
+    tick per stream, ``simulate_records`` seeded 1000 + stream)."""
+    from repro_torch.profiling import simulate_records
+    records = [simulate_records(ticks * window_of(sid), seed=seed0 + sid).times
+               for sid in sids]
+    chunks = [[r[k * window_of(sid):(k + 1) * window_of(sid)]
+               for k in range(ticks)] for sid, r in zip(sids, records)]
+    return records, chunks
+
+
+def drive_sharded(fleet, specs, chunks, ticks, tracer=None):
+    """Register, feed and tick a sharded or transport fleet; per tick its
+    schedule, counters, flags and every stream's newest-window row (host
+    scalars), the tick's wall s (feed + tick + synchronize), the card's
+    free bytes after it, and, under ``tracer``, the tick's spans."""
+    import torch
+    t0 = time.perf_counter()
+    for sid, (w, s) in enumerate(specs):
+        fleet.register(sid, window=w, stride=s, capacity=4 * w)
+    setup_s = time.perf_counter() - t0
+    per_tick, secs, free, spans = [], [], [], []
+    for k in range(ticks):
+        t0 = time.perf_counter()
+        for sid in range(len(specs)):
+            fleet.feed(sid, chunks[sid][k])
+        tick = fleet.tick()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        free.append(torch.cuda.mem_get_info()[0])
+        if tracer is not None:
+            spans.append(tracer.drain())
+        newest = {sid: tuple(f(np.asarray(getattr(r, name))[-1])
+                             for name, f in zip(FIELDS, (float,) * 4
+                                                + (int,) * 2))
+                  for sid, r in tick.results.items()
+                  if r is not None and r.workers > 0}
+        per_tick.append({"serviced": dict(tick.serviced),
+                         "deferred": dict(tick.deferred),
+                         "counts": (tick.dispatches, tick.rows,
+                                    tick.padded_rows),
+                         "flags": tuple(tick.flags), "newest": newest})
+    return {"ticks": per_tick, "secs": secs, "free": free, "spans": spans,
+            "setup_s": setup_s}
+
+
+def collected(fleet, n: int) -> list:
+    """Every stream's retained rows (``collect`` across the pipe for the
+    transport fleet, the shard's stream in process otherwise)."""
+    get = getattr(fleet, "collect", None) or \
+        (lambda sid: fleet.stream(sid).collect())
+    return [get(sid) for sid in range(n)]
+
+
+def same_run(name, a, b, rows_a, rows_b) -> None:
+    """Bit for bit: every tick's schedule, counters, flags and newest rows,
+    and every stream's retained rows."""
+    for k, (x, y) in enumerate(zip(a["ticks"], b["ticks"])):
+        for key in ("serviced", "deferred", "counts", "flags", "newest"):
+            require(x[key] == y[key], f"{name} tick {k}: {key} differ")
+    for sid, (x, y) in enumerate(zip(rows_a, rows_b)):
+        require(all(np.array_equal(getattr(x, f), getattr(y, f))
+                    for f in FIELDS), f"{name}: stream {sid}'s rows differ")
+
+
+def as_fleet_ticks(run, rows) -> list:
+    """A sharded run's ticks in ``compare_fleets``' form: each tick's
+    serviced windows (in stream order) cut out of the retained rows."""
+    done = [0] * len(rows)
+    out = []
+    for t in run["ticks"]:
+        got = {f: [] for f in FIELDS[:5]}
+        index = []
+        for sid in sorted(t["serviced"]):
+            c, lo = t["serviced"][sid], done[sid]
+            for f in got:
+                got[f].append(np.asarray(getattr(rows[sid], f))[lo:lo + c])
+            index.extend((sid, lo + j) for j in range(c))
+            done[sid] += c
+        out.append({"rows": {f: np.concatenate(v) for f, v in got.items()},
+                    "index": index, "dispatches": t["counts"][0],
+                    "n_rows": t["counts"][1], "flags": t["flags"]})
+    return out
+
+
+def worker_spans(spans_per_tick, shards: int) -> dict:
+    """From a traced transport run: per tick and worker lane, the fused
+    ``cuda`` dispatches (window-vet launches) and the monitor's
+    change-point calls (``mux.anomaly``'s ``scans``), plus host ms by span
+    name summed over the run (driver spans by name, worker spans as
+    ``worker:<name>``, round trips by op)."""
+    fused = [[0] * shards for _ in spans_per_tick]
+    scans = [[0] * shards for _ in spans_per_tick]
+    host_ms = {}
+    for k, recs in enumerate(spans_per_tick):
+        for r in recs:
+            attrs = dict(r.attrs)
+            key = r.name if r.pid == 0 else "worker:" + r.name
+            if r.name.startswith("transport."):
+                key += ":" + attrs.get("op", "")
+            host_ms[key] = host_ms.get(key, 0.0) + r.dur * 1e3
+            if r.pid == 0:
+                continue
+            if r.name == "engine.dispatch":
+                require((attrs.get("backend"), attrs.get("kind"))
+                        == ("cuda", "fused"),
+                        f"transport: a worker dispatched {attrs}")
+                fused[k][r.pid - 1] += 1
+            elif r.name == "mux.anomaly":
+                scans[k][r.pid - 1] += attrs.get("scans", 0)
+    return {"fused": fused, "scans": scans,
+            "host_ms": {k: round(v, 3) for k, v in sorted(host_ms.items())}}
+
+
+def phase_transport(card: str, serve_phase=None, ticks: int = 8,
+                    shards: int = 2, streams: int = 4096, cfg=None,
+                    device: str = "cuda", batch: int = 4,
+                    prompt_len: int = 512, gen_len: int = 331) -> dict:
+    """The ``fleet_fused`` fleet in two spawned shard workers on the card
+    (``TransportVetMux``), held bit for bit to the in-process sharded fleet
+    and under the near-tie contract to the plain fleet; traced once (the
+    workers' spans), once more with shard 0's worker killed mid-tick; then
+    ``serve`` with ``transport=True, tune=True``."""
+    import torch
+    from repro_torch.engine import VetEngine
+    from repro_torch.fleet import (AnomalyMonitor, ShardedVetMux,
+                                   TransportVetMux)
+    from repro_torch.obs import Tracer
+
+    specs = [(int(w), int(w) // 2)
+             for w in np.tile([64, 128, 192], -(-streams // 3))[:streams]]
+    n = len(specs)
+    records, chunks = fleet_records(range(n), lambda sid: specs[sid][0],
+                                    ticks)
+
+    def transport(**kw):
+        return TransportVetMux(shards, engine=VetEngine("cuda", buckets=64),
+                               driver="process", **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    zero_counts()
+    t0 = time.perf_counter()
+    with transport() as fleet:
+        fleet.shard_stats  # one round trip each: both workers are up
+        spawn_s = time.perf_counter() - t0
+        run_t = drive_sharded(fleet, specs, chunks, ticks)
+        rows_t = collected(fleet, n)
+        accounts = fleet.accounts
+        stats_t = fleet.stats
+    driver_launches = read_counts()
+    require(driver_launches["windowvet"] == driver_launches["changepoint"]
+            == 0, f"transport: the driver launched kernels itself "
+                  f"{driver_launches}; they belong in the workers")
+    require(stats_t.respawns == stats_t.retries == 0,
+            f"transport: a healthy run retried {stats_t}")
+    worker_bytes = free0 - min(run_t["free"])
+
+    # The same fleet in process on the same card: bit for bit.
+    sharded = ShardedVetMux(shards, engine=VetEngine("cuda", buckets=64))
+    run_s = drive_sharded(sharded, specs, chunks, ticks)
+    same_run("transport vs in-process sharded", run_t, run_s, rows_t,
+             collected(sharded, n))
+    # The plain fleet, sharded alike, under the near-tie contract.
+    plain = ShardedVetMux(shards, engine=VetEngine("torch", buckets=64,
+                                                   fused=True))
+    run_p = drive_sharded(plain, specs, chunks, ticks)
+    summary = compare_fleets("transport", as_fleet_ticks(run_t, rows_t),
+                             as_fleet_ticks(run_p, collected(plain, n)),
+                             specs, records, 64)
+
+    # Traced: every worker's spans adopted on its lane.
+    tracer = Tracer()
+    with transport(tracer=tracer) as fleet:
+        run_tr = drive_sharded(fleet, specs, chunks, ticks, tracer=tracer)
+    seen = worker_spans(run_tr["spans"], shards)
+    require(all(f == [1] * shards for f in seen["fused"]),
+            f"transport: fused cuda dispatches per tick and worker "
+            f"{seen['fused']}, expected one each")
+    mon = AnomalyMonitor()
+    monitored = sum(1 for k in range(1, ticks + 1)
+                    if min(2 * k - 1, mon.ring) >= mon.min_points)
+    cp_per_shard = [sum(t[j] for t in seen["scans"]) for j in range(shards)]
+    require(cp_per_shard == [monitored] * shards,
+            f"transport: change-point calls per worker {cp_per_shard} != "
+            f"{monitored} monitored ticks")
+    same_run("traced transport", run_tr, run_t, [], [])
+
+    # Shard 0's worker killed in the middle of tick 5: checkpoint + journal
+    # resume, the same rows, one respawn.
+    with transport() as fleet:
+        fleet.inject_fault(0, at_tick=5, mode="mid")
+        run_f = drive_sharded(fleet, specs, chunks, ticks)
+        rows_f = collected(fleet, n)
+        acc_f = fleet.accounts
+    same_run("transport with a mid-tick kill", run_f, run_t, rows_f, rows_t)
+    require([a.respawns for a in acc_f] == [1] + [0] * (shards - 1),
+            f"transport: respawns {[a.respawns for a in acc_f]}")
+    fleet_part = {
+        "streams": n, "shards": shards, "ticks": ticks,
+        "spawn_s": spawn_s, "register_s": run_t["setup_s"],
+        "tick_ms": [s * 1e3 for s in run_t["secs"]],
+        "sharded_tick_ms": [s * 1e3 for s in run_s["secs"]],
+        "plain_tick_ms": [s * 1e3 for s in run_p["secs"]],
+        "traced_tick_ms": [s * 1e3 for s in run_tr["secs"]],
+        "fault_tick_ms": [s * 1e3 for s in run_f["secs"]],
+        "roundtrips": [{"calls": a.calls, "elapsed_s": a.elapsed_s,
+                        "ms_per_call": a.elapsed_s / a.calls * 1e3,
+                        "checkpoints": a.checkpoints} for a in accounts],
+        "fault_accounts": [a._asdict() for a in acc_f],
+        "host_ms": seen["host_ms"],
+        "worker_device_bytes": int(worker_bytes),
+        "fused_per_tick": seen["fused"], "changepoint_calls": cp_per_shard,
+        "vs_torch": summary}
+    emit({"phase": "transport.fleet", "card": card, **fleet_part})
+
+    # Serving through the transport, with the tuner.
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    cfg = cfg if cfg is not None else get_config("mamba2-130m")
+    kw = dict(batch=batch, prompt_len=prompt_len, gen_len=gen_len,
+              device=device, verbose=False)
+    base = serve(cfg, **kw)
+    torch.cuda.synchronize()
+    zero_counts()
+    res = serve(cfg, shards=shards, transport=True, tune=True, **kw)
+    torch.cuda.synchronize()
+    serve_launches = read_counts()
+    require(serve_launches["ssd"] == cfg.num_layers,
+            f"transport serve: SSD launches {serve_launches}")
+    # In the driver: the prefill's SSD launches and the whole profile's
+    # post-run vet (one change-point launch, as in the serve phase); the
+    # dashboard's window vets run in the workers.
+    require(serve_launches["windowvet"] == 0
+            and serve_launches["changepoint"] == 1,
+            f"transport serve: the driver launched {serve_launches}")
+    require(np.array_equal(res.tokens, base.tokens),
+            "transport serve: tokens differ from plain serve")
+    require(res.windows is not None
+            and res.windows.workers == base.windows.workers,
+            "transport serve: window count differs")
+    require(res.mux.respawns == 0, f"transport serve: {res.mux}")
+    best = res.tuner["best"]
+    require(best.get("tick_budget") in (8, 16, 32, 64),
+            f"transport serve: tuner report {res.tuner}")
+    def decode_tps(r):  # decode steps alone: units of 5 steps each
+        return batch * 5 * r.unit_times.size / float(r.unit_times.sum())
+
+    served = {"arch": cfg.name, "batch": batch, "prompt_len": prompt_len,
+              "gen_len": gen_len, "tokens_per_s": res.tokens_per_s,
+              "plain_tokens_per_s": base.tokens_per_s,
+              "decode_tokens_per_s": decode_tps(res),
+              "plain_decode_tokens_per_s": decode_tps(base),
+              "serve_phase_tokens_per_s": (serve_phase or {}).get(
+                  "tokens_per_s"),
+              "windows": int(res.windows.workers),
+              "mux_ticks": res.mux.ticks, "respawns": res.mux.respawns,
+              "tuner": {k: res.tuner[k] for k in
+                        ("best", "best_y", "current", "rounds", "rollbacks",
+                         "converged", "samples")}}
+    launches = {"windowvet": sum(map(sum, seen["fused"])),
+                "changepoint": sum(cp_per_shard),
+                "ssd": serve_launches["ssd"], "flash_attention": 0}
+    return {"phase": "transport", "card": card, "fleet": fleet_part,
+            "serve": served, "driver_launches": driver_launches,
+            "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1221,10 +1511,14 @@ def main(argv=None) -> int:
     if "serve_attn" in phases:
         results["serve_attn"] = phase_serve_attn(card)
         emit(results["serve_attn"])
+    if "transport" in phases:
+        results["transport"] = phase_transport(card, results.get("serve"))
+        emit(results["transport"])
 
     launches = {"changepoint": 0, "windowvet": 0, "ssd": 0,
                 "flash_attention": 0}
-    for p in ("job", "fleet_fused", "fleet_gather", "serve", "serve_attn"):
+    for p in ("job", "fleet_fused", "fleet_gather", "serve", "serve_attn",
+              "transport"):
         for k, v in results.get(p, {}).get("launches", {}).items():
             launches[k] += v
     table = []

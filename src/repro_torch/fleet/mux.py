@@ -1,6 +1,6 @@
 """VetMux: coalesce many live streams into shared batched engine dispatches.
 
-The port of ``repro_torch.fleet.mux``; its ``state_dict`` format is the
+The port of ``repro.fleet.mux``; its ``state_dict`` format is the
 reference's, key for key, so either package can continue a fleet the other
 checkpointed.
 
@@ -57,9 +57,9 @@ class MuxStats(NamedTuple):
     """Lifetime counters for one mux (``VetMux.stats``).
 
     ``retries``/``respawns`` are transport accounting
-    (the transport layer, not ported yet): an in-process mux never retries
-    or respawns anything, so they default to 0 and only the cross-process
-    driver reports non-zero values.  ``anomalies`` counts regime-shift
+    (``fleet.transport``): an in-process mux never retries or respawns
+    anything, so they default to 0 and only the cross-process driver
+    reports non-zero values.  ``anomalies`` counts regime-shift
     flags raised by the anomaly monitor (0 when monitoring is off).
     """
 
@@ -486,11 +486,15 @@ class VetMux:
                 # One monitor call for the whole tick, in registration order
                 # (the collect loop's), so flags equal observing the streams
                 # one by one; the due rings share one change-point launch.
-                with _span(self.tracer, "mux.anomaly", tid=self.trace_tid):
+                scans = self.monitor.scans
+                with _span(self.tracer, "mux.anomaly",
+                           tid=self.trace_tid) as an:
                     flags.extend(self.monitor._observe_tick(
                         [(sid, results[sid].vet, m.stream.first_retained,
                           m.tenant) for sid, m in self._members.items()
                          if results[sid] is not None]))
+                    # change-point calls this tick (0 or 1)
+                    an.set(scans=self.monitor.scans - scans)
             tick_span.set(dispatches=dispatches, rows=rows)
 
         self._dispatches += dispatches

@@ -2,8 +2,8 @@
 
 The port of ``repro.fleet.shard`` (the same placement, budget split and
 merge arithmetic; engines default to the ``cuda`` backend where the
-reference's default to ``jax``).  The process transport that the reference
-also places through ``ShardPlacer`` is not ported yet (ROADMAP A.8).
+reference's default to ``jax``).  ``fleet.transport.TransportVetMux``
+places through the same ``ShardPlacer``.
 
 A single ``VetMux`` coalesces thousands of live streams into per-tick batched
 dispatches — but it is one object on one engine, i.e. one process.  The
@@ -216,8 +216,7 @@ class ShardPlacer:
     Owns the registration census (placement records, per-shard load, and
     per-shard window-length counts) that the ``"pack"`` policy packs
     against.  ``ShardedVetMux`` (in-process shards) and
-    the reference's ``repro.fleet.transport.TransportVetMux`` (real worker
-    processes; not ported yet) both
+    ``fleet.transport.TransportVetMux`` (real worker processes) both
     place through this class, so moving a fleet across the process boundary
     reproduces the identical assignment — which is what lets the transport
     differential suite compare the two drivers shard by shard.

@@ -19,12 +19,19 @@ instead (a full-width model's weights drawn on the card, which gives other
 numbers than the CPU draw of the same seed).  The decode cache is written
 in place (``models.model``).
 
-Not in this slice: ``--transport`` (``fleet.transport``, ROADMAP A.8) and
-``--tune`` (``fleet.knobs`` and ``sched.tuner``, ROADMAP A.6/A.9).
+``transport=True`` (``--transport``) moves each shard mux into its own
+spawned worker process (``fleet.transport.TransportVetMux``: retries,
+checkpoint/resume), so the dashboard's kernels launch in the workers and
+the retained windows come back through ``collect``.  ``tune=True``
+(``--tune``) closes the loop: a ``sched.tuner.VetTuner`` drives the mux's
+``tick_budget`` knob (``fleet.knobs.mux_knob_hooks``) with each estimation
+tick's measured duration as the objective, strictly between ticks, and
+its report lands on ``ServeResult.tuner``.
 
 Usage: ``python -m repro_torch.launch.serve --arch mamba2-130m`` or
 ``--arch h2o-danube-3-4b`` (on the card; ``REPRO_TORCH_DEVICE=cpu`` and
-``--reduced`` to run on the CPU).
+``--reduced`` to run on the CPU), with ``--shards N``, ``--transport`` and
+``--tune`` as options.
 """
 
 from __future__ import annotations
@@ -39,12 +46,14 @@ import torch
 
 from ..configs import get_config
 from ..engine import BatchVetResult, VetEngine, default_engine
-from ..fleet import MuxStats, ShardedVetMux
+from ..fleet import MuxStats, ShardedVetMux, TransportVetMux
+from ..fleet.knobs import mux_knob_hooks
 from ..kernels.runtime import require_device, resolve_device
 from ..models import decode_step, init_cache, init_params, prefill
 from ..obs import LedgerReport, Tracer, format_ledger, ledger_from, write_chrome
 from ..obs.trace import timed as _timed
 from ..profiling import RecordProfiler
+from ..sched.tuner import VetTuner
 
 __all__ = ["ServeResult", "main", "serve", "serve_inputs"]
 
@@ -76,6 +85,8 @@ class ServeResult:
     unit_times: Optional[np.ndarray] = None
     # Seconds to draw the weights and prompts and place them, synchronised.
     init_s: float = 0.0
+    # The online tuner's report (``VetTuner.report()``; None unless tuned).
+    tuner: Optional[dict] = None
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -133,12 +144,18 @@ def serve(
     verbose: bool = True,
     engine: Optional[VetEngine] = None,
     shards: int = 1,
+    transport: bool = False,
+    tune: bool = False,
     tracer: Optional[Tracer] = None,
     trace_path: Optional[str] = None,
     init_device=None,
 ) -> ServeResult:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and generate
     ``gen_len`` tokens each, greedily, with the live vet dashboard.
+
+    ``transport`` runs the dashboard's ``shards`` shard muxes in worker
+    processes; ``tune`` drives their ``tick_budget`` knob with the online
+    tuner (module docstring).
 
     Raises:
         ValueError: an encoder-only config; for an SSM model, ``prompt_len``
@@ -177,78 +194,110 @@ def serve(
     # Live window snapshots: this worker's stream registered in a sharded
     # fleet mux (``shards=1`` is one local decode worker) and ticked as
     # unit-records complete, so each tick vets only the newly finished
-    # windows through the fleet's coalesced dispatch path.
-    mux = ShardedVetMux(shards,
-                        engine=(engine if engine is not None
-                                else default_engine("cuda", buckets=64,
-                                                    device=device)),
-                        tracer=tracer)
-    stream = mux.register("decode", window=_SNAPSHOT_WINDOW,
-                          stride=_SNAPSHOT_WINDOW,
-                          capacity=4 * _SNAPSHOT_WINDOW,
-                          history=_SNAPSHOT_HISTORY)
-    fed_units = 0
-    flags = []  # regime-shift flags raised live during decode
-    vet_s = 0.0  # estimation overhead, excluded from the throughput wall
+    # windows through the fleet's coalesced dispatch path.  Under
+    # ``transport`` each shard mux lives in its own worker process.
+    fleet = TransportVetMux if transport else ShardedVetMux
+    mux = fleet(shards,
+                engine=(engine if engine is not None
+                        else default_engine("cuda", buckets=64,
+                                            device=device)),
+                tracer=tracer)
+    try:
+        # (Under transport the stream lives in a worker, so register
+        # returns its shard index, not the stream.)
+        stream = mux.register("decode", window=_SNAPSHOT_WINDOW,
+                              stride=_SNAPSHOT_WINDOW,
+                              capacity=4 * _SNAPSHOT_WINDOW,
+                              history=_SNAPSHOT_HISTORY)
+        fed_units = 0
+        flags = []  # regime-shift flags raised live during decode
+        vet_s = 0.0  # estimation overhead, excluded from the throughput wall
+        # The mux's tick_budget knob driven by the online tuner, each
+        # estimation tick's measured duration the (noisy) objective sample.
+        tuner = (VetTuner(mux_knob_hooks(mux), seed=seed, noise_band=0.5,
+                          tracer=tracer) if tune else None)
 
-    def _tick():
-        for f in mux.tick().flags:
-            flags.append(f)
+        def _tick():
+            for f in mux.tick().flags:
+                flags.append(f)
+                if verbose:
+                    print(f"[serve] REGIME SHIFT {f.stream_id}: window "
+                          f"{f.onset} vet {f.pre:.2f} -> {f.post:.2f} "
+                          f"(confidence {f.confidence:.2f})")
+
+        out = [tok]
+        for i in range(gen_len - 1):
+            with prof.record():
+                logits, cache = decode_step(cfg, params, cache, tok,
+                                            prompt_len + i)
+                tok = torch.argmax(logits, dim=-1)[:, None]
+                _sync(tok)
+            out.append(tok)
+            if prof.num_records % record_unit == 0:
+                sw = _timed(tracer, "serve.vet", step=i)
+                with sw:
+                    new_units = prof.unit_times(start=fed_units)
+                    mux.feed("decode", new_units)
+                    fed_units += new_units.size
+                    _tick()
+                vet_s += sw.dur
+                if tuner is not None:
+                    # Knob write-back happens here, strictly between ticks.
+                    tuner.step(sw.dur)
+        wall = time.perf_counter() - t0 - vet_s
+        gen = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+
+        vet = ei = pr = None
+        windows = None
+        times = prof.unit_times()
+        if times.size >= 16:
+            if engine is None:
+                # the bucket count adapts to the profile size so short runs
+                # keep the bucketed estimator
+                engine = default_engine("cuda",
+                                        buckets=min(64, times.size // 4),
+                                        device=device)
+            r = engine.vet_one(times)
+            vet, ei, pr = float(r.vet), float(r.ei), float(r.pr)
             if verbose:
-                print(f"[serve] REGIME SHIFT {f.stream_id}: window "
-                      f"{f.onset} vet {f.pre:.2f} -> {f.post:.2f} "
-                      f"(confidence {f.confidence:.2f})")
-
-    out = [tok]
-    for i in range(gen_len - 1):
-        with prof.record():
-            logits, cache = decode_step(cfg, params, cache, tok,
-                                        prompt_len + i)
-            tok = torch.argmax(logits, dim=-1)[:, None]
-            _sync(tok)
-        out.append(tok)
-        if prof.num_records % record_unit == 0:
-            sw = _timed(tracer, "serve.vet", step=i)
-            with sw:
-                new_units = prof.unit_times(start=fed_units)
-                mux.feed("decode", new_units)
-                fed_units += new_units.size
+                print(f"[serve] vet={vet:.3f} EI={ei:.4f}s PR={pr:.4f}s")
+            with _timed(tracer, "serve.vet", post=True):
+                mux.feed("decode", times[fed_units:])  # trailing units
                 _tick()
-            vet_s += sw.dur
-    wall = time.perf_counter() - t0 - vet_s
-    gen = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
-
-    vet = ei = pr = None
-    windows = None
-    times = prof.unit_times()
-    if times.size >= 16:
-        if engine is None:
-            # the bucket count adapts to the profile size so short runs
-            # keep the bucketed estimator
-            engine = default_engine("cuda", buckets=min(64, times.size // 4),
-                                    device=device)
-        r = engine.vet_one(times)
-        vet, ei, pr = float(r.vet), float(r.ei), float(r.pr)
-        if verbose:
-            print(f"[serve] vet={vet:.3f} EI={ei:.4f}s PR={pr:.4f}s")
-        with _timed(tracer, "serve.vet", post=True):
-            mux.feed("decode", times[fed_units:])  # trailing units
-            _tick()
-        win = mux.stream("decode").collect()
-        if win is not None and win.workers >= 2:
-            windows = win
-            if verbose:
-                ws = " ".join(f"{v:.2f}" for v in windows.vet)
-                ms = mux.stats
-                print(f"[serve] window vets: {ws} "
-                      f"({stream.stats.vetted} vetted / "
-                      f"{stream.stats.reused} reused rows over {ms.ticks} "
-                      f"mux ticks / {ms.dispatches} dispatches / "
-                      f"{ms.anomalies} anomalies)")
+            # Transport ticks carry newest-window rows only; the retained
+            # drift history comes from the bulk path.
+            win = (mux.collect("decode") if transport
+                   else mux.stream("decode").collect())
+            if win is not None and win.workers >= 2:
+                windows = win
+                if verbose:
+                    ws = " ".join(f"{v:.2f}" for v in windows.vet)
+                    ms = mux.stats
+                    detail = (f"{ms.respawns} respawns" if transport else
+                              f"{stream.stats.vetted} vetted / "
+                              f"{stream.stats.reused} reused rows")
+                    print(f"[serve] window vets: {ws} "
+                          f"({detail} over {ms.ticks} mux ticks / "
+                          f"{ms.dispatches} dispatches / "
+                          f"{ms.anomalies} anomalies)")
+        mux_stats = mux.stats
+    finally:
+        mux.close()
     tps = batch * gen_len / wall
     if verbose:
         print(f"[serve] {batch}x{gen_len} tokens in {wall:.2f}s = {tps:.1f} "
               f"tok/s (prefill {prefill_s * 1e3:.1f} ms on {device})")
+    tuner_report = None
+    if tuner is not None:
+        tuner_report = tuner.report()
+        if verbose:
+            knobs = " ".join(f"{k}={v}"
+                             for k, v in sorted(tuner_report["best"].items()))
+            print(f"[serve] tuner: best {knobs} "
+                  f"(obj {tuner_report['best_y'] * 1e3:.2f}ms/tick over "
+                  f"{tuner_report['rounds']} rounds / "
+                  f"{tuner_report['rollbacks']} rollbacks"
+                  f"{', converged' if tuner_report['converged'] else ''})")
     ledger = None
     if tracer is not None:
         ledger = ledger_from(tracer.records)
@@ -261,13 +310,12 @@ def serve(
                       f"(load in Perfetto / chrome://tracing)")
     return ServeResult(tokens=gen, vet=vet, ei=ei, pr=pr, tokens_per_s=tps,
                        windows=windows, flags=tuple(flags), ledger=ledger,
-                       prefill_s=prefill_s, mux=mux.stats, unit_times=times,
-                       init_s=init_s)
+                       prefill_s=prefill_s, mux=mux_stats, unit_times=times,
+                       init_s=init_s, tuner=tuner_report)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The reference's command line; ``--transport`` and ``--tune`` are
-    refused with the ROADMAP item that brings them."""
+    """The reference's command line."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=4)
@@ -277,21 +325,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--shards", type=int, default=1,
                     help="partition the vet fleet across N shard muxes")
     ap.add_argument("--transport", action="store_true",
-                    help="not ported yet (ROADMAP A.8)")
+                    help="run each shard mux in its own worker process "
+                         "(retries + checkpoint/resume)")
     ap.add_argument("--tune", action="store_true",
-                    help="not ported yet (ROADMAP A.6, A.9)")
+                    help="close the loop: drive the mux tick_budget knob "
+                         "with the online VetTuner and print its best "
+                         "assignment on the dashboard")
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="trace the run and write a Chrome trace-event JSON "
                          "here (Perfetto-loadable); also prints the "
                          "optimality ledger")
-    args = ap.parse_args(argv)
-    if args.transport:
-        ap.error("--transport needs fleet.transport, not ported yet "
-                 "(ROADMAP A.8)")
-    if args.tune:
-        ap.error("--tune needs fleet.knobs and sched.tuner, not ported yet "
-                 "(ROADMAP A.6, A.9)")
-    return args
+    return ap.parse_args(argv)
 
 
 def main(argv=None) -> ServeResult:
@@ -301,6 +345,7 @@ def main(argv=None) -> ServeResult:
         cfg = cfg.reduced()
     return serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
                  gen_len=args.gen_len, shards=args.shards,
+                 transport=args.transport, tune=args.tune,
                  trace_path=args.trace)
 
 

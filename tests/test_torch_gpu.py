@@ -359,3 +359,47 @@ def test_dense_prefill_kernel_matches_plain_path(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(ck["seg0"]["k"], cp["seg0"]["k"], rtol=1e-4,
                                atol=1e-4)
+
+
+def test_transport_fleet_on_the_card_equals_the_sharded_fleet(cuda):
+    """Two spawned shard workers on the card, each with its own CUDA
+    context, against the in-process sharded fleet on the same card: the
+    same kernels on the same inputs, so rows and flags are equal bit for
+    bit; each worker's spans show one fused ``cuda`` dispatch per tick."""
+    from repro_torch.fleet import ShardedVetMux, TransportVetMux, build
+    from repro_torch.obs import Tracer
+    sc = build("mixed_windows", n_workers=12, n_ticks=5, seed=4)
+    tracer = Tracer()
+    oracle = ShardedVetMux(2, engine=VetEngine("cuda", buckets=64))
+    with TransportVetMux(2, engine=VetEngine("cuda", buckets=64),
+                         driver="process", tracer=tracer) as fleet:
+        for spec in sc.specs:
+            spec.register(fleet)
+            spec.register(oracle)
+        for event in sc.events:
+            for sid, chunk in event.chunks.items():
+                fleet.feed(sid, chunk)
+                oracle.feed(sid, chunk)
+            got, ref = fleet.tick(), oracle.tick()
+            assert got.serviced == ref.serviced and got.flags == ref.flags
+            for sid, r in ref.results.items():
+                if r is not None:
+                    assert got.results[sid].vet[-1] == r.vet[-1]
+                    assert got.results[sid].t[-1] == r.t[-1]
+        for sid in fleet.ids():
+            a, b = fleet.collect(sid), oracle.stream(sid).collect()
+            for name in ("vet", "ei", "oc", "pr", "t", "n"):
+                np.testing.assert_array_equal(getattr(a, name),
+                                              getattr(b, name))
+        assert fleet.stats.respawns == fleet.stats.retries == 0
+    fused = {}
+    for r in tracer.records:
+        attrs = dict(r.attrs)
+        if r.name == "engine.dispatch" and r.pid > 0:
+            assert (attrs["backend"], attrs["kind"]) == ("cuda", "fused")
+            fused[r.pid] = fused.get(r.pid, 0) + 1
+    # one fused launch per tick on which the shard had windows to vet
+    assert fused == {k + 1: s.dispatches
+                     for k, s in enumerate(oracle.shard_stats)}
+    assert all(s.dispatches >= len(sc.events) - 1
+               for s in oracle.shard_stats)

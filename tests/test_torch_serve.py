@@ -122,16 +122,21 @@ def test_main_parses_the_reference_flags(monkeypatch):
     assert (args.arch, args.batch, args.prompt_len, args.gen_len,
             args.reduced, args.shards, args.trace) == (
         "mamba2-130m", 3, 16, 9, True, 2, "t.json")
-    for flag in ("--transport", "--tune"):
-        with pytest.raises(SystemExit):
-            parse_args(["--arch", "mamba2-130m", flag])
+    assert (args.transport, args.tune) == (False, False)
+    args = parse_args(["--arch", "mamba2-130m", "--transport", "--tune"])
+    assert (args.transport, args.tune) == (True, True)
     seen = {}
     monkeypatch.setattr(serve_mod, "serve",
                         lambda cfg, **kw: seen.update(cfg=cfg, **kw))
     serve_mod.main(["--arch", "mamba2-130m", "--reduced", "--gen-len", "9"])
     assert seen["cfg"] == get_config("mamba2-130m").reduced()
     assert (seen["batch"], seen["prompt_len"], seen["gen_len"],
-            seen["shards"], seen["trace_path"]) == (4, 32, 9, 1, None)
+            seen["shards"], seen["trace_path"], seen["transport"],
+            seen["tune"]) == (4, 32, 9, 1, None, False, False)
+    serve_mod.main(["--arch", "mamba2-130m", "--reduced", "--shards", "2",
+                    "--transport", "--tune"])
+    assert (seen["shards"], seen["transport"], seen["tune"]) == (2, True,
+                                                                 True)
 
 
 def test_traced_serve_writes_a_valid_chrome_trace(tmp_path):
@@ -144,3 +149,43 @@ def test_traced_serve_writes_a_valid_chrome_trace(tmp_path):
     assert validate_chrome(json.loads(path.read_text())) == []
     stages = {s.stage for s in res.ledger.stages}
     assert "record.decode" in stages and "serve.vet" in stages
+
+
+@pytest.fixture(scope="module")
+def transport_result():
+    """``--transport --tune`` on two shard workers, the device from
+    ``REPRO_TORCH_DEVICE=cpu`` (inherited by the spawned workers)."""
+    from repro_torch.kernels import runtime
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(runtime.ENV_VAR, "cpu")
+        cfg = get_config("mamba2-130m").reduced()
+        return serve(cfg, batch=2, prompt_len=32, gen_len=GEN, shards=2,
+                     transport=True, tune=True, verbose=False)
+
+
+def test_transport_tune_gives_the_tokens_of_plain_serve(result,
+                                                        transport_result):
+    _, res = result
+    np.testing.assert_array_equal(transport_result.tokens, res.tokens)
+
+
+def test_transport_windows_equal_the_in_process_fleet(result,
+                                                      transport_result):
+    """The same unit times vetted in a worker give the in-process fleet's
+    window count and the port's own estimator's windows."""
+    _, res = result
+    got = transport_result
+    assert got.windows.workers == res.windows.workers == 2
+    assert got.mux.respawns == got.mux.retries == 0
+    assert got.mux.ticks == (GEN - 1) // 5 + 1 and got.mux.streams == 1
+    win = VetEngine("cuda", buckets=64, device="cpu").vet_sliding(
+        got.unit_times, window=32, stride=32)
+    np.testing.assert_array_equal(got.windows.t, win.t)
+    np.testing.assert_allclose(got.windows.vet, win.vet, rtol=1e-12, atol=0)
+
+
+def test_tune_fills_the_tuner_report(transport_result):
+    rep = transport_result.tuner
+    assert rep["best"]["tick_budget"] in (8, 16, 32, 64)
+    assert rep["current"]["tick_budget"] in (8, 16, 32, 64)
+    assert rep["rounds"] >= 1 and rep["samples"] == (GEN - 1) // 5
