@@ -59,15 +59,20 @@ the port's main paths on one GPU, in seven phases:
    every stream's retained rows, must equal an in-process
    ``ShardedVetMux(2)`` on the same card bit for bit; the rows are held to
    the plain sharded fleet under the contract below.  A traced pass must
-   show one fused ``cuda`` dispatch per worker per tick and one
-   change-point call per worker per monitored tick; a pass with shard 0's
-   worker killed in the middle of tick 5 must give the same rows with one
-   respawn.  Then ``serve`` (the ``serve`` phase's model and sizes) with
-   ``transport=True, tune=True, shards=2`` must give the plain serve's
-   tokens and window count, no respawn, and a tuner report naming a
-   ``tick_budget``.  Prints tick ms (transport, in-process, plain), round
-   trips per shard, host ms by span and the workers' device bytes
-   (``torch.cuda.mem_get_info`` from the driver).
+   show, on each worker's ``worker.tick`` spans (the change of its
+   wrappers' ``LAUNCHES`` over the tick), one fused ``cuda`` dispatch and
+   one window-vet launch per worker per tick and one change-point launch
+   per worker per monitored tick; a pass with shard 0's worker killed in
+   the middle of tick 5 must give the same rows with one respawn.  Then
+   ``serve`` (the ``serve`` phase's model and sizes, reusing that phase's
+   plain run) with ``transport=True, tune=True, shards=2``, traced, must
+   give the plain serve's tokens and window count, no respawn, windows
+   equal bit for bit to the same decode units vetted in process on the
+   card, the workers' window-vet and change-point launches equal to that
+   replay's (one window-vet launch per fused dispatch), and a tuner report
+   naming a ``tick_budget``.  Prints tick ms (transport, in-process,
+   plain), round trips per shard, host ms by span and the workers' device
+   bytes (``torch.cuda.mem_get_info`` from the driver).
 
 Every engine result is held against the ``torch`` backend (the plain path)
 on the card under the near-tie contract: where the change-point agrees,
@@ -1006,7 +1011,8 @@ def phase_serve(card: str, cfg=None, device: str = "cuda", batch: int = 4,
             "decode_units": int(res.unit_times.size),
             "peak_device_bytes": int(peak),
             "prefill_logits_max_abs_err": err, "logit_scale": scale,
-            "greedy_equal_steps": len(same), "reduced_vs_cpu": small}
+            "greedy_equal_steps": len(same), "reduced_vs_cpu": small,
+            "result": res}
 
 
 def reduced_vs_cpu(dev, arch: str = "mamba2-130m") -> dict:
@@ -1269,13 +1275,15 @@ def as_fleet_ticks(run, rows) -> list:
 
 
 def worker_spans(spans_per_tick, shards: int) -> dict:
-    """From a traced transport run: per tick and worker lane, the fused
-    ``cuda`` dispatches (window-vet launches) and the monitor's
-    change-point calls (``mux.anomaly``'s ``scans``), plus host ms by span
-    name summed over the run (driver spans by name, worker spans as
-    ``worker:<name>``, round trips by op)."""
-    fused = [[0] * shards for _ in spans_per_tick]
-    scans = [[0] * shards for _ in spans_per_tick]
+    """From a traced transport run: per tick (one group of spans) and worker
+    lane, the fused ``cuda`` dispatches and the window-vet and change-point
+    launches that the worker's own wrappers counted (its ``worker.tick``
+    spans), plus host ms by span name summed over the run (driver spans by
+    name, worker spans as ``worker:<name>``, round trips by op)."""
+    def per_lane():
+        return [[0] * shards for _ in spans_per_tick]
+
+    fused, windowvet, changepoint = per_lane(), per_lane(), per_lane()
     host_ms = {}
     for k, recs in enumerate(spans_per_tick):
         for r in recs:
@@ -1291,13 +1299,35 @@ def worker_spans(spans_per_tick, shards: int) -> dict:
                         == ("cuda", "fused"),
                         f"transport: a worker dispatched {attrs}")
                 fused[k][r.pid - 1] += 1
-            elif r.name == "mux.anomaly":
-                scans[k][r.pid - 1] += attrs.get("scans", 0)
-    return {"fused": fused, "scans": scans,
+            elif r.name == "worker.tick":
+                windowvet[k][r.pid - 1] += attrs["windowvet_launches"]
+                changepoint[k][r.pid - 1] += attrs["changepoint_launches"]
+    return {"fused": fused, "windowvet": windowvet,
+            "changepoint": changepoint,
             "host_ms": {k: round(v, 3) for k, v in sorted(host_ms.items())}}
 
 
-def phase_transport(card: str, serve_phase=None, ticks: int = 8,
+def replay_serve_windows(res, shards: int):
+    """The transport serve's decode units fed once more, one unit a tick as
+    ``serve`` feeds them, to an in-process sharded fleet on the card built
+    as ``serve`` builds its own (a fresh engine, so no cached row skips a
+    launch): its retained windows and the kernels it launched."""
+    import torch
+    from repro_torch.engine import VetEngine
+    from repro_torch.fleet import ShardedVetMux
+    from repro_torch.launch.serve import _SNAPSHOT_HISTORY, _SNAPSHOT_WINDOW
+    mux = ShardedVetMux(shards, engine=VetEngine("cuda", buckets=64))
+    mux.register("decode", window=_SNAPSHOT_WINDOW, stride=_SNAPSHOT_WINDOW,
+                 capacity=4 * _SNAPSHOT_WINDOW, history=_SNAPSHOT_HISTORY)
+    zero_counts()
+    for u in res.unit_times:
+        mux.feed("decode", np.asarray([u]))
+        mux.tick()
+    torch.cuda.synchronize()
+    return mux.stream("decode").collect(), read_counts()
+
+
+def phase_transport(card: str, base=None, ticks: int = 8,
                     shards: int = 2, streams: int = 4096, cfg=None,
                     device: str = "cuda", batch: int = 4,
                     prompt_len: int = 512, gen_len: int = 331) -> dict:
@@ -1305,7 +1335,9 @@ def phase_transport(card: str, serve_phase=None, ticks: int = 8,
     (``TransportVetMux``), held bit for bit to the in-process sharded fleet
     and under the near-tie contract to the plain fleet; traced once (the
     workers' spans), once more with shard 0's worker killed mid-tick; then
-    ``serve`` with ``transport=True, tune=True``."""
+    ``serve`` with ``transport=True, tune=True`` against ``base``, the
+    ``serve`` phase's plain run of the same model and sizes (run here when
+    that phase did not run)."""
     import torch
     from repro_torch.engine import VetEngine
     from repro_torch.fleet import (AnomalyMonitor, ShardedVetMux,
@@ -1363,13 +1395,16 @@ def phase_transport(card: str, serve_phase=None, ticks: int = 8,
     require(all(f == [1] * shards for f in seen["fused"]),
             f"transport: fused cuda dispatches per tick and worker "
             f"{seen['fused']}, expected one each")
+    require(seen["windowvet"] == seen["fused"],
+            f"transport: window-vet launches per tick and worker "
+            f"{seen['windowvet']}, expected one per fused dispatch")
     mon = AnomalyMonitor()
-    monitored = sum(1 for k in range(1, ticks + 1)
-                    if min(2 * k - 1, mon.ring) >= mon.min_points)
-    cp_per_shard = [sum(t[j] for t in seen["scans"]) for j in range(shards)]
-    require(cp_per_shard == [monitored] * shards,
-            f"transport: change-point calls per worker {cp_per_shard} != "
-            f"{monitored} monitored ticks")
+    monitored = [int(min(2 * k - 1, mon.ring) >= mon.min_points)
+                 for k in range(1, ticks + 1)]
+    require(seen["changepoint"] == [[m] * shards for m in monitored],
+            f"transport: change-point launches per tick and worker "
+            f"{seen['changepoint']}, expected one each on the monitored "
+            f"ticks {monitored}")
     same_run("traced transport", run_tr, run_t, [], [])
 
     # Shard 0's worker killed in the middle of tick 5: checkpoint + journal
@@ -1396,7 +1431,9 @@ def phase_transport(card: str, serve_phase=None, ticks: int = 8,
         "fault_accounts": [a._asdict() for a in acc_f],
         "host_ms": seen["host_ms"],
         "worker_device_bytes": int(worker_bytes),
-        "fused_per_tick": seen["fused"], "changepoint_calls": cp_per_shard,
+        "fused_per_tick": seen["fused"],
+        "windowvet_launches": seen["windowvet"],
+        "changepoint_launches": seen["changepoint"],
         "vs_torch": summary}
     emit({"phase": "transport.fleet", "card": card, **fleet_part})
 
@@ -1406,10 +1443,14 @@ def phase_transport(card: str, serve_phase=None, ticks: int = 8,
     cfg = cfg if cfg is not None else get_config("mamba2-130m")
     kw = dict(batch=batch, prompt_len=prompt_len, gen_len=gen_len,
               device=device, verbose=False)
-    base = serve(cfg, **kw)
+    reused = base is not None
+    if base is None:
+        base = serve(cfg, **kw)
     torch.cuda.synchronize()
     zero_counts()
-    res = serve(cfg, shards=shards, transport=True, tune=True, **kw)
+    tracer = Tracer()
+    res = serve(cfg, shards=shards, transport=True, tune=True, tracer=tracer,
+                **kw)
     torch.cuda.synchronize()
     serve_launches = read_counts()
     require(serve_launches["ssd"] == cfg.num_layers,
@@ -1426,9 +1467,29 @@ def phase_transport(card: str, serve_phase=None, ticks: int = 8,
             and res.windows.workers == base.windows.workers,
             "transport serve: window count differs")
     require(res.mux.respawns == 0, f"transport serve: {res.mux}")
+    # The workers' windows, bit for bit, against the same decode units
+    # vetted in process on the same card; their launches against the
+    # replay's (one window-vet launch per fused dispatch).
+    ref_windows, ref_launches = replay_serve_windows(res, shards)
+    require(all(np.array_equal(getattr(res.windows, f),
+                               getattr(ref_windows, f)) for f in FIELDS),
+            "transport serve: the workers' windows differ from the same "
+            "units vetted in process")
+    lanes = worker_spans([tracer.records], shards)
+    dispatched = sum(lanes["fused"][0])
+    require(lanes["windowvet"] == lanes["fused"]
+            and dispatched == res.mux.dispatches
+            == ref_launches["windowvet"] > 0,
+            f"transport serve: worker fused dispatches {lanes['fused']}, "
+            f"window-vet launches {lanes['windowvet']}, mux dispatches "
+            f"{res.mux.dispatches}, in-process replay {ref_launches}")
+    require(sum(lanes["changepoint"][0]) == ref_launches["changepoint"],
+            f"transport serve: worker change-point launches "
+            f"{lanes['changepoint']}, in-process replay {ref_launches}")
     best = res.tuner["best"]
     require(best.get("tick_budget") in (8, 16, 32, 64),
             f"transport serve: tuner report {res.tuner}")
+
     def decode_tps(r):  # decode steps alone: units of 5 steps each
         return batch * 5 * r.unit_times.size / float(r.unit_times.sum())
 
@@ -1437,15 +1498,18 @@ def phase_transport(card: str, serve_phase=None, ticks: int = 8,
               "plain_tokens_per_s": base.tokens_per_s,
               "decode_tokens_per_s": decode_tps(res),
               "plain_decode_tokens_per_s": decode_tps(base),
-              "serve_phase_tokens_per_s": (serve_phase or {}).get(
-                  "tokens_per_s"),
+              "plain_from": "serve phase" if reused else "this phase",
               "windows": int(res.windows.workers),
               "mux_ticks": res.mux.ticks, "respawns": res.mux.respawns,
+              "worker_windowvet_launches": lanes["windowvet"][0],
+              "worker_changepoint_launches": lanes["changepoint"][0],
               "tuner": {k: res.tuner[k] for k in
                         ("best", "best_y", "current", "rounds", "rollbacks",
                          "converged", "samples")}}
-    launches = {"windowvet": sum(map(sum, seen["fused"])),
-                "changepoint": sum(cp_per_shard),
+    launches = {"windowvet": sum(map(sum, seen["windowvet"]))
+                + sum(lanes["windowvet"][0]),
+                "changepoint": sum(map(sum, seen["changepoint"]))
+                + sum(lanes["changepoint"][0]),
                 "ssd": serve_launches["ssd"], "flash_attention": 0}
     return {"phase": "transport", "card": card, "fleet": fleet_part,
             "serve": served, "driver_launches": driver_launches,
@@ -1505,14 +1569,16 @@ def main(argv=None) -> int:
         results["fleet_gather"] = phase_fleet(card, "fleet_gather", specs, 4,
                                               64, fused=False)
         emit(results["fleet_gather"])
+    served = None  # the serve phase's ServeResult, for the transport phase
     if "serve" in phases:
         results["serve"] = phase_serve(card)
+        served = results["serve"].pop("result")
         emit(results["serve"])
     if "serve_attn" in phases:
         results["serve_attn"] = phase_serve_attn(card)
         emit(results["serve_attn"])
     if "transport" in phases:
-        results["transport"] = phase_transport(card, results.get("serve"))
+        results["transport"] = phase_transport(card, served)
         emit(results["transport"])
 
     launches = {"changepoint": 0, "windowvet": 0, "ssd": 0,

@@ -229,10 +229,6 @@ class AnomalyMonitor:
         self.confirm = max(int(confirm), 1)
         self._streams: Dict[Hashable, _StreamState] = {}
         self._raised = 0
-        # Change-point calls made (one per scan of the due rings: one kernel
-        # launch on the ``cuda`` method).  Not checkpointed: the mux reads
-        # it per tick into its ``mux.anomaly`` span.
-        self.scans = 0
 
     def __repr__(self) -> str:
         return (f"AnomalyMonitor(method={self.method!r}, ring={self.ring}, "
@@ -312,7 +308,6 @@ class AnomalyMonitor:
         # dominates the SSE.  Levels are reported back as geometric means.
         zs = [np.log(np.maximum(np.asarray(st.ring, np.float64), _TINY))
               for _, _, st in due]
-        self.scans += 1
         flags = []
         for (stream_id, tenant, st), z, t in zip(due, zs, self._argmins(zs)):
             flags.extend(self._gate(stream_id, tenant, st, z, int(t)))

@@ -486,15 +486,11 @@ class VetMux:
                 # One monitor call for the whole tick, in registration order
                 # (the collect loop's), so flags equal observing the streams
                 # one by one; the due rings share one change-point launch.
-                scans = self.monitor.scans
-                with _span(self.tracer, "mux.anomaly",
-                           tid=self.trace_tid) as an:
+                with _span(self.tracer, "mux.anomaly", tid=self.trace_tid):
                     flags.extend(self.monitor._observe_tick(
                         [(sid, results[sid].vet, m.stream.first_retained,
                           m.tenant) for sid, m in self._members.items()
                          if results[sid] is not None]))
-                    # change-point calls this tick (0 or 1)
-                    an.set(scans=self.monitor.scans - scans)
             tick_span.set(dispatches=dispatches, rows=rows)
 
         self._dispatches += dispatches

@@ -11,7 +11,10 @@ two codepaths that could drift apart.
 On the card each worker is a spawned process with its own CUDA context:
 its mux launches the window-vet kernel once per fused tick and its anomaly
 monitor the change-point kernel once per monitored tick, in the worker.
-Every reply is host values (``proto``'s module docstring).
+Those launches count in the worker's own wrapper counters (each kernel's
+``ops.LAUNCHES``), so a traced worker reports each tick's change of them
+on its ``worker.tick`` span.  Every reply is host values (``proto``'s
+module docstring).
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ from __future__ import annotations
 import os
 from typing import Any, Hashable, Optional
 
-from ...obs.trace import Tracer
+from ...kernels.changepoint import ops as _cp
+from ...kernels.windowvet import ops as _wv
+from ...obs.trace import Tracer, span
 from ..mux import VetMux
 from .proto import FAULT_EXIT, TickReply, WorkerFault
 
@@ -79,11 +84,18 @@ class ShardWorker:
                    for sid in self.mux.ids())
 
     def _op_tick(self, budget: Optional[int]) -> TickReply:
-        self.mux.budget = budget
-        try:
-            t = self.mux.tick()
-        finally:
-            self.mux.budget = None  # pressure ticks between fan-outs: unbounded
+        wv0, cp0 = _wv.LAUNCHES, _cp.LAUNCHES
+        with span(self.tracer, "worker.tick") as tick_span:
+            self.mux.budget = budget
+            try:
+                t = self.mux.tick()
+            finally:
+                # pressure ticks between fan-outs: unbounded
+                self.mux.budget = None
+            # The kernels this tick launched in this process, as the
+            # wrappers count them (0 on the CPU, where they run plain).
+            tick_span.set(windowvet_launches=_wv.LAUNCHES - wv0,
+                          changepoint_launches=_cp.LAUNCHES - cp0)
         newest = {}
         for sid, res in t.results.items():
             newest[sid] = (None if res is None or res.workers == 0 else

@@ -392,14 +392,18 @@ def test_transport_fleet_on_the_card_equals_the_sharded_fleet(cuda):
                 np.testing.assert_array_equal(getattr(a, name),
                                               getattr(b, name))
         assert fleet.stats.respawns == fleet.stats.retries == 0
-    fused = {}
+    fused, launched = {}, {}
     for r in tracer.records:
         attrs = dict(r.attrs)
         if r.name == "engine.dispatch" and r.pid > 0:
             assert (attrs["backend"], attrs["kind"]) == ("cuda", "fused")
             fused[r.pid] = fused.get(r.pid, 0) + 1
-    # one fused launch per tick on which the shard had windows to vet
-    assert fused == {k + 1: s.dispatches
-                     for k, s in enumerate(oracle.shard_stats)}
+        elif r.name == "worker.tick":
+            launched[r.pid] = (launched.get(r.pid, 0)
+                               + attrs["windowvet_launches"])
+    # one fused launch per tick on which the shard had windows to vet,
+    # as each worker's own window-vet wrapper counted it
+    assert fused == launched == {k + 1: s.dispatches
+                                 for k, s in enumerate(oracle.shard_stats)}
     assert all(s.dispatches >= len(sc.events) - 1
                for s in oracle.shard_stats)

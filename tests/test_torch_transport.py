@@ -562,9 +562,44 @@ def test_tracer_adopts_worker_spans_on_their_lanes():
             assert (attrs["backend"], attrs["kind"]) == ("cuda", "fused")
             lanes[r.pid] = lanes.get(r.pid, 0) + 1
     assert lanes == {1: 3, 2: 3}
+    # one worker.tick per shard per tick; the wrappers run plain on the
+    # CPU, so no kernel launch is counted
+    ticks = [(r.pid, dict(r.attrs)) for r in tracer.records
+             if r.name == "worker.tick"]
+    assert sorted(ticks, key=lambda t: t[0]) == \
+        [(pid, {"windowvet_launches": 0, "changepoint_launches": 0})
+         for pid in (1, 1, 1, 2, 2, 2)]
     assert tracer.process_names[1] == "shard0"
     assert any(r.name == "transport.send" and r.pid == 0
                for r in tracer.records)
+
+
+def test_worker_tick_span_counts_the_launches_of_its_tick(monkeypatch):
+    """A traced worker's ``worker.tick`` span carries the change of the
+    window-vet and change-point wrappers' ``LAUNCHES`` over that tick alone
+    (the kernels launch in the worker, so its counters are the count)."""
+    from repro_torch.kernels.changepoint import ops as cp
+    from repro_torch.kernels.windowvet import ops as wv
+    monkeypatch.setattr(wv, "LAUNCHES", 7)
+    monkeypatch.setattr(cp, "LAUNCHES", 3)
+    worker = ShardWorker(cpu_engine())
+    worker.handle("trace", True)
+    worker.handle("register", {"sid": 0, "window": 8, "stride": 4})
+    tick = worker.mux.tick
+
+    def launching_tick():  # one fused launch, and a scan on odd ticks
+        wv.LAUNCHES += 1
+        cp.LAUNCHES += wv.LAUNCHES % 2
+        return tick()
+
+    monkeypatch.setattr(worker.mux, "tick", launching_tick)
+    seen = []
+    for _ in range(3):
+        worker.handle("feed", (0, np.linspace(1e-3, 2e-3, 8)))
+        seen += [dict(r.attrs) for r in worker.handle("tick", None).spans
+                 if r.name == "worker.tick"]
+    assert seen == [{"windowvet_launches": 1, "changepoint_launches": c}
+                    for c in (0, 1, 0)]
 
 
 def test_surface_validation():
