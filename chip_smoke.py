@@ -7,7 +7,7 @@ once more with ``-Xptxas -v``: their kernels' registers and spills, none
 allowed in the flash, SSD and window-vet kernels, and the tensor-core
 instructions of the flash and SSD kernels from ``cuobjdump -sass`` (HGMMA
 required in flash, HMMA in SSD) print on the ``compiled`` line) and drives
-the port's main paths on one GPU, in seven phases:
+the port's main paths on one GPU, in eight phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with CUDA-event times, bounds and,
@@ -25,12 +25,27 @@ the port's main paths on one GPU, in seven phases:
    the plain version's cut on every row;
 2. ``job``      — the paper's post-hoc measure on a 1024-task x 65,536-record
    Hadoop job (``VetEngine("cuda").vet_batch`` and ``vet_job``);
-3. ``fleet_fused``  — a 4096-stream ``VetMux`` on the fused window-vet path;
-4. ``fleet_gather`` — a 1024-stream ``VetMux`` on the bucketed gather path.
+3. ``analysis`` — the paper's analysis layer over the ``job`` phase's rows
+   and result (drawn here when that phase did not run): ``tail_report`` of
+   every task on the card (16 held to the CPU to 1e-5), ``bucketize``,
+   ``pearson`` of vet against PR, ``ks_2samp`` of the two halves' vets
+   (Fig. 6, 8, 9, 14); ``VetController`` over 1024 workers fed
+   ``skewed_stragglers`` (window 200, 3% stragglers, 8 ticks), each tick's
+   launches held to the derived counts (one window-vet launch per
+   ``decide()`` once windows complete, one change-point launch for the
+   warm-up and per monitored tick), its decisions to the plain fused fleet
+   and to ``shards=2`` (§5.5); ``OnlineVet(window=512)`` over task 0 in
+   1024-record chunks (one change-point launch per engine dispatch, none
+   of the window-vet kernel; the plain engine's rows under the contract
+   below; ``history=8`` the same snapshots); ``run_contended_job`` at W =
+   1, 2, 4 and twice the host's cores, vetted on the card (Table 2; wall
+   times printed, not held);
+4. ``fleet_fused``  — a 4096-stream ``VetMux`` on the fused window-vet path;
+5. ``fleet_gather`` — a 1024-stream ``VetMux`` on the bucketed gather path.
    Both fleets must launch the change-point kernel exactly once per tick on
    which a ring is due, plus once per gather dispatch, and run once more
    under a tracer for the host ms of each mux span;
-5. ``serve``    — ``repro_torch.launch.serve.serve`` on full-width
+6. ``serve``    — ``repro_torch.launch.serve.serve`` on full-width
    mamba2-130m (batch 4, 512-token prompts, 331 generated tokens): the SSD
    kernel in every layer's prefill, the decode loop and its live vet
    dashboard.  Prefill logits through the kernel are held against the plain
@@ -39,7 +54,7 @@ the port's main paths on one GPU, in seven phases:
    equal, and the reduced config's prefill on the card is held against the
    same weights on the CPU.  The prefill is timed once more over 20 calls
    (CUDA events) and traced once for device time by kernel;
-6. ``serve_attn`` — the same entry point on full-width h2o-danube-3-4b
+7. ``serve_attn`` — the same entry point on full-width h2o-danube-3-4b
    (3.84 B parameters, f32, sliding window 4096; batch 2, 7,168-token
    prompts, 331 generated tokens): the flash-attention kernel in every
    layer's prefill, the in-place KV cache, decode and the dashboard.  The
@@ -51,7 +66,7 @@ the port's main paths on one GPU, in seven phases:
    reduced config's prefill on the card is held against the CPU.  One
    prefill and a few decode steps are traced with ``torch.profiler`` for
    device time by kernel;
-7. ``transport`` — the ``fleet_fused`` fleet as
+8. ``transport`` — the ``fleet_fused`` fleet as
    ``TransportVetMux(2, engine=VetEngine("cuda", buckets=64))``: two
    spawned shard workers, each with its own CUDA context, launch the
    window-vet and change-point kernels (the driver's own counters must
@@ -116,8 +131,8 @@ TF32_OPS_PER_S = 495e12
 TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 RTOL = 1e-5  # vet/ei/oc/pr where the cut agrees
 GAP = 1e-4  # relative SSE gap allowed between two near-tie cuts
-PHASES = ("kernels", "job", "fleet_fused", "fleet_gather", "serve",
-          "serve_attn", "transport")
+PHASES = ("kernels", "job", "analysis", "fleet_fused", "fleet_gather",
+          "serve", "serve_attn", "transport")
 SSD_RTOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py TestSSD
 # tests/test_kernels.py TestFlashAttention
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -795,7 +810,7 @@ def phase_job(card: str, tasks: int = 1024, records: int = 65536) -> dict:
             "records_per_s": tasks * records / batch_s,
             "peak_device_bytes": int(peak), "vet_job": job,
             "launches": launches, "vs_torch": vs_torch,
-            "vs_numpy_16": vs_numpy}
+            "vs_numpy_16": vs_numpy, "result": (m, res)}
 
 
 def run_fleet(engine, specs, chunks, ticks, trace: bool = False):
@@ -1070,6 +1085,7 @@ def device_time(fn, top: int = 8) -> dict:
                                  f"events in {wall:.1f} ms of wall time")
     return {"wall_ms": wall, "device_ms": busy,
             "idle_share": 1.0 - busy / wall,
+            "device_events": sum(k[2] for k in kernels),
             "top": [{"kernel": k[:80], "ms": t, "calls": c}
                     for t, k, c in kernels[:top]]}
 
@@ -1516,6 +1532,314 @@ def phase_transport(card: str, base=None, ticks: int = 8,
             "launches": launches}
 
 
+# ---------------------------------------------------------------- analysis
+def tail_part(m: np.ndarray, res, cpu_rows: int = 16,
+              device: str = "cuda") -> dict:
+    """Fig. 6, 8, 9 and 14 on the job: ``tail_report`` of every task on the
+    card (the first ``cpu_rows`` held to the same code on the CPU),
+    ``bucketize`` of task 0, ``pearson`` of per-task vet against PR and
+    ``ks_2samp`` of the two halves' vets."""
+    import torch
+    from repro_torch.core import bucketize, ks_2samp, pearson, tail_report
+
+    # The reference's x64-off jnp.asarray: f64 rounded once to f32.
+    rows = torch.from_numpy(m.astype(np.float32)).to(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reports = [tail_report(rows[i], device=device) for i in range(len(m))]
+    torch.cuda.synchronize()
+    tail_s = time.perf_counter() - t0
+    traced = device_time(lambda: tail_report(rows[0], device=device))
+    alphas = np.array([r.alpha for r in reports])
+    require(np.all(np.isfinite(alphas)) and np.all(alphas > 0),
+            "analysis: non-finite or non-positive Hill alpha")
+    bitwise, worst = 0, 0.0
+    for i in range(cpu_rows):
+        got, want = reports[i], tail_report(m[i], device="cpu")
+        require(got.heavy == want.heavy, f"analysis: task {i} heavy differs")
+        pairs = [(got.alpha, want.alpha), (got.emplot_slope,
+                                           want.emplot_slope),
+                 *zip(got.alpha_stable_band, want.alpha_stable_band)]
+        for a, b in pairs:
+            rel = abs(a - b) / max(abs(b), 1e-30)
+            require(rel <= RTOL, f"analysis: task {i} tail_report off by "
+                                 f"{rel:.3g} (rel) from the CPU")
+            worst = max(worst, rel)
+        bitwise += int(got.alpha == want.alpha)
+    b = bucketize(rows[0], 1000, device=device)
+    total = float(m[0].sum())
+    require(tuple(b.shape) == (1000,) and abs(float(b.double().sum()) - total)
+            <= 1e-5 * total, "analysis: bucketize loses the task's total")
+    r_card = pearson(res.vet, res.pr, device=device)
+    r_cpu = pearson(res.vet, res.pr, device="cpu")
+    require(abs(r_card - r_cpu) <= RTOL * max(abs(r_cpu), 1e-6),
+            f"analysis: pearson {r_card} on the card, {r_cpu} on the CPU")
+    half = len(res.vet) // 2
+    ks = ks_2samp(res.vet[:half], res.vet[half:])
+    require(0.0 <= ks.statistic <= 1.0 and 0.0 <= ks.pvalue <= 1.0,
+            f"analysis: ks_2samp out of range: {ks}")
+    return {"tasks": len(m), "records_per_task": int(m.shape[1]),
+            "tail_report_s": tail_s, "tail_report_traced": traced,
+            "alpha_median": float(np.median(alphas)),
+            "alpha_range": [float(alphas.min()), float(alphas.max())],
+            "heavy_tasks": int(sum(r.heavy for r in reports)),
+            "cpu_rows": cpu_rows, "cpu_alphas_bitwise": bitwise,
+            "cpu_max_rel_err": worst,
+            "bucket_sum_rel_err": abs(float(b.double().sum()) - total) / total,
+            "pearson_vet_pr": r_card, "ks_d": ks.statistic,
+            "ks_p": ks.pvalue}
+
+
+def expected_controller_launches(tick: int, window: int, monitor) -> dict:
+    """Kernel launches of the ``tick``-th feed + ``decide()`` (1-indexed)
+    when every worker gets ``window // 2`` records a tick (stride
+    ``window // 2``): one fused window-vet launch once new windows complete;
+    one change-point launch for the warm-up ``vet_many`` (one buffer length)
+    while no window is complete but 32 records are; one for the monitor
+    when the rings gained a window and hold ``min_points`` of them."""
+    stride = window // 2
+
+    def windows(k):
+        recs = k * stride
+        return 0 if recs < window else (recs - window) // stride + 1
+
+    new = windows(tick) - windows(tick - 1)
+    warm = int(windows(tick) == 0 and tick * stride >= 32)
+    due = int(new > 0 and min(windows(tick), monitor.ring)
+              >= monitor.min_points)
+    return {"windowvet": int(new > 0), "changepoint": warm + due}
+
+
+def drive_controller(ctl, scenario, count: bool = False):
+    """Feed each tick's chunks to their workers, then ``decide()``; returns
+    the decisions, ms per ``decide()``, the newest row of every worker after
+    each tick (``None`` while warming up) and, with ``count``, each tick's
+    kernel launches (feed and decide) and its KS confirmations (calls, ms)."""
+    import torch
+    from repro_torch.sched import straggler
+    workers = len(scenario.specs)
+    decisions, ms, newest, launches = [], [], [], []
+    ks_2samp = straggler.ks_2samp
+    ks = [0, 0.0]  # this tick's ks_2samp calls and seconds
+
+    def timed_ks(a, b):
+        t0 = time.perf_counter()
+        out = ks_2samp(a, b)
+        ks[0] += 1
+        ks[1] += time.perf_counter() - t0
+        return out
+
+    for event in scenario.events:
+        if count:
+            zero_counts()
+            ks[:] = [0, 0.0]
+        for sid, chunk in event.chunks.items():
+            ctl.feed(int(sid[1:]), chunk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        straggler.ks_2samp = timed_ks if count else ks_2samp
+        try:
+            decisions.append(ctl.decide())
+        finally:
+            straggler.ks_2samp = ks_2samp
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if count:
+            launches.append({**read_counts(), "ks_calls": ks[0],
+                             "ks_ms": ks[1] * 1e3})
+        rows = [ctl.mux.stream(i).collect() for i in range(workers)]
+        newest.append(None if rows[0] is None else {
+            f: np.array([np.asarray(getattr(r, f))[-1] for r in rows])
+            for f in ("vet", "ei", "oc", "pr", "t")})
+    return decisions, ms, newest, launches
+
+
+def controller_part(workers: int = 1024, window: int = 200, ticks: int = 8,
+                    frac: float = 0.03) -> dict:
+    """§5.5 at cluster scale: ``VetController`` over 1024 map slots (64
+    nodes x 16) on its default ``cuda`` engine, fed
+    ``skewed_stragglers``; held to the plain fused fleet and to
+    ``shards=2``."""
+    from repro_torch.engine import VetEngine
+    from repro_torch.fleet.scenarios import skewed_stragglers
+    from repro_torch.sched import VetController
+
+    sc = skewed_stragglers(n_workers=workers, window=window, n_ticks=ticks,
+                           straggler_frac=frac, seed=0)
+    ctl = VetController(workers, window_records=window)
+    require(ctl.engine.backend == "cuda" and ctl.engine.fused,
+            "analysis: the controller's default engine is not fused cuda")
+    got, ms, rows, launches = drive_controller(ctl, sc, count=True)
+    for k, have in enumerate(launches, 1):
+        want = expected_controller_launches(k, window, ctl.mux.monitor)
+        require({n: have[n] for n in want} == want
+                and have["ssd"] == have["flash_attention"] == 0,
+                f"analysis: controller tick {k} launched {have}, want {want}")
+    plain = VetController(workers, window_records=window,
+                          engine=VetEngine("torch", buckets=64, fused=True))
+    ref, plain_ms, ref_rows, _ = drive_controller(plain, sc)
+    stride = window // 2
+    records = {}
+
+    def records_of(i):
+        if i not in records:
+            records[i] = np.concatenate([e.chunks[f"w{i:04d}"]
+                                         for e in sc.events])
+        return records[i]
+
+    summaries = []
+    for k, (a, b) in enumerate(zip(got, ref), 1):
+        require((a.target_workers, a.stragglers, a.reason)
+                == (b.target_workers, b.stragglers, b.reason),
+                f"analysis: decision {k} differs from the plain fleet: "
+                f"{a.reason!r} {a.stragglers} vs {b.reason!r} {b.stragglers}")
+        if rows[k - 1] is None:  # warm-up: vet_many over the buffers
+            va = np.array([a.worker_vets[i] for i in range(workers)])
+            vb = np.array([b.worker_vets[i] for i in range(workers)])
+            rel = float(np.max(np.abs(va - vb) / np.abs(vb)))
+            require(rel <= RTOL, f"analysis: warm-up vets off by {rel:.3g}")
+            continue
+        lo = (k * stride - window) // stride * stride  # the newest window
+
+        def times_of(i, lo=lo):
+            return records_of(i)[lo:lo + window]
+
+        summaries.append(hold(rows[k - 1], ref_rows[k - 1], times_of, 64,
+                              f"analysis controller tick {k}"))
+    sharded = VetController(workers, window_records=window, shards=2)
+    two, _, _, _ = drive_controller(sharded, sc)
+    bitwise = []
+    for k, (a, b) in enumerate(zip(got, two), 1):
+        require((a.target_workers, a.stragglers, a.reason)
+                == (b.target_workers, b.stragglers, b.reason),
+                f"analysis: shards=2 decision {k} differs from shards=1")
+        bitwise.append(a.worker_vets == b.worker_vets)
+    injected = set(range(max(1, int(workers * frac))))
+    flagged = set().union(*(d.stragglers for d in got))
+    hit = len(flagged & injected)
+    return {"workers": workers, "window_records": window, "ticks": ticks,
+            "injected_stragglers": len(injected),
+            "flagged_stragglers": len(flagged),
+            "recall": hit / len(injected),
+            "precision": hit / len(flagged) if flagged else None,
+            "decide_ms": ms, "plain_decide_ms": plain_ms,
+            "vet_job": [d.vet_job for d in got],
+            "reasons": [d.reason for d in got],
+            "launches_per_tick": launches,
+            "vs_torch": {"cut_flips": sum(s["cut_flips"] for s in summaries),
+                         "max_abs_err_vet": max(s["max_abs_err_vet"]
+                                                for s in summaries)},
+            "shards2_vets_bitwise_per_tick": bitwise,
+            "launches": {n: sum(t[n] for t in launches)
+                         for n in read_counts()}}
+
+
+def online_part(x: np.ndarray, window: int = 512, chunk: int = 1024) -> dict:
+    """``OnlineVet`` on its default ``cuda`` engine over one 65,536-record
+    task fed in chunks: the bucketed gather path, one change-point launch
+    per engine dispatch; held to the plain engine and to ``history=8``."""
+    import torch
+    from repro_torch.core import OnlineVet
+    from repro_torch.engine import VetEngine
+
+    def feed(ov):
+        snaps = []
+        for lo in range(0, x.size, chunk):
+            snaps.extend(ov.feed(x[lo:lo + chunk]))
+        torch.cuda.synchronize()
+        return snaps
+
+    ov = OnlineVet(window=window)
+    require(ov.engine.backend == "cuda", "analysis: OnlineVet's default "
+                                         "engine is not cuda")
+    d0 = ov.engine.dispatches
+    zero_counts()
+    t0 = time.perf_counter()
+    snaps = feed(ov)
+    feed_s = time.perf_counter() - t0
+    launches = read_counts()
+    dispatches = ov.engine.dispatches - d0
+    stride = window // 2
+    want = (x.size - window) // stride + 1
+    require(len(snaps) == want, f"analysis: {len(snaps)} snapshots, "
+                                f"want {want}")
+    require(launches["changepoint"] == dispatches > 0
+            and launches["windowvet"] == 0,
+            f"analysis: OnlineVet launched {launches} over {dispatches} "
+            f"dispatches")
+    plain = OnlineVet(window=window, engine=VetEngine("torch", buckets=64))
+    ref = feed(plain)
+    require(len(ref) == len(snaps), "analysis: the plain engine emits "
+                                    f"{len(ref)} snapshots")
+    vs_torch = hold(as_rows(ov.stream.collect()),
+                    as_rows(plain.stream.collect()),
+                    lambda i: x[i * stride:i * stride + window], 64,
+                    "analysis online vs torch")
+    capped = OnlineVet(window=window, history=8,
+                       engine=VetEngine("cuda", buckets=64))
+    require(feed(capped) == snaps, "analysis: history=8 changes the "
+                                   "snapshots")
+    return {"records": int(x.size), "window": window, "chunk": chunk,
+            "snapshots": len(snaps), "dispatches": dispatches,
+            "feed_s": feed_s, "smoothed_vet": snaps[-1].smoothed_vet,
+            "vs_torch": vs_torch, "launches": launches}
+
+
+def contention_part(records: int = 300, unit: int = 5) -> dict:
+    """Paper Table 2 on this host: W concurrent record-processing tasks,
+    each vetted on the card.  Wall-clock numbers: printed, never held."""
+    from repro_torch.engine import VetEngine
+    from repro_torch.profiling import run_contended_job
+
+    eng = VetEngine("cuda", buckets=64)
+    out, launches = [], {}
+    for w in (1, 2, 4, 2 * (os.cpu_count() or 1)):
+        tasks = run_contended_job(w, records, unit=unit)
+        require(len(tasks) == w and all(t.shape == (records // unit,)
+                                        for t in tasks),
+                f"analysis: contention W={w} returned the wrong shapes")
+        zero_counts()
+        jr = eng.vet_many(tasks)
+        for k, v in read_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        require(np.all(jr.vet >= 1.0 - 1e-6), f"analysis: W={w} vet below 1")
+        out.append({"workers": w, "pr_mean_s": float(jr.pr.mean()),
+                    "ei_mean_s": float(jr.ei.mean()),
+                    "vet_job": jr.vet_job})
+    require(launches["changepoint"] == len(out),
+            f"analysis: contention launched {launches}")
+    return {"records_per_task": records, "unit": unit, "table": out,
+            "launches": launches}
+
+
+def phase_analysis(card: str, job=None, tasks: int = 1024,
+                   records: int = 65536) -> dict:
+    """The paper's analysis layer on the card: tail and stats over the
+    job (``job``: the ``job`` phase's rows and ``cuda`` result, drawn and
+    vetted here when that phase did not run), the straggler controller,
+    online vet and the contention harness."""
+    from repro_torch.engine import VetEngine
+
+    t0 = time.perf_counter()
+    if job is None:
+        m = sim_rows(tasks, records)
+        job = (m, VetEngine("cuda").vet_batch(m))
+    m, res = job
+    out = {"phase": "analysis", "card": card}
+    for name, part in (("tail", lambda: tail_part(m, res)),
+                       ("controller", controller_part),
+                       ("online", lambda: online_part(m[0])),
+                       ("contention", contention_part)):
+        t1 = time.perf_counter()
+        out[name] = part()
+        out[name]["seconds"] = time.perf_counter() - t1
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in
+                              ("controller", "online", "contention"))
+                       for k in out["online"]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1556,9 +1880,15 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         results["kernels"] = phase_kernels(card)
         emit(results["kernels"])
+    job = None  # the job phase's rows and cuda result, for analysis
     if "job" in phases:
         results["job"] = phase_job(card)
+        job = results["job"].pop("result")
         emit(results["job"])
+    if "analysis" in phases:
+        results["analysis"] = phase_analysis(card, job)
+        emit(results["analysis"])
+    del job
     if "fleet_fused" in phases:
         specs = [(w, w // 2) for w in np.tile([64, 128, 192], 1366)[:4096]]
         results["fleet_fused"] = phase_fleet(card, "fleet_fused", specs, 8,
@@ -1583,8 +1913,8 @@ def main(argv=None) -> int:
 
     launches = {"changepoint": 0, "windowvet": 0, "ssd": 0,
                 "flash_attention": 0}
-    for p in ("job", "fleet_fused", "fleet_gather", "serve", "serve_attn",
-              "transport"):
+    for p in ("job", "analysis", "fleet_fused", "fleet_gather", "serve",
+              "serve_attn", "transport"):
         for k, v in results.get(p, {}).get("launches", {}).items():
             launches[k] += v
     table = []

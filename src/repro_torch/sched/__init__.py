@@ -1,12 +1,13 @@
-"""repro_torch.sched — the online vet tuner.
+"""repro_torch.sched — vet-driven scheduling and the online vet tuner.
 
-The port of ``repro.sched``'s tuner (``sched.tuner``: ``VetTuner``, its
-SPSA and bandit pieces, the grid oracle and the scenario harnesses).
-``sched.straggler`` needs ``core.stats`` (``ks_2samp``) and waits for it
-(ROADMAP A.1); ``sched.autotune`` waits for the training stack (ROADMAP
-A.12).
+The port of ``repro.sched``: ``straggler`` (``VetController``, the paper's
+§5.5 W-rule and KS-confirmed straggler flags over one fleet mux) and
+``tuner`` (``VetTuner``, its SPSA and bandit pieces, the grid oracle and
+the scenario harnesses).  ``sched.autotune`` waits for the training stack
+(ROADMAP A.12).
 """
 
+from .straggler import SchedulerDecision, VetController
 from .tuner import (
     ElbowResult,
     FrontierPoint,
@@ -29,8 +30,10 @@ __all__ = [
     "FrontierPoint",
     "GridResult",
     "SPSAConfig",
+    "SchedulerDecision",
     "TuneCandidate",
     "TuneReport",
+    "VetController",
     "VetTuner",
     "elbow_walk",
     "evaluate_candidate",

@@ -407,3 +407,57 @@ def test_transport_fleet_on_the_card_equals_the_sharded_fleet(cuda):
                                  for k, s in enumerate(oracle.shard_stats)}
     assert all(s.dispatches >= len(sc.events) - 1
                for s in oracle.shard_stats)
+
+
+def test_tail_on_the_card_equals_the_cpu(cuda):
+    """Sorts, ``xla_order_log`` and ``xla_order_cumsum`` are fixed sequences
+    of IEEE operations: ``hill_plot`` and ``emplot`` give the CPU's bits on
+    the card; ``tail_report`` (means and sums in each device's order)
+    agrees to 1e-5."""
+    from repro_torch.core import emplot, hill_plot, tail_report
+    x = rows(1, 65536, seed=3)[0]
+    for fn in (hill_plot, emplot):
+        for a, b in zip(fn(x, device=cuda), fn(x, device="cpu")):
+            assert torch.equal(a.cpu(), b)
+    got, want = tail_report(x, device=cuda), tail_report(x, device="cpu")
+    assert got.heavy == want.heavy
+    np.testing.assert_allclose(
+        [got.alpha, got.emplot_slope, *got.alpha_stable_band],
+        [want.alpha, want.emplot_slope, *want.alpha_stable_band], rtol=1e-5)
+
+
+def test_controller_decide_is_one_windowvet_launch(cuda):
+    """``VetController`` on the fused ``cuda`` engine: one window-vet launch
+    per ``decide()`` once windows complete, the plain fused fleet's
+    decisions and worker vets."""
+    from repro_torch.fleet.scenarios import skewed_stragglers
+    from repro_torch.sched import VetController
+    sc = skewed_stragglers(n_workers=64, window=200, n_ticks=4,
+                           straggler_frac=0.1, seed=0)
+    ctl = VetController(64, engine=VetEngine("cuda", buckets=64))
+    plain = VetController(64, engine=VetEngine("torch", buckets=64,
+                                                fused=True))
+    for k, event in enumerate(sc.events):
+        for sid, chunk in event.chunks.items():
+            ctl.feed(int(sid[1:]), chunk)
+            plain.feed(int(sid[1:]), chunk)
+        before = wv.LAUNCHES
+        got, want = ctl.decide(), plain.decide()
+        assert wv.LAUNCHES - before == (1 if k > 0 else 0)
+        assert (got.target_workers, got.stragglers, got.reason) == \
+            (want.target_workers, want.stragglers, want.reason)
+        assert got.worker_vets == want.worker_vets
+
+
+def test_online_vet_launches_the_changepoint_kernel_per_dispatch(cuda):
+    from repro_torch.core import OnlineVet
+    x = rows(1, 8192, seed=5)[0]
+    eng = VetEngine("cuda", buckets=64)
+    ov = OnlineVet(window=512, engine=eng)
+    before, wv_before = cp.LAUNCHES, wv.LAUNCHES
+    snaps = []
+    for lo in range(0, x.size, 1024):
+        snaps.extend(ov.feed(x[lo:lo + 1024]))
+    assert len(snaps) == (8192 - 512) // 256 + 1
+    assert cp.LAUNCHES - before == eng.dispatches > 0
+    assert wv.LAUNCHES == wv_before
