@@ -7,7 +7,7 @@ once more with ``-Xptxas -v``: their kernels' registers and spills, none
 allowed in the flash, SSD and window-vet kernels, and the tensor-core
 instructions of the flash and SSD kernels from ``cuobjdump -sass`` (HGMMA
 required in flash, HMMA in SSD) print on the ``compiled`` line) and drives
-the port's main paths on one GPU, in eight phases:
+the port's main paths on one GPU, in nine phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with CUDA-event times, bounds and,
@@ -87,7 +87,29 @@ the port's main paths on one GPU, in eight phases:
    replay's (one window-vet launch per fused dispatch), and a tuner report
    naming a ``tick_budget``.  Prints tick ms (transport, in-process,
    plain), round trips per shard, host ms by span and the workers' device
-   bytes (``torch.cuda.mem_get_info`` from the driver).
+   bytes (``torch.cuda.mem_get_info`` from the driver);
+9. ``train`` — ``repro_torch.launch.train.train`` on full mamba2-130m
+   (128,958,336 f32 parameters; batch 8, seq_len 128, ``remat="full"``, 96
+   steps, a checkpoint every 32 into a temporary directory): once
+   uninterrupted, once cut at step 50 (``SimulatedFailure``) and resumed
+   from step 32, the resumed losses within 1e-4 (relative) of the
+   uninterrupted run's; the vet report over 19 unit records.  Every run's
+   launches are held to the derived counts: the SSD kernel twice per layer
+   and step (the forward and the backward's recompute; the backward's
+   gradients are the plain version's), the change-point kernel as the
+   report's curve asks.  One step's loss and gradients through the kernels
+   against ``plain=True`` on the same weights and batch (loss 1e-5
+   relative; every parameter's gradient present, not all zero, within
+   ``LOGIT_TOL`` of its largest plain gradient); ten steady steps timed
+   and one traced (device ms by kernel, the SSD kernel apart from the plain
+   backward's range).  Then h2o-danube-3-4b at full width with 4 of its 24
+   layers (the one cut; weights drawn on the card): batch 2, seq_len 2048,
+   4 steps, the flash kernel twice per layer and step, the same gradient
+   check; the reduced configs of both trained 4 steps on the card and on
+   the CPU from the same weights (losses within 1e-4); and
+   ``sched.autotune.tune`` on full mamba2-130m (batch 8, seq_len 64,
+   ``n_micro`` x ``q_chunk`` in (1, 2) x (32, 64), 12 steps a candidate):
+   four candidates, each with its vet.
 
 Every engine result is held against the ``torch`` backend (the plain path)
 on the card under the near-tie contract: where the change-point agrees,
@@ -132,7 +154,7 @@ TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 RTOL = 1e-5  # vet/ei/oc/pr where the cut agrees
 GAP = 1e-4  # relative SSE gap allowed between two near-tie cuts
 PHASES = ("kernels", "job", "analysis", "fleet_fused", "fleet_gather",
-          "serve", "serve_attn", "transport")
+          "serve", "serve_attn", "transport", "train")
 SSD_RTOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py TestSSD
 # tests/test_kernels.py TestFlashAttention
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1054,12 +1076,18 @@ def reduced_vs_cpu(dev, arch: str = "mamba2-130m") -> dict:
     return {"max_abs_err": err, "scale": scale}
 
 
-def device_time(fn, top: int = 8) -> dict:
+def device_time(fn, top: int = 8, ranges=(), match=()) -> dict:
     """``fn()`` under ``torch.profiler``: wall ms, the summed time of the
     device's own events (kernels and copies, not the operators that launch
-    them) and the largest by name.  Reports the profiler's error instead of
-    failing, but fails if the summed device time exceeds the wall time (a
-    count that took in more than the device's own events)."""
+    them) and the largest by name; with ``match``, the device ms and calls
+    of the kernels whose names hold each substring; with ``ranges``, for
+    each named ``record_function`` range the device ms of the kernels its
+    operators launched (``busy_ms``) and the range's span on the device's
+    timeline (``span_ms``, gaps included; the profiler draws a range there
+    as an annotation, which is kept out of the device's own events).
+    Reports the profiler's error instead of failing, but fails if the
+    summed device time exceeds the wall time (a count that took in more
+    than the device's own events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1077,17 +1105,35 @@ def device_time(fn, top: int = 8) -> dict:
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
-        if e.device_type == DeviceType.CUDA and dev_us > 0:
+        if e.device_type == DeviceType.CUDA and dev_us > 0 \
+                and e.key not in ranges:
             kernels.append((dev_us / 1e3, e.key, e.count))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
     require(busy <= wall * 1.01, f"device_time: {busy:.1f} ms of device "
                                  f"events in {wall:.1f} ms of wall time")
-    return {"wall_ms": wall, "device_ms": busy,
-            "idle_share": 1.0 - busy / wall,
-            "device_events": sum(k[2] for k in kernels),
-            "top": [{"kernel": k[:80], "ms": t, "calls": c}
-                    for t, k, c in kernels[:top]]}
+    out = {"wall_ms": wall, "device_ms": busy,
+           "idle_share": 1.0 - busy / wall,
+           "device_events": sum(k[2] for k in kernels),
+           "top": [{"kernel": k[:80], "ms": t, "calls": c}
+                   for t, k, c in kernels[:top]]}
+    if match:
+        out["matched"] = {m: {"ms": sum(t for t, k, _ in kernels if m in k),
+                              "calls": sum(c for _, k, c in kernels if m in k)}
+                          for m in match}
+    if ranges:
+        out["ranges"] = {}
+        for r in ranges:
+            cpu = [e for e in prof.events()
+                   if e.name == r and e.device_type == DeviceType.CPU]
+            span = [e for e in prof.events()
+                    if e.name == r and e.device_type == DeviceType.CUDA]
+            out["ranges"][r] = {
+                "calls": len(cpu),
+                "busy_ms": sum(e.device_time_total for e in cpu) / 1e3,
+                "span_ms": sum(e.time_range.elapsed_us()
+                               for e in span) / 1e3} if cpu else "not run"
+    return out
 
 
 def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
@@ -1840,6 +1886,348 @@ def phase_analysis(card: str, job=None, tasks: int = 1024,
     return out
 
 
+# ------------------------------------------------------------------- train
+RESUME_RTOL = 1e-4  # tests/test_substrates.py TestEndToEnd (the reference's)
+TRAIN_LOSS_RTOL = 1e-5  # one step's loss, kernel path against plain=True
+REDUCED_RTOL = 1e-4  # reduced configs' losses, card against the CPU
+
+
+def vet_one_launches(n: int, buckets, omega: int = 3) -> int:
+    """Change-point launches of one ``cuda`` engine ``vet_one`` over ``n``
+    records: the curve holds ``buckets`` points from ``4 * buckets``
+    records on, else ``n``, and the kernel runs when it holds ``2 * omega``
+    (``core.vet._cut_and_slope``)."""
+    points = buckets if buckets is not None and n >= 4 * buckets else n
+    return int(points >= 2 * omega)
+
+
+def report_launches(units: int) -> int:
+    """Change-point launches of ``train``'s end-of-run report over ``units``
+    unit records: none under 16 (no report), else one ``vet_one`` at
+    ``min(64, units // 4)`` buckets; its controller's ``decide()`` vets
+    nothing under 32 records ("insufficient data")."""
+    require(units < 32, "report_launches: derive the controller's launches")
+    return vet_one_launches(units, min(64, units // 4)) if units >= 16 else 0
+
+
+def counted(fn):
+    """``fn()`` with the launch counters zeroed just before it and read
+    just after (synchronised): (its result, the counts)."""
+    import torch
+    torch.cuda.synchronize()
+    zero_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, read_counts()
+
+
+def train_batch(cfg, batch: int, seq_len: int, dev):
+    """The trainer's first batch (seed 0, step 0) on ``dev``."""
+    import torch
+    from repro_torch.data import SyntheticTokenPipeline
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, batch, seq_len)
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in pipe.batch_at(0).items()}
+
+
+def gradient_check(cfg, params, batch, q_chunk: int = 1024,
+                   spread_on_cpu: bool = False) -> dict:
+    """One step's loss and gradients through the kernels and through
+    ``plain=True`` on the same weights and batch: the losses to 1e-5
+    relative, every leaf's kernel-path gradient present and not all zero,
+    and within ``LOGIT_TOL`` of that leaf's largest plain gradient.
+
+    ``spread_on_cpu`` also takes the plain path's gradients on the CPU: two
+    f32 orders of the same plain path, whose difference is the f32 noise
+    the model's depth amplifies (full mamba2-130m on an H100: up to 3.1e-3
+    of a leaf's largest, twice the kernel path's).  A leaf's tolerance is
+    then the larger
+    of ``LOGIT_TOL`` and that spread: the kernel path must lie as close to
+    the plain path on the card as the plain path's own two orders lie to
+    each other."""
+    import torch
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import leaves_with_paths, tree_map
+    dev = next(iter(batch.values())).device
+    runs = [("kernel", dev, False), ("plain", dev, True)]
+    if spread_on_cpu:
+        runs.append(("plain_cpu", torch.device("cpu"), True))
+    got = {}
+    for name, where, plain in runs:
+        live = tree_map(lambda t: t.detach().to(where).requires_grad_(),
+                        params)
+        named = leaves_with_paths(live)
+        b = {k: v.to(where) for k, v in batch.items()}
+        loss, _ = loss_fn(cfg, live, b, q_chunk=q_chunk, plain=plain)
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+        got[name] = (loss.item(), {n: g.to(dev) for (n, _), g in
+                                   zip(named, grads)})
+        del live, named, loss, grads
+    (lk, gk), (lp, gp) = got["kernel"], got["plain"]
+    require(np.isfinite(lk) and abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp),
+            f"train: loss through the kernels {lk} against plain {lp}")
+    worst, spread = (0.0, ""), (0.0, "")
+    for name, g in gp.items():
+        k = gk.get(name)
+        require(k is not None and bool(k.abs().max() > 0),
+                f"train: no gradient reaches {name}")
+        scale = float(g.abs().max())
+        rel = float((k - g).abs().max()) / scale
+        tol = LOGIT_TOL
+        if spread_on_cpu:
+            own = float((got["plain_cpu"][1][name] - g).abs().max()) / scale
+            spread = max(spread, (own, name))
+            tol = max(tol, own)
+        require(rel <= tol, f"train: gradient of {name} off by {rel:.3g} "
+                            f"of its largest (tolerance {tol:.3g})")
+        worst = max(worst, (rel, name))
+    out = {"leaves": len(gp), "loss_kernel": lk, "loss_plain": lp,
+           "loss_rel_err": abs(lk - lp) / abs(lp),
+           "worst_grad_rel_err": worst[0], "worst_leaf": worst[1]}
+    if spread_on_cpu:
+        out["plain_card_vs_cpu_worst"] = spread[0]
+        out["plain_card_vs_cpu_leaf"] = spread[1]
+        out["loss_plain_cpu"] = got["plain_cpu"][0]
+    return out
+
+
+def steady_steps(cfg, params, batch, steps: int, warmup: int = 2,
+                 q_chunk: int = 1024, trace: bool = False) -> dict:
+    """ms per train step over ``steps`` steps after ``warmup`` (host clock
+    over a synchronised run), and optionally one more step traced."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import init_opt_state
+    step = make_train_step(cfg, q_chunk=q_chunk)
+    opt = init_opt_state(params)
+    for _ in range(warmup):
+        params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    tokens = batch["tokens"].numel()
+    out = {"ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+           "steps": steps}
+    if trace:
+        out["traced_step"] = device_time(
+            lambda: step(params, opt, batch), top=10,
+            ranges=("ssd_scan.plain_backward",
+                    "flash_attention.plain_backward"),
+            match=("ssd_", "flash_"))
+    return out
+
+
+def train_mamba_part(dev, steps: int = 96, batch: int = 8,
+                     seq_len: int = 128, ckpt_every: int = 32,
+                     fail_at: int = 50, unit: int = 5) -> dict:
+    """Full mamba2-130m trained ``steps`` steps with checkpoints, then cut
+    at ``fail_at`` and resumed; its gradients against the plain path; its
+    steady step time and one traced step."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import SimulatedFailure, train
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("mamba2-130m")
+    layers = cfg.num_layers
+    kw = dict(steps=steps, batch=batch, seq_len=seq_len,
+              ckpt_every=ckpt_every, record_unit=unit, verbose=False,
+              device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        full, c_full = counted(lambda: train(cfg, ckpt_dir=f"{d}/full", **kw))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+
+        def cut():
+            try:
+                train(cfg, ckpt_dir=f"{d}/cut", fail_at_step=fail_at, **kw)
+            except SimulatedFailure:
+                return True
+            return False
+
+        failed, c_fail = counted(cut)
+        res, c_res = counted(lambda: train(cfg, ckpt_dir=f"{d}/cut", **kw))
+    require(failed, "train: the injected failure did not fire")
+    resumed_from = fail_at // ckpt_every * ckpt_every
+    require(res.resumed_from == resumed_from and res.final_step == steps - 1,
+            f"train: resumed from {res.resumed_from}, ended at "
+            f"{res.final_step}")
+    want = np.asarray(full.losses[resumed_from + 1:])
+    got = np.asarray(res.losses)
+    require(got.shape == want.shape and np.all(np.isfinite(got)),
+            "train: resumed losses")
+    resume_err = float(np.max(np.abs(got - want) / np.abs(want)))
+    require(resume_err <= RESUME_RTOL, f"train: resumed losses off the "
+                                       f"uninterrupted run's by {resume_err}")
+    # The synthetic tokens are uniform, so the loss falls from above
+    # ln(vocab) towards it: the last steps' mean below the first steps'.
+    losses = np.asarray(full.losses)
+    require(np.all(np.isfinite(losses))
+            and losses[-8:].mean() < losses[:8].mean(),
+            f"train: losses {losses[:8].mean()} -> {losses[-8:].mean()}")
+    units = steps // unit
+    require(full.vet is not None and np.isfinite(full.vet)
+            and full.vet >= 1.0 - 1e-6, f"train: vet {full.vet}")
+    require(full.controller_decision.reason == "insufficient data",
+            f"train: controller {full.controller_decision.reason}")
+    resumed_units = (steps - resumed_from - 1) // unit
+    expect = {
+        "full": {"ssd": 2 * layers * steps, "flash_attention": 0,
+                 "changepoint": report_launches(units), "windowvet": 0},
+        "cut": {"ssd": 2 * layers * (fail_at + 1), "flash_attention": 0,
+                "changepoint": 0, "windowvet": 0},
+        "resumed": {"ssd": 2 * layers * (steps - resumed_from - 1),
+                    "flash_attention": 0,
+                    "changepoint": report_launches(resumed_units),
+                    "windowvet": 0},
+    }
+    seen = {"full": c_full, "cut": c_fail, "resumed": c_res}
+    require(seen == expect, f"train: launches {seen}, derived {expect}")
+
+    params = tree_map(lambda t: t.to(dev),
+                      init_params(cfg, torch.Generator().manual_seed(0)))
+    b = train_batch(cfg, batch, seq_len, dev)
+    grads = gradient_check(cfg, params, b, spread_on_cpu=True)
+    steady = steady_steps(cfg, params, b, steps=10, trace=True)
+    del params
+    launches = {k: c_full[k] + c_fail[k] + c_res[k] for k in c_full}
+    return {"arch": cfg.name, "params": cfg.param_count(), "steps": steps,
+            "batch": batch, "seq_len": seq_len, "remat": "full",
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "wall_s": wall, "ms_per_step": full.phase_totals["step"] / steps
+            * 1e3, "tokens_per_s": batch * seq_len * steps
+            / full.phase_totals["step"], "phase_totals_s": full.phase_totals,
+            "peak_device_bytes": int(peak), "vet": full.vet, "ei": full.ei,
+            "pr": full.pr, "unit_records": units,
+            "controller": full.controller_decision.reason,
+            "resumed_from": res.resumed_from,
+            "resume_max_rel_err": resume_err,
+            "ssd_launches_per_step": c_full["ssd"] / steps,
+            "launches_by_run": seen, "launches": launches,
+            "gradients": grads, "steady": steady}
+
+
+def train_danube_part(dev, layers: int = 4, steps: int = 4, batch: int = 2,
+                      seq_len: int = 2048, q_chunk: int = 1024) -> dict:
+    """h2o-danube-3-4b at full width, ``layers`` of its 24 layers, trained
+    through the flash kernel with weights drawn on the card; its gradients
+    against the plain path; its steady step time."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"),
+                              num_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = counted(lambda: train(
+        cfg, steps=steps, batch=batch, seq_len=seq_len, q_chunk=q_chunk,
+        params=params, verbose=False, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    expect = {"ssd": 0, "flash_attention": 2 * layers * steps,
+              "changepoint": report_launches(steps // 5), "windowvet": 0}
+    require(counts == expect, f"train: danube launches {counts}, derived "
+                              f"{expect}")
+    losses = np.asarray(res.losses)
+    require(np.all(np.isfinite(losses)), f"train: danube losses {losses}")
+    b = train_batch(cfg, batch, seq_len, dev)
+    grads = gradient_check(cfg, params, b, q_chunk=q_chunk)
+    torch.cuda.empty_cache()
+    steady = steady_steps(cfg, params, b, steps=2, warmup=1, q_chunk=q_chunk)
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": layers, "cut": "num_layers 24 -> "
+            f"{layers}", "params": cfg.param_count(), "steps": steps,
+            "batch": batch, "seq_len": seq_len, "q_chunk": q_chunk,
+            "weights_drawn_on": "card", "losses": res.losses,
+            "ms_per_step": res.phase_totals["step"] / steps * 1e3,
+            "peak_device_bytes": int(peak),
+            "flash_launches_per_step": counts["flash_attention"] / steps,
+            "launches": counts, "gradients": grads, "steady": steady}
+
+
+def train_reduced_part(dev, steps: int = 4) -> dict:
+    """The reduced configs trained on the card and on the CPU from the same
+    seeded weights and batches: losses within ``REDUCED_RTOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    out = {}
+    for arch in ("mamba2-130m", "h2o-danube-3-4b"):
+        cfg = get_config(arch).reduced()
+        kw = dict(steps=steps, batch=2, seq_len=64, verbose=False)
+        cpu = np.asarray(train(cfg, device="cpu", **kw).losses)
+        card = np.asarray(train(cfg, device=dev, **kw).losses)
+        err = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        require(err <= REDUCED_RTOL, f"train: reduced {arch} losses card vs "
+                                     f"cpu off by {err}")
+        out[arch] = {"max_rel_err": err, "losses": card.tolist()}
+    return out
+
+
+def train_tune_part(dev, steps: int = 12) -> dict:
+    """``sched.autotune.tune`` on full mamba2-130m: four candidates, each
+    with its vet, sorted by step time; launches held to the derived."""
+    from repro_torch.configs import get_config
+    from repro_torch.sched import tune
+    cfg = get_config("mamba2-130m")
+    n_micro, q_chunk = (1, 2), (32, 64)
+    cands, counts = counted(lambda: tune(
+        cfg, batch=8, seq_len=64, steps_per_candidate=steps,
+        n_micro_options=n_micro, q_chunk_options=q_chunk, verbose=False,
+        device=dev))
+    require(len(cands) == len(n_micro) * len(q_chunk), "tune: candidates")
+    mean = [c.mean_step_s for c in cands]
+    require(mean == sorted(mean), "tune: not sorted by step time")
+    require(all(np.isfinite(c.vet) and c.vet >= 1.0 - 1e-6 for c in cands),
+            "tune: a candidate without a vet")
+    times = steps - 2  # the warm-up steps dropped
+    expect = {"ssd": sum(2 * cfg.num_layers * steps * c.knobs["n_micro"]
+                         for c in cands),
+              "flash_attention": 0, "windowvet": 0,
+              "changepoint": len(cands) * vet_one_launches(
+                  times, min(64, max(8, times // 4)))}
+    require(counts == expect, f"tune: launches {counts}, derived {expect}")
+    return {"batch": 8, "seq_len": 64, "steps_per_candidate": steps,
+            "candidates": [{**c.knobs, "ms_per_step": c.mean_step_s * 1e3,
+                            "vet": c.vet, "ei": c.ei} for c in cands],
+            "launches": counts}
+
+
+def phase_train(card: str, device: str = "cuda") -> dict:
+    """Training on the card: full mamba2-130m (train, cut and resume,
+    gradients, steady steps, a traced step), the 4-layer full-width
+    h2o-danube-3-4b through the flash kernel, the reduced configs against
+    the CPU, and the autotuner."""
+    import torch
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    out = {"phase": "train", "card": card}
+    for name, part in (("mamba", lambda: train_mamba_part(dev)),
+                       ("danube", lambda: train_danube_part(dev)),
+                       ("reduced_vs_cpu", lambda: train_reduced_part(dev)),
+                       ("tune", lambda: train_tune_part(dev))):
+        t1 = time.perf_counter()
+        out[name] = part()
+        out[name]["seconds"] = time.perf_counter() - t1
+    out["launches"] = {k: sum(out[p]["launches"][k]
+                              for p in ("mamba", "danube", "tune"))
+                       for k in out["mamba"]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1910,11 +2298,14 @@ def main(argv=None) -> int:
     if "transport" in phases:
         results["transport"] = phase_transport(card, served)
         emit(results["transport"])
+    if "train" in phases:
+        results["train"] = phase_train(card)
+        emit(results["train"])
 
     launches = {"changepoint": 0, "windowvet": 0, "ssd": 0,
                 "flash_attention": 0}
     for p in ("job", "analysis", "fleet_fused", "fleet_gather", "serve",
-              "serve_attn", "transport"):
+              "serve_attn", "transport", "train"):
         for k, v in results.get(p, {}).get("launches", {}).items():
             launches[k] += v
     table = []

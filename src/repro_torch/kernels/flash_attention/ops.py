@@ -19,6 +19,17 @@ run on the tensor cores, one block per query tile of a (b, h):
 Unlike the reference's wrapper it pads nothing: the TMA's zero fill and the
 kernel's masks cover the ragged last tile and D < 128.  ``LAUNCHES``
 counts kernel launches.
+
+**Gradients.**  On CUDA tensors of which one requires grad (with grad
+enabled), ``flash_attention`` runs through ``_FlashAttention``, a
+``torch.autograd.Function``: its forward launches the kernel and saves only
+q, k and v; its backward recomputes ``attention_plain`` from them and
+differentiates that (``runtime.plain_vjp``).  The backward is plain
+PyTorch because the reference's Pallas kernel has none (no
+``custom_vjp``; the reference trains through its jnp attention).  A
+backward kernel is redesign work for after the port (ROADMAP B).  Under
+``no_grad`` or ``inference_mode`` the kernel launches directly, as serving
+does.
 """
 
 from __future__ import annotations
@@ -69,7 +80,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     On CUDA: q, k and v are one type, float32 or bfloat16, contiguous and
     16-byte aligned on one device; D a multiple of 8 up to 128.  The kernel
-    launches on the current stream without synchronising.
+    launches on the current stream without synchronising.  Differentiable
+    on every device: on CUDA tensors that require grad the kernel's forward
+    pairs with the plain version's backward (module docstring).
 
     Raises:
         ValueError: a shape, device or layout the kernel does not take.
@@ -79,6 +92,34 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _launch(q, k, v, causal, window, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward, the plain version's gradients backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, scale)
+        return _launch(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, go):
+        causal, window, scale = ctx.mask
+        grads = runtime.plain_vjp(
+            lambda q, k, v: attention_plain(q, k, v, causal=causal,
+                                            window=window, scale=scale),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], go,
+            "flash_attention.plain_backward")
+        return (*grads, None, None, None)
+
+
+def _launch(q, k, v, causal, window, scale):
+    """Check the operands and launch the kernel on CUDA tensors."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got "
                          f"{q.device}")

@@ -25,6 +25,13 @@ rebuilds and a stale library is never loaded.  ``load_library`` returns the
 ``ctypes`` handle with every entry point's ``argtypes``/``restype`` set.
 Each entry point returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code.
+
+**Gradients.**  The reference's Pallas kernels are forward-only (no
+``custom_vjp``, no backward kernel; it trains through its jnp paths), so
+the port's kernels have no backward kernel either.  ``plain_vjp`` is the
+backward their ``torch.autograd.Function`` routes share: it recomputes the
+kernel's plain version from the saved inputs and differentiates that, the
+reference's ``remat="full"`` in kernel form.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ __all__ = [
     "ENV_VAR",
     "check",
     "default_device",
+    "plain_vjp",
     "load_library",
     "platform_default_hint",
     "require_device",
@@ -115,6 +123,21 @@ def require_device(device: torch.device) -> torch.device:
             f"device {device} requested but no CUDA device is available; "
             f"pass device='cpu' or set {ENV_VAR}=cpu to run on the CPU")
     return device
+
+
+def plain_vjp(plain_fn, inputs, needs_grad, grad_out, label: str):
+    """Input gradients of ``plain_fn(*inputs)`` against ``grad_out``: the
+    plain version recomputed from the saved ``inputs`` under autograd, one
+    gradient (or ``None``) per input as ``needs_grad`` asks.  The work runs
+    under a ``torch.profiler`` range named ``label``, so a trace sets the
+    plain backward apart from the kernel's forward."""
+    with torch.enable_grad(), torch.profiler.record_function(label):
+        ins = [t.detach().requires_grad_(bool(need))
+               for t, need in zip(inputs, needs_grad)]
+        out = plain_fn(*ins)
+        wanted = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grad_out))
+    return tuple(next(got) if need else None for need in needs_grad)
 
 
 def check(code: int, what: str) -> None:

@@ -13,6 +13,16 @@ note).
 ``ssd`` takes the model layer's conventions (``A_log``, ``D``) and
 precomputes ``-exp(A_log)`` as the reference's wrapper does.  ``LAUNCHES``
 counts the kernel's calls (each the prologue and the scan).
+
+**Gradients.**  On CUDA tensors of which one requires grad (with grad
+enabled), ``ssd_scan`` runs through ``_SsdScan``, a
+``torch.autograd.Function``: its forward launches the kernel and saves only
+the inputs; its backward recomputes ``ssd_scan_plain`` from them and
+differentiates that (``runtime.plain_vjp``).  The backward is plain PyTorch
+because the reference's Pallas kernel has none (no ``custom_vjp``; the
+reference trains through its jnp scan).  A backward kernel is redesign work
+for after the port (ROADMAP B).  Under ``no_grad`` or ``inference_mode``
+the kernel launches directly, as serving does.
 """
 
 from __future__ import annotations
@@ -84,7 +94,9 @@ def ssd_scan(x, dt, a_neg, b, c, d, *, chunk: int = 64) -> torch.Tensor:
     P and N multiples of 4, and ``smem_bytes`` within a block's limit
     (N up to 1,248 at any P, chunk and type; more at P below 32).  The
     prologue and the scan launch on the current stream without
-    synchronising.
+    synchronising.  Differentiable on every device: on CUDA tensors that
+    require grad the kernel's forward pairs with the plain version's
+    backward (module docstring).
 
     Raises:
         ValueError: ``T % chunk != 0`` (on every device), or a shape,
@@ -94,6 +106,32 @@ def ssd_scan(x, dt, a_neg, b, c, d, *, chunk: int = 64) -> torch.Tensor:
     """
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a_neg, b, c, d, chunk=chunk)
+    inputs = (x, dt, a_neg, b, c, d)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _SsdScan.apply(*inputs, chunk)
+    return _launch(*inputs, chunk)
+
+
+class _SsdScan(torch.autograd.Function):
+    """The kernel forward, the plain version's gradients backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_neg, b, c, d, chunk):
+        ctx.save_for_backward(x, dt, a_neg, b, c, d)
+        ctx.chunk = chunk
+        return _launch(x, dt, a_neg, b, c, d, chunk)
+
+    @staticmethod
+    def backward(ctx, gy):
+        chunk = ctx.chunk
+        grads = runtime.plain_vjp(
+            lambda *t: ssd_scan_plain(*t, chunk=chunk), ctx.saved_tensors,
+            ctx.needs_input_grad[:6], gy, "ssd_scan.plain_backward")
+        return (*grads, None)
+
+
+def _launch(x, dt, a_neg, b, c, d, chunk):
+    """Check the operands and launch the kernel on CUDA tensors."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda tensors, got {x.device}")
     bsz, t, h, p = x.shape

@@ -1,11 +1,12 @@
 """The model substrate, ``dense`` and ``ssm`` families (the port of
 ``repro.models``): attention (GQA / sliding window, KV cache), gated MLP
-and Mamba2 layers and blocks, stacked-layer parameters, prefill and
-decode."""
+and Mamba2 layers and blocks, stacked-layer parameters, the training
+forward and loss, prefill and decode."""
 
 from .convert import params_from_numpy
-from .model import (decode_step, embed_inputs, init_cache, init_params,
-                    prefill, segments_of)
+from .model import (decode_step, embed_inputs, forward, init_cache,
+                    init_params, loss_fn, prefill, segments_of)
 
-__all__ = ["decode_step", "embed_inputs", "init_cache", "init_params",
-           "params_from_numpy", "prefill", "segments_of"]
+__all__ = ["decode_step", "embed_inputs", "forward", "init_cache",
+           "init_params", "loss_fn", "params_from_numpy", "prefill",
+           "segments_of"]

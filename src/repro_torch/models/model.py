@@ -1,8 +1,18 @@
 """Full-model assembly for the ``dense`` and ``ssm`` families (the port of
 ``repro.models.model``): parameters stacked on a leading layer dimension
 (``params["seg0"]``, as the reference's scanned segments store them),
-embeddings and the head, the decode cache, ``prefill`` and
-``decode_step``.  Layers run in a Python loop where the reference scans.
+embeddings and the head, the full-sequence ``forward`` and ``loss_fn`` of
+training, the decode cache, ``prefill`` and ``decode_step``.  Layers run in
+a Python loop where the reference scans.
+
+``forward``'s ``remat`` maps the reference's ``jax.checkpoint`` policies
+onto ``torch.utils.checkpoint``, per layer: ``"full"`` keeps only each
+layer's input and recomputes the layer in the backward pass (on the card
+the SSD and flash kernels launch again there); ``"dots"`` also keeps the
+outputs of the plain matrix products (``aten.mm``/``addmm``, the
+reference's ``checkpoint_dots_with_no_batch_dims``) through a selective
+checkpoint; ``"none"`` keeps everything.  The gradients are the same under
+all three.
 
 Reference behaviour kept on purpose: ``prefill`` leaves the Mamba caches
 untouched (the reference does not capture the SSM state from a prompt, so
@@ -22,15 +32,18 @@ models need layers not ported yet (ROADMAP A.10).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import blocks as B
 from . import layers as L
 
-__all__ = ["decode_step", "embed_inputs", "init_cache", "init_params",
-           "prefill", "segments_of"]
+__all__ = ["decode_step", "embed_inputs", "forward", "init_cache",
+           "init_params", "loss_fn", "prefill", "segments_of"]
 
 Params = Dict[str, Any]
 
@@ -112,13 +125,101 @@ def _mask_pad_logits(cfg, logits):
     return torch.where(col < cfg.vocab_size, logits, neg)
 
 
-def _head(cfg, params, x):
+def _logits(cfg, params, x):
+    """Final norm and the (tied or own) head; the padded tail unmasked."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
-    else:
-        logits = x @ params["head"]
-    return _mask_pad_logits(cfg, logits)
+        return x @ params["embed"].T
+    return x @ params["head"]
+
+
+def _head(cfg, params, x):
+    return _mask_pad_logits(cfg, _logits(cfg, params, x))
+
+
+# Plain matrix products without batch dims: what ``remat="dots"`` keeps.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, remat: str):
+    """``body`` wrapped by the checkpoint policy ``remat`` names."""
+    if remat == "none":
+        return body
+    if remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _keep_dots))
+    raise ValueError(f"remat must be 'full', 'dots' or 'none', got {remat!r}")
+
+
+def _unstack(tree, count: int):
+    """The ``count`` layers of a stacked tree, each leaf split once
+    (``unbind``), so the backward pass stacks each leaf's layer gradients
+    in one step."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(count)]
+    return torch.unbind(tree, 0)
+
+
+def forward(cfg, params: Params, batch, *, remat: str = "full",
+            q_chunk: int = 1024, plain: bool = False):
+    """Full-sequence forward pass; returns (logits (B, S, Vp), aux loss).
+
+    The logits are unmasked over the padded vocabulary tail, as the
+    reference's are; ``loss_fn`` masks them.  ``remat`` is the per-layer
+    checkpoint policy (module docstring); ``plain=True`` runs the
+    attention's and the SSD scan's plain versions on every device, as in
+    ``prefill``.
+
+    Raises:
+        ValueError: an unknown ``remat``; a sequence length the SSD chunk
+            or the attention's query chunk does not divide.
+        NotImplementedError: a family the port does not run yet.
+    """
+    x = embed_inputs(cfg, params, batch)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (kind, count) in enumerate(segments_of(cfg)):
+        for lp in _unstack(params[f"seg{i}"], count):
+            if kind == "dense":
+                body = functools.partial(B.block_apply, lp, cfg=cfg,
+                                         q_chunk=q_chunk, plain=plain)
+                x, aux = _remat(body, remat)(x)
+                aux_total = aux_total + aux
+            else:
+                body = functools.partial(B.mamba_block_apply, lp, cfg=cfg,
+                                         plain=plain)
+                x = _remat(body, remat)(x)
+    return _logits(cfg, params, x), aux_total
+
+
+def loss_fn(cfg, params: Params, batch, *, remat: str = "full",
+            q_chunk: int = 1024, aux_weight: float = 0.01,
+            plain: bool = False):
+    """Next-token cross entropy, as the reference computes it: f32 logits,
+    the padded vocabulary tail masked to the lowest f32, ``logsumexp`` in
+    f32, labels below 0 ignored.  The label's logit is gathered, which
+    gives the value of the reference's one-hot einsum.
+
+    Returns (loss, {"ce": ce, "aux": aux}).
+    """
+    logits, aux = forward(cfg, params, batch, remat=remat, q_chunk=q_chunk,
+                          plain=plain)
+    labels = batch["labels"]  # (B, S) integer, -1 => ignore
+    lf = _mask_pad_logits(cfg, logits.float())
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg, batch: int, s_max: int, dtype=torch.float32,

@@ -3,10 +3,12 @@
 The port of ``repro.sched``: ``straggler`` (``VetController``, the paper's
 §5.5 W-rule and KS-confirmed straggler flags over one fleet mux) and
 ``tuner`` (``VetTuner``, its SPSA and bandit pieces, the grid oracle and
-the scenario harnesses).  ``sched.autotune`` waits for the training stack
-(ROADMAP A.12).
+the scenario harnesses), and ``autotune`` (``tune``, the offline grid over
+``n_micro`` x ``q_chunk`` of the training step, each candidate audited by
+vet).
 """
 
+from .autotune import tune
 from .straggler import SchedulerDecision, VetController
 from .tuner import (
     ElbowResult,
@@ -41,5 +43,6 @@ __all__ = [
     "grid_search",
     "objective_from_tick",
     "spsa_gradient",
+    "tune",
     "tune_scenario",
 ]

@@ -11,6 +11,12 @@ every row, its other lanes agree to 1e-5, and a row's lanes are the same
 alone and padded to 4096.  SSD and flash attention take the reference
 suite's tolerances (tests/test_kernels.py): SSD 2e-4 in f32 and 5e-2 in
 bf16, attention 2e-5 in f32 and 2e-2 in bf16; model prefill logits 1e-4.
+Gradients through the kernels' autograd routes: each input gradient within
+1e-4 of its largest plain-autograd gradient (the routes' backward is the
+plain version's, so the two differ only where the saved inputs do: not at
+all); a reduced model's training loss through the kernels within 1e-5
+relative of ``plain=True`` and each parameter's gradient within 1e-3 of
+its largest (the smoke's ``LOGIT_TOL`` basis).
 """
 
 import numpy as np
@@ -461,3 +467,110 @@ def test_online_vet_launches_the_changepoint_kernel_per_dispatch(cuda):
     assert len(snaps) == (8192 - 512) // 256 + 1
     assert cp.LAUNCHES - before == eng.dispatches > 0
     assert wv.LAUNCHES == wv_before
+
+
+# ------------------------------------------------ gradients through the kernels
+def grads_of(fn, inputs, w):
+    ins = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*ins)
+    return out.detach(), torch.autograd.grad((out * w).sum(), ins)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_autograd_route_launches_and_gives_plain_gradients(cuda, dtype):
+    """On inputs that require grad the forward launches the kernel once
+    (its output within the SSD tolerance of the plain version's) and the
+    input gradients are the plain version's autograd to 1e-4 of each
+    input's largest gradient."""
+    from repro_torch.kernels.ssd import ops as sd
+    from repro_torch.kernels.ssd.ref import ssd_scan_plain
+    x, dt, a_log, bb, cc, d = ssd_inputs((2, 128, 4, 16, 32), dtype, cuda)
+    inputs = (x, dt, -torch.exp(a_log), bb, cc, d)
+    w = torch.randn(x.shape, device=cuda).to(dtype)
+    before = sd.LAUNCHES
+    y, got = grads_of(lambda *t: sd.ssd_scan(*t, chunk=32), inputs, w)
+    assert sd.LAUNCHES == before + 1
+    y_p, want = grads_of(lambda *t: ssd_scan_plain(*t, chunk=32), inputs, w)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=tol, atol=tol)
+    for name, a, b in zip("x dt a_neg b c d".split(), got, want):
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 1e-4 * scale, f"{name}: {err:.3g} of {scale:.3g}"
+
+
+def test_flash_autograd_route_launches_and_gives_plain_gradients(cuda):
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.flash_attention import ops as fa
+    q, k, v = flash_inputs((2, 256, 8, 2, 64), torch.float32, cuda)
+    w = torch.randn(q.shape, device=cuda)
+    for window in (0, 100):
+        before = fa.LAUNCHES
+        _, got = grads_of(lambda *t: fa.flash_attention(*t, window=window),
+                          (q, k, v), w)
+        assert fa.LAUNCHES == before + 1
+        _, want = grads_of(lambda *t: attention_plain(*t, window=window),
+                           (q, k, v), w)
+        torch.cuda.synchronize()
+        for name, a, b in zip("qkv", got, want):
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            assert err <= 1e-4 * scale, f"{name}: {err:.3g} of {scale:.3g}"
+
+
+def test_no_grad_calls_launch_once_and_build_no_graph(cuda):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as sd
+    x, dt, a_log, bb, cc, d = ssd_inputs((1, 64, 2, 16, 16), torch.float32,
+                                         cuda)
+    q, k, v = flash_inputs((1, 64, 4, 2, 32), torch.float32, cuda)
+    leaves = [t.requires_grad_() for t in (x, q)]
+    for ctx in (torch.no_grad, torch.inference_mode):
+        s0, f0 = sd.LAUNCHES, fa.LAUNCHES
+        with ctx():
+            y = sd.ssd_scan(x, dt, -torch.exp(a_log), bb, cc, d, chunk=16)
+            o = fa.flash_attention(q, k, v)
+        assert (sd.LAUNCHES, fa.LAUNCHES) == (s0 + 1, f0 + 1)
+        assert y.grad_fn is None and o.grad_fn is None
+        assert not y.requires_grad and not o.requires_grad
+    assert all(t.grad is None for t in leaves)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "h2o-danube-3-4b"])
+def test_train_gradients_through_the_kernels_match_plain(cuda, arch, remat):
+    """The reduced model's loss and gradients through the kernels against
+    ``plain=True`` on the same card and weights (loss 1e-5 relative, each
+    leaf nonzero and within 1e-3 of its largest plain gradient), with the
+    kernel launched twice per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as sd
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.tree import leaves_with_paths, tree_map
+    cfg = get_config(arch).reduced()
+    params = tree_map(lambda t: t.to(cuda),
+                      init_params(cfg, torch.Generator().manual_seed(0)))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+             SyntheticTokenPipeline(cfg.vocab_size, 2, 64).batch_at(0).items()}
+    mod = sd if cfg.family == "ssm" else fa
+    out = {}
+    for plain in (False, True):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        named = leaves_with_paths(live)
+        before = mod.LAUNCHES
+        loss, _ = loss_fn(cfg, live, batch, remat=remat, plain=plain)
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+        out[plain] = (loss.item(), mod.LAUNCHES - before,
+                      {n: g for (n, _), g in zip(named, grads)})
+    (lk, nk, gk), (lp, np_, gp) = out[False], out[True]
+    # the forward, then the backward's recompute of each layer (the
+    # selective checkpoint keeps only the products, so the kernel reruns)
+    assert np_ == 0 and nk == 2 * cfg.num_layers
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for name, g in gp.items():
+        assert gk[name] is not None and bool(gk[name].abs().max() > 0), name
+        err = float((gk[name] - g).abs().max())
+        assert err <= 1e-3 * float(g.abs().max()), name
