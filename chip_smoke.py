@@ -7,12 +7,15 @@ once more with ``-Xptxas -v``: their kernels' registers and spills, none
 allowed in the flash, SSD and window-vet kernels, and the tensor-core
 instructions of the flash and SSD kernels from ``cuobjdump -sass`` (HGMMA
 required in flash, HMMA in SSD) print on the ``compiled`` line) and drives
-the port's main paths on one GPU, in nine phases:
+the port's main paths on one GPU, in eleven phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with CUDA-event times, bounds and,
    for flash attention, ``scaled_dot_product_attention`` on the same inputs
-   as a yardstick (timed here, never called by the port); flash attention's
+   as a yardstick (timed here, never called by the port), flash attention
+   also at the ``serve_moe`` and ``frontends`` phases' three shapes in f32
+   (deepseek-moe-16b's 16 x 128 causal, internvl2-26b's 48/8 x 128 causal,
+   hubert-xlarge's bidirectional 16 x 80); flash attention's
    and SSD's bounds are on the tensor cores (bf16 at 989 TFLOP/s, TF32 at
    495 TFLOP/s with three passes a product in f32), with SSD's bound on
    the f32 units beside it.  The change-point kernel runs five ragged batches (a
@@ -66,7 +69,39 @@ the port's main paths on one GPU, in nine phases:
    reduced config's prefill on the card is held against the CPU.  One
    prefill and a few decode steps are traced with ``torch.profiler`` for
    device time by kernel;
-8. ``transport`` — the ``fleet_fused`` fleet as
+8. ``serve_moe`` — the same entry point on deepseek-moe-16b at its
+   published widths and full depth (28 layers: a dense first layer of
+   ``d_ff`` 10944, then 27 MoE layers of 64 routed experts of 1408 and 2
+   shared, top 6; d_model 2048, 16 heads of 128, vocab 102400;
+   16,166,012,928 f32 parameters drawn on the card; batch 2, 2048-token
+   prompts, 331 generated tokens): one flash launch per layer's prefill,
+   the decode loop at capacity 1 (every expert reads its weights each
+   step) and the dashboard.  The kernel path's prefill, its routing
+   recorded (``models.layers.recording``), is held against the plain path
+   on the same weights, each with its own cache, under the routing
+   contract: where every layer routes alike, logits and KV caches within
+   ``LOGIT_TOL``; where a token's experts or an expert's tokens differ,
+   the plain path forced to the kernel path's routing must put every such
+   flip at a near-tie (1e-4 relative under its own values,
+   ``routing_flips``) and the logits and caches are held against it.  A
+   second kernel-path prefill must equal the first bit for bit (the
+   combine sums in a fixed order); greedy tokens equal for 8 decode steps;
+   the reduced config against the CPU.  Prints prefill ms, decode ms a
+   step beside the weight-read bound, tokens/s, peak bytes, the share of
+   routed slots the capacity dropped, and a traced prefill and 4 decode
+   steps;
+9. ``frontends`` — internvl2-26b at full width on 4 of its 48 layers
+   (d_model 6144, 48/8 heads of 128, ``d_ff`` 16384, untied head, vocab
+   92553; 2.70 B f32 parameters drawn on the card): ``prefill`` of
+   batch 2 x (1024 patch embeddings + 1024 text tokens) and 8
+   ``decode_step``s from position 2048, the kernel path against the plain
+   path (logits, KV caches, greedy tokens); then hubert-xlarge at full
+   width and depth (48 layers, d_model 1280, 16 heads of 80,
+   bidirectional; 1.26 B f32 parameters drawn on the card) trained by
+   ``launch.train`` 4 steps of batch 2 x 1024 frame embeddings, the
+   bidirectional flash kernel twice per layer and step, with the gradient
+   check (``embed``, which the audio model never reads, exactly zero);
+10. ``transport`` — the ``fleet_fused`` fleet as
    ``TransportVetMux(2, engine=VetEngine("cuda", buckets=64))``: two
    spawned shard workers, each with its own CUDA context, launch the
    window-vet and change-point kernels (the driver's own counters must
@@ -88,7 +123,7 @@ the port's main paths on one GPU, in nine phases:
    naming a ``tick_budget``.  Prints tick ms (transport, in-process,
    plain), round trips per shard, host ms by span and the workers' device
    bytes (``torch.cuda.mem_get_info`` from the driver);
-9. ``train`` — ``repro_torch.launch.train.train`` on full mamba2-130m
+11. ``train`` — ``repro_torch.launch.train.train`` on full mamba2-130m
    (128,958,336 f32 parameters; batch 8, seq_len 128, ``remat="full"``, 96
    steps, a checkpoint every 32 into a temporary directory): once
    uninterrupted, once cut at step 50 (``SimulatedFailure``) and resumed
@@ -105,8 +140,13 @@ the port's main paths on one GPU, in nine phases:
    backward's range).  Then h2o-danube-3-4b at full width with 4 of its 24
    layers (the one cut; weights drawn on the card): batch 2, seq_len 2048,
    4 steps, the flash kernel twice per layer and step, the same gradient
-   check; the reduced configs of both trained 4 steps on the card and on
-   the CPU from the same weights (losses within 1e-4); and
+   check; deepseek-moe-16b at full width on 2 of its 28 layers (the dense
+   first layer and one MoE layer; 881,600,512 parameters drawn on the
+   card) the same way, its aux loss finite and above 0 and the router, the
+   stacked experts and the shared expert all reached by the gradient
+   check; the reduced mamba2-130m, h2o-danube-3-4b, deepseek-moe-16b,
+   internvl2-26b and hubert-xlarge trained 4 steps on the card and on the
+   CPU from the same weights (losses within 1e-4); and
    ``sched.autotune.tune`` on full mamba2-130m (batch 8, seq_len 64,
    ``n_micro`` x ``q_chunk`` in (1, 2) x (32, 64), 12 steps a candidate):
    four candidates, each with its vet.
@@ -154,7 +194,8 @@ TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 RTOL = 1e-5  # vet/ei/oc/pr where the cut agrees
 GAP = 1e-4  # relative SSE gap allowed between two near-tie cuts
 PHASES = ("kernels", "job", "analysis", "fleet_fused", "fleet_gather",
-          "serve", "serve_attn", "transport", "train")
+          "serve", "serve_attn", "serve_moe", "frontends", "transport",
+          "train")
 SSD_RTOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py TestSSD
 # tests/test_kernels.py TestFlashAttention
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -675,12 +716,20 @@ def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128)) -> list:
 # h2o-danube-3-4b's attention at the serve_attn phase's prompt: batch 2,
 # 7,168 positions, 32 query heads over 8 KV heads of 120, window 4096.
 FLASH_SERVE = (2, 7168, 32, 8, 120)
+# deepseek-moe-16b's at serve_moe's prompt (16 heads of 128, MHA),
+# internvl2-26b's at frontends' (48 query over 8 KV heads of 128), both
+# causal over 2048 positions; hubert-xlarge's (16 heads of 80), 1024
+# frames, bidirectional
+FLASH_MOE = (2, 2048, 16, 16, 128)
+FLASH_VLM = (2, 2048, 48, 8, 128)
+FLASH_HUBERT = (2, 1024, 16, 16, 80)
 
 
 def flash_cases(dev, lib, stream_ptr) -> list:
     """Flash attention against its plain version at the serve_attn shape
     (f32 and bf16, causal with window 4096), causal (f32 and bf16) and
-    bidirectional at S = 2048, and a ragged S = 200; elementwise
+    bidirectional at S = 2048, a ragged S = 200, and the serve_moe,
+    frontends and train phases' three shapes in f32; elementwise
     |a - b| <= tol + tol |b|.  ``library_ms`` is one
     ``scaled_dot_product_attention`` call on the same inputs and mask (KV
     heads repeated to the query heads beforehand, as its fused backends take
@@ -700,7 +749,12 @@ def flash_cases(dev, lib, stream_ptr) -> list:
               torch.bfloat16),
              ("bidirectional_2048", (2, 2048, 32, 8, 120), False, 0,
               torch.float32),
-             ("ragged_200", (2, 200, 32, 8, 120), True, 0, torch.float32))
+             ("ragged_200", (2, 200, 32, 8, 120), True, 0, torch.float32),
+             # the serve_moe, frontends and train phases' prefill shapes
+             ("moe_causal_2048", FLASH_MOE, True, 0, torch.float32),
+             ("vlm_causal_2048", FLASH_VLM, True, 0, torch.float32),
+             ("hubert_bidirectional_1024", FLASH_HUBERT, False, 0,
+              torch.float32))
     rows = []
     for name, shape, causal, window, dtype in cases:
         b, s, h, kh, d = shape
@@ -976,7 +1030,7 @@ def phase_serve(card: str, cfg=None, device: str = "cuda", batch: int = 4,
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve, serve_inputs
-    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models import init_cache, prefill
 
     cfg = cfg if cfg is not None else get_config("mamba2-130m")
     dev = torch.device(device)
@@ -1014,20 +1068,15 @@ def phase_serve(card: str, cfg=None, device: str = "cuda", batch: int = 4,
     require(err <= LOGIT_TOL * scale, f"serve: prefill logits kernel vs "
                                       f"plain off by {err:.3g} (scale "
                                       f"{scale:.3g})")
-    tk = torch.argmax(logits_k, -1)[:, None]
-    tp = torch.argmax(logits_p, -1)[:, None]
-    require(np.array_equal(res.tokens[:, 0], tk[:, 0].cpu().numpy()),
+    require(np.array_equal(res.tokens[:, 0],
+                           torch.argmax(logits_k, -1).cpu().numpy()),
             "serve: first token differs from a fresh prefill on the same "
             "weights")
-    ck, cp = cache, init_cache(cfg, batch, prompt_len + gen_len, device=dev)
-    same = [bool(torch.equal(tk, tp))]
-    for i in range(decode_check):
-        lk_i, ck = decode_step(cfg, params, ck, tk, prompt_len + i)
-        lp_i, cp = decode_step(cfg, params, cp, tp, prompt_len + i)
-        tk, tp = torch.argmax(lk_i, -1)[:, None], torch.argmax(lp_i, -1)[:, None]
-        same.append(bool(torch.equal(tk, tp)))
-    require(all(same), f"serve: greedy tokens differ between the kernel and "
-                       f"plain paths at steps {same}")
+    greedy = held_greedy(cfg, params, cache,
+                         init_cache(cfg, batch, prompt_len + gen_len,
+                                    device=dev),
+                         logits_k, logits_p, prompt_len, decode_check,
+                         "serve")
     # The prefill once more, steady: mean of 20 back-to-back calls (CUDA
     # events) and one call traced for device ms by kernel (SSD among them).
     batch_in = {"tokens": prompts}
@@ -1048,32 +1097,90 @@ def phase_serve(card: str, cfg=None, device: str = "cuda", batch: int = 4,
             "decode_units": int(res.unit_times.size),
             "peak_device_bytes": int(peak),
             "prefill_logits_max_abs_err": err, "logit_scale": scale,
-            "greedy_equal_steps": len(same), "reduced_vs_cpu": small,
+            "greedy_equal_steps": greedy, "reduced_vs_cpu": small,
             "result": res}
 
 
 def reduced_vs_cpu(dev, arch: str = "mamba2-130m") -> dict:
     """The reduced config's prefill through the kernel on the card against
-    the same weights on the CPU (plain path): 1e-4 of the largest logit."""
+    the same weights on the CPU (plain path): 1e-4 of the largest logit;
+    an MoE model's routing under the routing contract (``held_routing``),
+    the CPU the reference side."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_inputs
-    from repro_torch.models import init_cache, prefill
+    from repro_torch.models import init_cache
 
     cfg = get_config(arch).reduced()
-    out = {}
-    for where in ("cpu", dev):
-        params, prompts = serve_inputs(cfg, batch=2, prompt_len=64, seed=3,
-                                       dtype=torch.float32, device=where)
-        logits, _ = prefill(cfg, params, init_cache(cfg, 2, 64, device=where),
-                            {"tokens": prompts})
-        out[str(where)] = logits.double().cpu()
-    ref, got = out["cpu"], out[str(dev)]
+    params, prompts = serve_inputs(cfg, batch=2, prompt_len=64, seed=3,
+                                   dtype=torch.float32, device=dev)
+    got = routed_prefill(cfg, params, {"tokens": prompts},
+                         init_cache(cfg, 2, 64, device=dev))
+    routing, ref, _ = held_routing(
+        cfg, params, {"tokens": prompts},
+        lambda where: init_cache(cfg, 2, 64, device=where), got,
+        torch.device("cpu"), f"reduced {arch} card vs cpu")
+    ref, got = ref.double(), got[0].double().cpu()
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
     require(err <= 1e-4 * scale, f"reduced {arch} prefill card vs cpu off "
                                  f"by {err:.3g} (scale {scale:.3g})")
-    return {"max_abs_err": err, "scale": scale}
+    out = {"max_abs_err": err, "scale": scale}
+    if routing["moe_calls"]:
+        out["routing"] = routing
+    return out
+
+
+def routed_prefill(cfg, params, batch_in, cache, plain: bool = False,
+                   force=None):
+    """``prefill`` with its MoE routing recorded (or forced to ``force``'s):
+    (last-token logits, cache, ``RoutingLog``)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import prefill
+    with L.recording(L.RoutingLog(force=force)) as log:
+        logits, cache = prefill(cfg, params, cache, batch_in, plain=plain)
+    return logits, cache, log
+
+
+def held_routing(cfg, params, batch_in, new_cache, got, where,
+                 context: str):
+    """The routing contract between the kernel path's ``got`` = (logits,
+    cache, log) and the plain path on ``where`` (the same weights), the
+    reference side: run the plain path; where both route alike call by
+    call, it is the reference; else the plain path once more, forced to
+    the kernel path's routing, is, and every flip must be a near-tie under
+    its own values (``routing_flips``' worst gap within ``GAP``).  The
+    differences between the two free runs, cascades included, are counted
+    (``free_runs``).  Returns (summary, reference logits, reference
+    cache)."""
+    from repro_torch.models import layers as L
+    from repro_torch.tree import tree_map
+    import torch
+    p = tree_map(lambda t: t.to(where), params)
+    b = {k: v.to(where) for k, v in batch_in.items()}
+    chosen = got[2].to(where)
+
+    def timed(force=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = routed_prefill(cfg, p, b, new_cache(where), plain=True,
+                             force=force)
+        torch.cuda.synchronize()
+        return run, (time.perf_counter() - t0) * 1e3
+
+    (logits, cache, log), out_ms = timed()
+    out = {"moe_calls": len(chosen.calls),
+           "routed_alike": L.same_routing(log, chosen), "plain_ms": out_ms}
+    if not out["routed_alike"]:
+        out["free_runs"] = L.routing_flips(log, chosen)
+        del logits, cache
+        (logits, cache, log), out["forced_plain_ms"] = timed(chosen)
+    flips = L.routing_flips(log, chosen)
+    require(flips["worst_gap"] <= GAP,
+            f"{context}: a routing flip {flips} is no near-tie (gap above "
+            f"{GAP} under the plain path's own values)")
+    out.update(flips)
+    return out, logits, cache
 
 
 def device_time(fn, top: int = 8, ranges=(), match=()) -> dict:
@@ -1196,25 +1303,17 @@ def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
     require(err <= LOGIT_TOL * scale, f"serve_attn: prefill logits kernel vs "
                                       f"plain off by {err:.3g} (scale "
                                       f"{scale:.3g})")
-    cache_err = max(float((ck["seg0"][n] - cp["seg0"][n]).abs().max())
-                    for n in ("k", "v"))
-    cache_scale = max(float(cp["seg0"][n].abs().max()) for n in ("k", "v"))
-    require(cache_err <= LOGIT_TOL * cache_scale,
+    kv_err, kv_scale = cache_err(ck, cp)
+    require(kv_err <= LOGIT_TOL * kv_scale,
             f"serve_attn: filled KV caches kernel vs plain off by "
-            f"{cache_err:.3g} (scale {cache_scale:.3g})")
-    tk = torch.argmax(logits_k, -1)[:, None]
-    tp = torch.argmax(logits_p, -1)[:, None]
-    require(np.array_equal(res.tokens[:, 0], tk[:, 0].cpu().numpy()),
+            f"{kv_err:.3g} (scale {kv_scale:.3g})")
+    require(np.array_equal(res.tokens[:, 0],
+                           torch.argmax(logits_k, -1).cpu().numpy()),
             "serve_attn: first token differs from a fresh prefill on the "
             "same weights")
-    same = [bool(torch.equal(tk, tp))]
-    for i in range(decode_check):
-        lk_i, ck = decode_step(cfg, params, ck, tk, prompt_len + i)
-        lp_i, cp = decode_step(cfg, params, cp, tp, prompt_len + i)
-        tk, tp = torch.argmax(lk_i, -1)[:, None], torch.argmax(lp_i, -1)[:, None]
-        same.append(bool(torch.equal(tk, tp)))
-    require(all(same), f"serve_attn: greedy tokens differ between the kernel "
-                       f"and plain paths at steps {same}")
+    greedy = held_greedy(cfg, params, ck, cp, logits_k, logits_p,
+                         prompt_len, decode_check, "serve_attn")
+    tk = torch.argmax(logits_k, -1)[:, None]
     del cp
     torch.cuda.empty_cache()
     pos = prompt_len + decode_check
@@ -1242,9 +1341,305 @@ def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
             "decode_unit_ms_median": float(np.median(res.unit_times)) * 1e3,
             "peak_device_bytes": int(peak),
             "prefill_logits_max_abs_err": err, "logit_scale": scale,
-            "kv_cache_max_abs_err": cache_err, "kv_cache_scale": cache_scale,
-            "greedy_equal_steps": len(same), "traced": traced,
+            "kv_cache_max_abs_err": kv_err, "kv_cache_scale": kv_scale,
+            "greedy_equal_steps": greedy, "traced": traced,
             "reduced_vs_cpu": small}
+
+
+# ------------------------------------------------------------- serve_moe
+def cache_err(a, b) -> tuple:
+    """(largest |a - b| over every K/V segment of two caches, the largest
+    |b|)."""
+    err = max(float((a[s][n] - b[s][n]).abs().max()) for s in b
+              for n in ("k", "v"))
+    scale = max(float(b[s][n].abs().max()) for s in b for n in ("k", "v"))
+    return err, scale
+
+
+def held_greedy(cfg, params, ck, cr, logits_k, logits_r, pos: int,
+                steps: int, context: str) -> int:
+    """Greedy tokens from two prefills' logits and caches, decoded
+    ``steps`` steps from ``pos``: equal at every step (fails otherwise).
+    Returns the steps held."""
+    import torch
+    from repro_torch.models import decode_step
+    tk = torch.argmax(logits_k, -1)[:, None]
+    tr = torch.argmax(logits_r, -1)[:, None]
+    same = [bool(torch.equal(tk, tr))]
+    for i in range(steps):
+        lk_i, ck = decode_step(cfg, params, ck, tk, pos + i)
+        lr_i, cr = decode_step(cfg, params, cr, tr, pos + i)
+        tk = torch.argmax(lk_i, -1)[:, None]
+        tr = torch.argmax(lr_i, -1)[:, None]
+        same.append(bool(torch.equal(tk, tr)))
+    require(all(same), f"{context}: greedy tokens differ between the kernel "
+                       f"and plain paths at steps {same}")
+    return len(same)
+
+
+def phase_serve_moe(card: str, device: str = "cuda", batch: int = 2,
+                    prompt_len: int = 2048, gen_len: int = 331,
+                    decode_check: int = 8, unit: int = 5) -> dict:
+    """Full deepseek-moe-16b through the port's serve entry point, then the
+    kernel path's prefill held against the plain path under the routing
+    contract (``held_routing``), a second kernel-path prefill bit for bit,
+    greedy decode, and a traced prefill and decode."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve, serve_inputs
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.tree import leaves
+
+    cfg = get_config("deepseek-moe-16b")
+    dev = torch.device(device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = serve(cfg, batch=batch, prompt_len=prompt_len, gen_len=gen_len,
+                device=dev, verbose=False, init_device=dev,
+                record_unit=unit)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    require(launches["flash_attention"] == cfg.num_layers,
+            f"serve_moe: expected {cfg.num_layers} flash-attention launches "
+            f"(one per layer's prefill), got {launches}")
+    require(res.tokens.shape == (batch, gen_len), "serve_moe: token shape")
+    require(np.all((res.tokens >= 0) & (res.tokens < cfg.vocab_size)),
+            "serve_moe: token outside the vocabulary")
+    require(res.vet is not None and np.isfinite(res.vet) and res.vet >= 1.0
+            - 1e-6, f"serve_moe: vet {res.vet}")
+    require(res.windows is not None and res.windows.workers >= 2,
+            "serve_moe: fewer than two window snapshots")
+    require(np.all(np.isfinite(res.windows.vet)), "serve_moe: window vets")
+    torch.cuda.empty_cache()  # the serving run's weights are gone
+
+    params, prompts = serve_inputs(cfg, batch=batch, prompt_len=prompt_len,
+                                   seed=0, dtype=torch.float32, device=dev,
+                                   init_device=dev)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    s_max = prompt_len + gen_len
+    batch_in = {"tokens": prompts}
+
+    def new_cache(where):
+        return init_cache(cfg, batch, s_max, device=where)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = routed_prefill(cfg, params, batch_in, new_cache(dev))
+    torch.cuda.synchronize()
+    kernel_prefill_ms = (time.perf_counter() - t0) * 1e3
+    logits_k, ck, log_k = got
+    # the same prefill again: the combine sums in a fixed order, so the
+    # logits, the caches and the routing repeat bit for bit
+    again = routed_prefill(cfg, params, batch_in, new_cache(dev))
+    require(bool(torch.equal(again[0], logits_k))
+            and cache_err(again[1], ck)[0] == 0.0
+            and all(torch.equal(a.probs, b.probs)
+                    and torch.equal(a.slot, b.slot)
+                    for a, b in zip(again[2].calls, log_k.calls)),
+            "serve_moe: a second kernel-path prefill differs from the first")
+    del again
+    routing, logits_r, cr = held_routing(cfg, params, batch_in, new_cache,
+                                         got, dev, "serve_moe")
+    live = torch.arange(logits_k.shape[-1], device=dev) < cfg.vocab_size
+    lk, lr = logits_k[:, live].double(), logits_r[:, live].double()
+    require(bool(torch.isfinite(lk).all()), "serve_moe: non-finite logits")
+    err = float((lk - lr).abs().max())
+    scale = float(lr.abs().max())
+    require(err <= LOGIT_TOL * scale, f"serve_moe: prefill logits kernel vs "
+                                      f"plain off by {err:.3g} (scale "
+                                      f"{scale:.3g}; routing {routing})")
+    kv_err, kv_scale = cache_err(ck, cr)
+    require(kv_err <= LOGIT_TOL * kv_scale,
+            f"serve_moe: filled KV caches kernel vs plain off by "
+            f"{kv_err:.3g} (scale {kv_scale:.3g}; routing {routing})")
+    require(np.array_equal(res.tokens[:, 0],
+                           torch.argmax(logits_k, -1).cpu().numpy()),
+            "serve_moe: first token differs from a fresh prefill on the "
+            "same weights")
+    routed = sum(c.top_idx.numel() for c in log_k.calls)
+    dropped = sum(int(c.dropped) for c in log_k.calls)
+    del log_k, got
+    greedy = held_greedy(cfg, params, ck, cr, logits_k, logits_r,
+                         prompt_len, decode_check, "serve_moe")
+    del cr
+    torch.cuda.empty_cache()
+    tk = torch.argmax(logits_k, -1)[:, None]
+    pos = prompt_len + decode_check
+    traced = {
+        "prefill": device_time(lambda: prefill(cfg, params, ck, batch_in),
+                               top=10, match=("flash_", "gemm", "Sort",
+                                              "gather")),
+        "decode_4_steps": device_time(lambda: [
+            decode_step(cfg, params, ck, tk, pos + j) for j in range(4)],
+            top=10, match=("gemm", "gemv")),
+    }
+    del params, ck
+    torch.cuda.empty_cache()
+    small = reduced_vs_cpu(dev, "deepseek-moe-16b")
+    decode_ms = float(np.median(res.unit_times)) / unit * 1e3
+    ms = res.mux
+    return {"phase": "serve_moe", "card": card, "arch": cfg.name,
+            "params": cfg.param_count(), "weight_bytes": weight_bytes,
+            "batch": batch, "prompt_len": prompt_len, "gen_len": gen_len,
+            "weights_drawn_on": "card", "init_s": res.init_s,
+            "prefill_ms": res.prefill_s * 1e3,
+            "kernel_prefill_ms": kernel_prefill_ms,
+            "plain_prefill_ms": routing["plain_ms"],
+            "decode_ms_per_step_median": decode_ms,
+            "decode_weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S
+            * 1e3, "launches": launches, "tokens_per_s": res.tokens_per_s,
+            "vet": res.vet, "ei": res.ei, "pr": res.pr,
+            "window_vets": [float(v) for v in res.windows.vet],
+            "mux_ticks": ms.ticks, "mux_dispatches": ms.dispatches,
+            "anomaly_flags": len(res.flags),
+            "decode_units": int(res.unit_times.size),
+            "peak_device_bytes": int(peak),
+            "prefill_routed_slots": routed, "prefill_dropped_slots": dropped,
+            "prefill_dropped_share": dropped / routed,
+            "routing": routing, "prefill_bitwise_repeat": True,
+            "prefill_logits_max_abs_err": err, "logit_scale": scale,
+            "kv_cache_max_abs_err": kv_err, "kv_cache_scale": kv_scale,
+            "greedy_equal_steps": greedy, "traced": traced,
+            "reduced_vs_cpu": small}
+
+
+# ------------------------------------------------------------- frontends
+def vlm_part(dev, layers: int = 4, batch: int = 2, patches: int = 1024,
+             text: int = 1024, decode_check: int = 8) -> dict:
+    """internvl2-26b at full width on ``layers`` of its 48 layers (weights
+    drawn on the card): prefill from patch embeddings and text tokens, the
+    kernel path against the plain path (logits, KV caches), then greedy
+    decode from position ``patches + text``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("internvl2-26b"), num_layers=layers)
+    require(cfg.frontend_seq == patches, "frontends: internvl2-26b's "
+                                         "frontend_seq")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)
+    batch_in = {"embeddings": torch.randn((batch, patches, cfg.d_model),
+                                          generator=gen, device=dev),
+                "tokens": torch.randint(0, cfg.vocab_size, (batch, text),
+                                        generator=gen, device=dev)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    s_max = patches + text + decode_check
+    ck = init_cache(cfg, batch, s_max, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    logits_k, ck = prefill(cfg, params, ck, batch_in)
+    torch.cuda.synchronize()
+    kernel_prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    require(launches["flash_attention"] == layers,
+            f"frontends: expected {layers} flash launches in internvl2-26b's "
+            f"prefill, got {launches}")
+    cp = init_cache(cfg, batch, s_max, device=dev)
+    t0 = time.perf_counter()
+    logits_p, cp = prefill(cfg, params, cp, batch_in, plain=True)
+    torch.cuda.synchronize()
+    plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+    live = torch.arange(logits_k.shape[-1], device=dev) < cfg.vocab_size
+    lk, lp = logits_k[:, live].double(), logits_p[:, live].double()
+    require(bool(torch.isfinite(lk).all()), "frontends: non-finite logits")
+    err = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    require(err <= LOGIT_TOL * scale, f"frontends: internvl2-26b prefill "
+                                      f"logits kernel vs plain off by "
+                                      f"{err:.3g} (scale {scale:.3g})")
+    kv_err, kv_scale = cache_err(ck, cp)
+    require(kv_err <= LOGIT_TOL * kv_scale,
+            f"frontends: internvl2-26b KV caches kernel vs plain off by "
+            f"{kv_err:.3g} (scale {kv_scale:.3g})")
+    greedy = held_greedy(cfg, params, ck, cp, logits_k, logits_p,
+                         patches + text, decode_check, "frontends")
+    peak = torch.cuda.max_memory_allocated()
+    out = {"arch": cfg.name, "layers": layers,
+           "cut": f"num_layers 48 -> {layers}", "params": cfg.param_count(),
+           "tree_params": sum(t.numel() for t in leaves(params)),
+           "batch": batch, "patches": patches, "text_tokens": text,
+           "decode_from": patches + text, "weights_drawn_on": "card",
+           "init_s": init_s, "kernel_prefill_ms": kernel_prefill_ms,
+           "plain_prefill_ms": plain_prefill_ms, "launches": launches,
+           "prefill_logits_max_abs_err": err, "logit_scale": scale,
+           "kv_cache_max_abs_err": kv_err, "kv_cache_scale": kv_scale,
+           "greedy_equal_steps": greedy, "peak_device_bytes": int(peak)}
+    del params, ck, cp, batch_in
+    torch.cuda.empty_cache()
+    return out
+
+
+def hubert_part(dev, steps: int = 4, batch: int = 2,
+                seq_len: int = 1024) -> dict:
+    """hubert-xlarge at full width and depth trained through the
+    bidirectional flash kernel (weights drawn on the card), with the
+    gradient check (``embed`` unread)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+    from repro_torch.tree import leaves
+
+    cfg = get_config("hubert-xlarge")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = counted(lambda: train(
+        cfg, steps=steps, batch=batch, seq_len=seq_len, params=params,
+        verbose=False, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    expect = {"ssd": 0, "flash_attention": 2 * cfg.num_layers * steps,
+              "changepoint": report_launches(steps // 5), "windowvet": 0}
+    require(counts == expect, f"frontends: hubert launches {counts}, "
+                              f"derived {expect}")
+    losses = np.asarray(res.losses)
+    require(np.all(np.isfinite(losses)), f"frontends: hubert losses "
+                                         f"{losses}")
+    grads = gradient_check(cfg, params, train_batch(cfg, batch, seq_len, dev),
+                           unread=("embed",))
+    out = {"arch": cfg.name, "params": cfg.param_count(),
+           "tree_params": sum(t.numel() for t in leaves(params)),
+           "steps": steps, "batch": batch, "seq_len": seq_len,
+           "remat": "full", "weights_drawn_on": "card",
+           "losses": res.losses,
+           "ms_per_step": res.phase_totals["step"] / steps * 1e3,
+           "peak_device_bytes": int(peak),
+           "flash_launches_per_step": counts["flash_attention"] / steps,
+           "launches": counts, "gradients": grads}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_frontends(card: str, device: str = "cuda") -> dict:
+    """The VLM and audio frontends on the card: internvl2-26b's prefill
+    and decode from patch embeddings, hubert-xlarge's training."""
+    import torch
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    out = {"phase": "frontends", "card": card}
+    for name, part in (("internvl2", lambda: vlm_part(dev)),
+                       ("hubert", lambda: hubert_part(dev))):
+        t1 = time.perf_counter()
+        out[name] = part()
+        out[name]["seconds"] = time.perf_counter() - t1
+    out["launches"] = {k: out["internvl2"]["launches"][k]
+                       + out["hubert"]["launches"][k]
+                       for k in out["hubert"]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # ------------------------------------------------------------- transport
@@ -1922,20 +2317,27 @@ def counted(fn):
 
 
 def train_batch(cfg, batch: int, seq_len: int, dev):
-    """The trainer's first batch (seed 0, step 0) on ``dev``."""
+    """The trainer's first batch (seed 0, step 0) on ``dev``, frontend
+    embeddings included, as ``launch.train`` builds its pipeline."""
     import torch
     from repro_torch.data import SyntheticTokenPipeline
-    pipe = SyntheticTokenPipeline(cfg.vocab_size, batch, seq_len)
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, batch, seq_len,
+                                  d_model=cfg.d_model, frontend=cfg.frontend,
+                                  frontend_seq=max(cfg.frontend_seq, 0))
     return {k: torch.from_numpy(v).to(dev)
             for k, v in pipe.batch_at(0).items()}
 
 
 def gradient_check(cfg, params, batch, q_chunk: int = 1024,
-                   spread_on_cpu: bool = False) -> dict:
+                   spread_on_cpu: bool = False, unread=()) -> dict:
     """One step's loss and gradients through the kernels and through
     ``plain=True`` on the same weights and batch: the losses to 1e-5
     relative, every leaf's kernel-path gradient present and not all zero,
-    and within ``LOGIT_TOL`` of that leaf's largest plain gradient.
+    and within ``LOGIT_TOL`` of that leaf's largest plain gradient.  The
+    leaves named in ``unread`` are the exception: the loss never reads
+    them (an audio model's ``embed``), and their gradient must be zero on
+    both paths, as ``jax.grad`` gives it.  Reports the kernel path's MoE
+    aux loss (0 without MoE layers).
 
     ``spread_on_cpu`` also takes the plain path's gradients on the CPU: two
     f32 orders of the same plain path, whose difference is the f32 noise
@@ -1958,14 +2360,22 @@ def gradient_check(cfg, params, batch, q_chunk: int = 1024,
                         params)
         named = leaves_with_paths(live)
         b = {k: v.to(where) for k, v in batch.items()}
-        loss, _ = loss_fn(cfg, live, b, q_chunk=q_chunk, plain=plain)
-        grads = torch.autograd.grad(loss, [t for _, t in named])
-        got[name] = (loss.item(), {n: g.to(dev) for (n, _), g in
-                                   zip(named, grads)})
+        loss, parts = loss_fn(cfg, live, b, q_chunk=q_chunk, plain=plain)
+        grads = torch.autograd.grad(loss, [t for _, t in named],
+                                    allow_unused=True)
+        got[name] = (loss.item(), {n: None if g is None else g.to(dev)
+                                   for (n, _), g in zip(named, grads)},
+                     float(parts["aux"].detach()))
         del live, named, loss, grads
-    (lk, gk), (lp, gp) = got["kernel"], got["plain"]
+    (lk, gk, aux), (lp, gp, _) = got["kernel"], got["plain"]
     require(np.isfinite(lk) and abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp),
             f"train: loss through the kernels {lk} against plain {lp}")
+    for name in unread:
+        for run in got.values():
+            g = run[1].pop(name)
+            require(g is None or not bool(g.any()),
+                    f"train: {name}, which the loss never reads, has a "
+                    f"gradient")
     worst, spread = (0.0, ""), (0.0, "")
     for name, g in gp.items():
         k = gk.get(name)
@@ -1981,7 +2391,8 @@ def gradient_check(cfg, params, batch, q_chunk: int = 1024,
         require(rel <= tol, f"train: gradient of {name} off by {rel:.3g} "
                             f"of its largest (tolerance {tol:.3g})")
         worst = max(worst, (rel, name))
-    out = {"leaves": len(gp), "loss_kernel": lk, "loss_plain": lp,
+    out = {"leaves": len(gp), "unread_leaves": list(unread),
+           "loss_kernel": lk, "loss_plain": lp, "aux_kernel": aux,
            "loss_rel_err": abs(lk - lp) / abs(lp),
            "worst_grad_rel_err": worst[0], "worst_leaf": worst[1]}
     if spread_on_cpu:
@@ -2158,13 +2569,59 @@ def train_danube_part(dev, layers: int = 4, steps: int = 4, batch: int = 2,
             "launches": counts, "gradients": grads, "steady": steady}
 
 
+def train_moe_part(dev, layers: int = 2, steps: int = 4, batch: int = 2,
+                   seq_len: int = 2048, q_chunk: int = 1024) -> dict:
+    """deepseek-moe-16b at full width on ``layers`` of its 28 layers (the
+    dense first layer, then MoE layers), trained through the flash kernel
+    with weights drawn on the card; its aux loss; its gradients against
+    the plain path, every leaf reached (the router, the stacked experts,
+    the shared expert)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              num_layers=layers)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = counted(lambda: train(
+        cfg, steps=steps, batch=batch, seq_len=seq_len, q_chunk=q_chunk,
+        params=params, verbose=False, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    expect = {"ssd": 0, "flash_attention": 2 * layers * steps,
+              "changepoint": report_launches(steps // 5), "windowvet": 0}
+    require(counts == expect, f"train: moe launches {counts}, derived "
+                              f"{expect}")
+    losses = np.asarray(res.losses)
+    require(np.all(np.isfinite(losses)), f"train: moe losses {losses}")
+    grads = gradient_check(cfg, params, train_batch(cfg, batch, seq_len, dev),
+                           q_chunk=q_chunk)
+    require(np.isfinite(grads["aux_kernel"]) and grads["aux_kernel"] > 0,
+            f"train: moe aux loss {grads['aux_kernel']}")
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": layers, "cut": "num_layers 28 -> "
+            f"{layers}", "params": cfg.param_count(), "steps": steps,
+            "batch": batch, "seq_len": seq_len, "q_chunk": q_chunk,
+            "weights_drawn_on": "card", "losses": res.losses,
+            "ms_per_step": res.phase_totals["step"] / steps * 1e3,
+            "peak_device_bytes": int(peak),
+            "flash_launches_per_step": counts["flash_attention"] / steps,
+            "launches": counts, "gradients": grads}
+
+
 def train_reduced_part(dev, steps: int = 4) -> dict:
     """The reduced configs trained on the card and on the CPU from the same
     seeded weights and batches: losses within ``REDUCED_RTOL``."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
     out = {}
-    for arch in ("mamba2-130m", "h2o-danube-3-4b"):
+    for arch in ("mamba2-130m", "h2o-danube-3-4b", "deepseek-moe-16b",
+                 "internvl2-26b", "hubert-xlarge"):
         cfg = get_config(arch).reduced()
         kw = dict(steps=steps, batch=2, seq_len=64, verbose=False)
         cpu = np.asarray(train(cfg, device="cpu", **kw).losses)
@@ -2208,21 +2665,23 @@ def train_tune_part(dev, steps: int = 12) -> dict:
 def phase_train(card: str, device: str = "cuda") -> dict:
     """Training on the card: full mamba2-130m (train, cut and resume,
     gradients, steady steps, a traced step), the 4-layer full-width
-    h2o-danube-3-4b through the flash kernel, the reduced configs against
-    the CPU, and the autotuner."""
+    h2o-danube-3-4b and the 2-layer full-width deepseek-moe-16b through the
+    flash kernel, the reduced configs against the CPU, and the
+    autotuner."""
     import torch
     dev = torch.device(device)
     t0 = time.perf_counter()
     out = {"phase": "train", "card": card}
     for name, part in (("mamba", lambda: train_mamba_part(dev)),
                        ("danube", lambda: train_danube_part(dev)),
+                       ("moe", lambda: train_moe_part(dev)),
                        ("reduced_vs_cpu", lambda: train_reduced_part(dev)),
                        ("tune", lambda: train_tune_part(dev))):
         t1 = time.perf_counter()
         out[name] = part()
         out[name]["seconds"] = time.perf_counter() - t1
     out["launches"] = {k: sum(out[p]["launches"][k]
-                              for p in ("mamba", "danube", "tune"))
+                              for p in ("mamba", "danube", "moe", "tune"))
                        for k in out["mamba"]["launches"]}
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -2295,6 +2754,12 @@ def main(argv=None) -> int:
     if "serve_attn" in phases:
         results["serve_attn"] = phase_serve_attn(card)
         emit(results["serve_attn"])
+    if "serve_moe" in phases:
+        results["serve_moe"] = phase_serve_moe(card)
+        emit(results["serve_moe"])
+    if "frontends" in phases:
+        results["frontends"] = phase_frontends(card)
+        emit(results["frontends"])
     if "transport" in phases:
         results["transport"] = phase_transport(card, served)
         emit(results["transport"])
@@ -2305,7 +2770,7 @@ def main(argv=None) -> int:
     launches = {"changepoint": 0, "windowvet": 0, "ssd": 0,
                 "flash_attention": 0}
     for p in ("job", "analysis", "fleet_fused", "fleet_gather", "serve",
-              "serve_attn", "transport", "train"):
+              "serve_attn", "serve_moe", "frontends", "transport", "train"):
         for k, v in results.get(p, {}).get("launches", {}).items():
             launches[k] += v
     table = []

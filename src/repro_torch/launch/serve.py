@@ -28,8 +28,8 @@ the retained windows come back through ``collect``.  ``tune=True``
 tick's measured duration as the objective, strictly between ticks, and
 its report lands on ``ServeResult.tuner``.
 
-Usage: ``python -m repro_torch.launch.serve --arch mamba2-130m`` or
-``--arch h2o-danube-3-4b`` (on the card; ``REPRO_TORCH_DEVICE=cpu`` and
+Usage: ``python -m repro_torch.launch.serve --arch mamba2-130m``,
+``--arch h2o-danube-3-4b`` or ``--arch deepseek-moe-16b`` (on the card; ``REPRO_TORCH_DEVICE=cpu`` and
 ``--reduced`` to run on the CPU), with ``--shards N``, ``--transport`` and
 ``--tune`` as options.
 """
@@ -49,7 +49,8 @@ from ..engine import BatchVetResult, VetEngine, default_engine
 from ..fleet import MuxStats, ShardedVetMux, TransportVetMux
 from ..fleet.knobs import mux_knob_hooks
 from ..kernels.runtime import require_device, resolve_device
-from ..models import decode_step, init_cache, init_params, prefill
+from ..models import (decode_step, init_cache, init_params, prefill,
+                      segments_of)
 from ..obs import LedgerReport, Tracer, format_ledger, ledger_from, write_chrome
 from ..obs.trace import timed as _timed
 from ..profiling import RecordProfiler
@@ -158,18 +159,28 @@ def serve(
     tuner (module docstring).
 
     Raises:
-        ValueError: an encoder-only config; for an SSM model, ``prompt_len``
-            not a multiple of ``cfg.ssm_chunk`` (the SSD scan's chunking);
-            for an attention model, ``prompt_len`` above 1024 and not a
-            multiple of it (the attention's query chunk).  Both as in the
-            reference, and raised before any weight is drawn.
-        NotImplementedError: a model family the port does not run yet
-            (MoE, hybrid, VLM, audio: ROADMAP A.10).
+        ValueError: an encoder-only config (hubert-xlarge); a
+            vision-language config (internvl2-26b: the reference's serve
+            feeds token prompts only, so serving images is a feature it
+            lacks); for an SSM model, ``prompt_len`` not a multiple of
+            ``cfg.ssm_chunk`` (the SSD scan's chunking); for an attention
+            model, ``prompt_len`` above 1024 and not a multiple of it (the
+            attention's query chunk).  The length rules are the
+            reference's.  All raised before any weight is drawn.
+        NotImplementedError: a model the port does not run yet (the hybrid
+            family, ROADMAP A.10 (d); MLA attention, A.10 (c)), before any
+            weight is drawn.
         RuntimeError: the resolved device is CUDA and no card is present.
     """
     cfg = get_config(cfg_or_name) if isinstance(cfg_or_name, str) else cfg_or_name
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only")
+    if cfg.frontend == "vision_patches":
+        raise ValueError(
+            f"{cfg.name} is a vision-language model and serve feeds token "
+            f"prompts only, as the reference's serve does: serving images "
+            f"is a feature the reference lacks")
+    segments_of(cfg)  # a model not ported yet raises here
     _check_prompt_len(cfg, prompt_len)
     if tracer is None and trace_path is not None:
         tracer = Tracer()

@@ -8,8 +8,9 @@ for ROADMAP A.13.
 
 ``make_train_step``'s step differentiates ``models.loss_fn`` with
 ``torch.autograd.grad`` over parameter aliases that require grad (the
-caller's parameters are plain tensors and are not written), then applies
-``optim.adamw_update``.  ``n_micro > 1`` splits the batch on dim 0 and
+caller's parameters are plain tensors and are not written; a leaf the
+loss does not read gets a zero gradient, as under ``jax.grad``), then
+applies ``optim.adamw_update``.  ``n_micro > 1`` splits the batch on dim 0 and
 accumulates f32 gradients divided by ``n_micro``, and the loss likewise,
 in the reference's order; the metrics' ``ce`` and ``aux`` are the last
 microbatch's, as the reference's scan leaves them.
@@ -49,7 +50,11 @@ def make_train_step(cfg, mesh=None, *, opt_cfg: AdamWConfig = AdamWConfig(),
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, parts = loss_fn(cfg, live, mb, remat=remat, q_chunk=q_chunk,
                               aux_weight=aux_weight)
-        grads = torch.autograd.grad(loss, leaves(live))
+        flat = leaves(live)
+        # a leaf the loss never reads (an audio model's ``embed``) gets a
+        # zero gradient, as ``jax.grad`` gives it
+        grads = [torch.zeros_like(t) if g is None else g for t, g in
+                 zip(flat, torch.autograd.grad(loss, flat, allow_unused=True))]
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
                 unflatten(params, grads))
 

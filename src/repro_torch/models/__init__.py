@@ -1,7 +1,8 @@
-"""The model substrate, ``dense`` and ``ssm`` families (the port of
-``repro.models``): attention (GQA / sliding window, KV cache), gated MLP
-and Mamba2 layers and blocks, stacked-layer parameters, the training
-forward and loss, prefill and decode."""
+"""The model substrate, ``dense``, ``moe``, ``vlm``, ``audio`` and ``ssm``
+families (the port of ``repro.models``): attention (GQA / sliding window /
+bidirectional, KV cache), gated MLP, MoE and Mamba2 layers and blocks, the
+frontend stubs, stacked-layer parameters, the training forward and loss,
+prefill and decode."""
 
 from .convert import params_from_numpy
 from .model import (decode_step, embed_inputs, forward, init_cache,

@@ -1,6 +1,7 @@
 """Block-level assembly (the port of ``repro.models.blocks``): the GQA/SWA
-attention block with its KV cache, the dense pre-norm transformer block,
-and the Mamba2 block, each with its decode-step variant.
+attention block with its KV cache, the pre-norm transformer block with a
+dense or an MoE feed-forward, and the Mamba2 block, each with its
+decode-step variant.
 
 **The KV cache is written in place.**  ``attn_prefill`` and ``attn_decode``
 write the new keys and values into the cache tensors they are given and
@@ -10,8 +11,8 @@ updated copies.  At the full width of h2o-danube-3-4b the cache is about
 caller that runs two paths from one cache clones it first.
 
 Not in this slice (each raises ``NotImplementedError`` naming ROADMAP):
-MLA attention (``mla_*``, ROADMAP A.10), the MoE feed-forward (A.10) and
-the int8 KV cache (``_kv_quant``, A.10; no config of the repo selects it).
+MLA attention (``mla_*``, ROADMAP A.10 (c)) and the int8 KV cache
+(``_kv_quant``, A.10 (e); no config of the repo selects it).
 """
 
 from __future__ import annotations
@@ -29,13 +30,14 @@ __all__ = ["attn_apply", "attn_cache_shape", "attn_decode", "attn_init",
 def _require_gqa(cfg) -> None:
     if cfg.attention == "mla":
         raise NotImplementedError(
-            f"{cfg.name} uses MLA attention, not ported yet (ROADMAP A.10)")
+            f"{cfg.name} uses MLA attention, not ported yet (ROADMAP A.10 "
+            f"(c))")
 
 
 def _require_dense_cache(cache) -> None:
     if "k_scale" in cache:
         raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP A.10)")
+            "the int8 KV cache is not ported yet (ROADMAP A.10 (e))")
 
 
 # =============================================================== GQA attention
@@ -147,7 +149,7 @@ def attn_cache_shape(cfg, batch: int, s_max: int, dtype, device=None):
     _require_gqa(cfg)
     if getattr(cfg, "kv_cache_dtype", "bf16") == "int8":
         raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP A.10)")
+            "the int8 KV cache is not ported yet (ROADMAP A.10 (e))")
     shape = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -157,44 +159,54 @@ def attn_cache_shape(cfg, batch: int, s_max: int, dtype, device=None):
 
 
 def block_init(gen: torch.Generator, cfg, dtype, *, moe: bool = False):
-    if moe:
-        raise NotImplementedError(
-            "the MoE feed-forward is not ported yet (ROADMAP A.10)")
+    """A block's parameters: the MoE feed-forward (``"moe"``) when ``moe``,
+    else the gated MLP (``"mlp"``)."""
     dev = gen.device
-    return {
+    p = {
         "ln1": torch.ones(cfg.d_model, dtype=dtype, device=dev),
         "attn": attn_init(gen, cfg, dtype),
         "ln2": torch.ones(cfg.d_model, dtype=dtype, device=dev),
-        "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype),
     }
+    if moe:
+        p["moe"] = L.moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
 
 
 def _feed_forward(p, h, cfg):
+    """(h + the feed-forward of norm(h), its aux loss): the MoE layer's, or
+    0 for the gated MLP, as the reference gives them."""
+    z = L.rms_norm(h, p["ln2"], cfg.norm_eps)
     if "moe" in p:
-        raise NotImplementedError(
-            "the MoE feed-forward is not ported yet (ROADMAP A.10)")
-    return h + L.mlp_apply(p["mlp"], L.rms_norm(h, p["ln2"], cfg.norm_eps))
+        y, aux = L.moe_apply(p["moe"], z, cfg)
+    else:
+        y = L.mlp_apply(p["mlp"], z)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + y, aux
 
 
 def block_apply(p, x, cfg, *, q_chunk: int = 1024, plain: bool = False):
-    """Pre-norm transformer block.  Returns (x, aux_loss), the aux loss 0
-    as the reference's dense block gives it."""
+    """Pre-norm transformer block.  Returns (x, aux_loss)."""
     h = x + attn_apply(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
                        q_chunk=q_chunk, plain=plain)
-    return _feed_forward(p, h, cfg), torch.zeros((), device=x.device)
+    return _feed_forward(p, h, cfg)
 
 
 def block_prefill(p, x, cfg, cache, *, q_chunk: int = 1024,
                   plain: bool = False):
+    """The block over a prompt, K/V written into ``cache``; the MoE aux
+    loss is dropped, as the reference drops it."""
     a, cache = attn_prefill(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                             cfg, cache, q_chunk=q_chunk, plain=plain)
-    return _feed_forward(p, x + a, cfg), cache
+    return _feed_forward(p, x + a, cfg)[0], cache
 
 
 def block_decode(p, x, cfg, cache, pos: int):
+    """One decode step of the block; the MoE aux loss is dropped."""
     a, cache = attn_decode(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                            cfg, cache, pos)
-    return _feed_forward(p, x + a, cfg), cache
+    return _feed_forward(p, x + a, cfg)[0], cache
 
 
 # ================================================================ Mamba block

@@ -18,7 +18,7 @@ from .model import segments_of
 __all__ = ["params_from_numpy"]
 
 # Leaves the reference keeps in f32 whatever the model dtype.
-_F32_LEAVES = ("A_log", "D", "dt_bias")
+_F32_LEAVES = ("A_log", "D", "dt_bias", "router")
 
 
 def _convert(tree, device, dtype, name=""):
@@ -41,6 +41,7 @@ def params_from_numpy(cfg, tree, device=None, dtype=torch.float32):
     """
     want = ["embed", "final_norm"] + [f"seg{i}" for i, _ in
                                       enumerate(segments_of(cfg))]
+    # (an MoE model's seg0 is its dense first layers, seg1 its MoE layers)
     if not cfg.tie_embeddings:
         want.append("head")
     missing = [k for k in want if k not in tree]

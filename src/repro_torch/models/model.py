@@ -1,9 +1,20 @@
-"""Full-model assembly for the ``dense`` and ``ssm`` families (the port of
-``repro.models.model``): parameters stacked on a leading layer dimension
-(``params["seg0"]``, as the reference's scanned segments store them),
-embeddings and the head, the full-sequence ``forward`` and ``loss_fn`` of
-training, the decode cache, ``prefill`` and ``decode_step``.  Layers run in
-a Python loop where the reference scans.
+"""Full-model assembly for the ``dense``, ``moe``, ``vlm``, ``audio`` and
+``ssm`` families (the port of ``repro.models.model``): parameters stacked
+on a leading layer dimension (``params["seg0"]``, as the reference's
+scanned segments store them), embeddings, the two frontend stubs and the
+head, the full-sequence ``forward`` and ``loss_fn`` of training, the decode
+cache, ``prefill`` and ``decode_step``.  Layers run in a Python loop where
+the reference scans.
+
+Segments per family, as the reference lays them out: ``dense``, ``vlm``
+and ``audio`` one ``("dense", L)``; ``moe`` ``("dense",
+first_dense_layers)`` then ``("moe", L - first_dense_layers)``; ``ssm``
+one ``("mamba", L)``.  A VLM's batch carries ``embeddings`` (B,
+frontend_seq, D), the patch embeddings put before its text tokens; its
+loss is over the text tail, and decode positions after a prefill start at
+``frontend_seq`` plus the text tokens.  An audio model's batch is its frame
+embeddings (B, S, D) and its labels; it never reads ``params["embed"]``,
+whose gradient is then zero, as ``jax.grad`` gives it.
 
 ``forward``'s ``remat`` maps the reference's ``jax.checkpoint`` policies
 onto ``torch.utils.checkpoint``, per layer: ``"full"`` keeps only each
@@ -26,8 +37,8 @@ at the positions they fill, Mamba states at every decode step) and hand
 back a dict holding the same tensors.  A caller that runs two paths gives
 each its own cache (or clones one first).
 
-Other families raise ``NotImplementedError``: MoE, hybrid, VLM and audio
-models need layers not ported yet (ROADMAP A.10).
+The hybrid family (zamba2-7b, ROADMAP A.10 (d)) and MLA attention
+(deepseek-v2-lite-16b, A.10 (c)) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,13 +60,27 @@ Params = Dict[str, Any]
 
 
 def segments_of(cfg) -> Tuple[Tuple[str, int], ...]:
+    """The model's segments of homogeneous blocks, as (kind, layers).
+
+    Raises:
+        NotImplementedError: the hybrid family (ROADMAP A.10 (d)) or MLA
+            attention (A.10 (c)).
+    """
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name} is a hybrid model, not ported yet (ROADMAP A.10 "
+            f"(d))")
+    if cfg.attention == "mla":
+        raise NotImplementedError(
+            f"{cfg.name} uses MLA attention, not ported yet (ROADMAP A.10 "
+            f"(c))")
     if cfg.family == "ssm":
         return (("mamba", cfg.num_layers),)
-    if cfg.family == "dense":
-        return (("dense", cfg.num_layers),)
-    raise NotImplementedError(
-        f"{cfg.name} is a {cfg.family!r} model; the port runs the 'ssm' and "
-        f"'dense' families so far (the others: ROADMAP A.10)")
+    if cfg.is_moe:
+        fd = cfg.first_dense_layers
+        return ((("dense", fd),) if fd else ()) + (("moe",
+                                                     cfg.num_layers - fd),)
+    return (("dense", cfg.num_layers),)
 
 
 def _stack_init(fn, count: int):
@@ -97,10 +122,11 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> Params:
     p: Params = {"embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model,
                                        dtype)}
     for i, (kind, count) in enumerate(segments_of(cfg)):
-        if kind == "dense":
-            fn = lambda: B.block_init(gen, cfg, dtype)  # noqa: E731
+        if kind in ("dense", "moe"):
+            fn = functools.partial(B.block_init, gen, cfg, dtype,
+                                   moe=kind == "moe")
         else:
-            fn = lambda: B.mamba_block_init(gen, cfg, dtype)  # noqa: E731
+            fn = functools.partial(B.mamba_block_init, gen, cfg, dtype)
         p[f"seg{i}"] = _stack_init(fn, count)
     p["final_norm"] = torch.ones(cfg.d_model, dtype=dtype, device=gen.device)
     if not cfg.tie_embeddings:
@@ -109,9 +135,16 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> Params:
 
 
 def embed_inputs(cfg, params: Params, batch) -> torch.Tensor:
-    """Token embedding (the ported families have no frontend)."""
+    """Token embedding, or the frontend stub's: an audio model's batch is
+    its frame embeddings; a VLM's patch embeddings, cast to the token
+    embeddings' dtype, come before its text tokens."""
     segments_of(cfg)  # raises for a family not ported
-    return params["embed"][batch["tokens"]]
+    if cfg.frontend == "audio_frames":
+        return batch["embeddings"]
+    tok = params["embed"][batch["tokens"]]
+    if cfg.frontend == "vision_patches":
+        return torch.cat([batch["embeddings"].to(tok.dtype), tok], dim=1)
+    return tok
 
 
 def _mask_pad_logits(cfg, logits):
@@ -189,7 +222,7 @@ def forward(cfg, params: Params, batch, *, remat: str = "full",
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, count) in enumerate(segments_of(cfg)):
         for lp in _unstack(params[f"seg{i}"], count):
-            if kind == "dense":
+            if kind in ("dense", "moe"):
                 body = functools.partial(B.block_apply, lp, cfg=cfg,
                                          q_chunk=q_chunk, plain=plain)
                 x, aux = _remat(body, remat)(x)
@@ -204,16 +237,20 @@ def forward(cfg, params: Params, batch, *, remat: str = "full",
 def loss_fn(cfg, params: Params, batch, *, remat: str = "full",
             q_chunk: int = 1024, aux_weight: float = 0.01,
             plain: bool = False):
-    """Next-token cross entropy, as the reference computes it: f32 logits,
-    the padded vocabulary tail masked to the lowest f32, ``logsumexp`` in
-    f32, labels below 0 ignored.  The label's logit is gathered, which
-    gives the value of the reference's one-hot einsum.
+    """Next-token (or frame-label) cross entropy, as the reference computes
+    it: f32 logits, the padded vocabulary tail masked to the lowest f32,
+    ``logsumexp`` in f32, labels below 0 ignored; a VLM's loss over its
+    text tail.  The label's logit is gathered, which gives the value of
+    the reference's one-hot einsum.  ``aux_weight`` times the MoE layers'
+    summed aux loss is added.
 
     Returns (loss, {"ce": ce, "aux": aux}).
     """
     logits, aux = forward(cfg, params, batch, remat=remat, q_chunk=q_chunk,
                           plain=plain)
-    labels = batch["labels"]  # (B, S) integer, -1 => ignore
+    labels = batch["labels"]  # (B, S_out) integer, -1 => ignore
+    if logits.shape[1] != labels.shape[1]:  # vlm: the text tail only
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
     lf = _mask_pad_logits(cfg, logits.float())
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
@@ -225,10 +262,11 @@ def loss_fn(cfg, params: Params, batch, *, remat: str = "full",
 def init_cache(cfg, batch: int, s_max: int, dtype=torch.float32,
                device=None):
     """Per-segment stacked decode caches: (layers, B, s_max, KH, Dh) K and V
-    for attention segments, zero Mamba states for SSM segments."""
+    for attention segments (dense and MoE), zero Mamba states for SSM
+    segments."""
     cache: Dict[str, Any] = {}
     for i, (kind, count) in enumerate(segments_of(cfg)):
-        if kind == "dense":
+        if kind in ("dense", "moe"):
             one = B.attn_cache_shape(cfg, batch, s_max, dtype, device="meta")
         else:
             one = B.mamba_state_shape(cfg, batch, dtype, device="meta")
@@ -245,14 +283,16 @@ def prefill(cfg, params: Params, cache, batch, *, q_chunk: int = 1024,
     Attention segments write K/V of every prompt position into ``cache`` in
     place; Mamba segments leave theirs untouched, as the reference's do.
     ``plain=True`` runs the attention's and the SSD scan's plain versions on
-    every device (the on-card reference for the kernel path).
+    every device (the on-card reference for the kernel path).  A VLM's
+    prompt is its patch embeddings and then its tokens, so its decode
+    starts at position ``frontend_seq`` plus the text tokens.
     """
     x = embed_inputs(cfg, params, batch)
     for i, (kind, count) in enumerate(segments_of(cfg)):
         stacked = params[f"seg{i}"]
         for li in range(count):
             lp = _layer(stacked, li)
-            if kind == "dense":
+            if kind in ("dense", "moe"):
                 x, _ = B.block_prefill(lp, x, cfg,
                                        _layer(cache[f"seg{i}"], li),
                                        q_chunk=q_chunk, plain=plain)
@@ -274,7 +314,7 @@ def decode_step(cfg, params: Params, cache, tokens, pos: int):
         stacked, seg_cache = params[f"seg{i}"], cache[f"seg{i}"]
         for li in range(count):
             lp, lc = _layer(stacked, li), _layer(seg_cache, li)
-            if kind == "dense":
+            if kind in ("dense", "moe"):
                 x, _ = B.block_decode(lp, x, cfg, lc, pos)
                 continue
             x, st = B.mamba_block_decode(lp, x, cfg, lc)

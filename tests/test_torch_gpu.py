@@ -16,7 +16,14 @@ Gradients through the kernels' autograd routes: each input gradient within
 plain version's, so the two differ only where the saved inputs do: not at
 all); a reduced model's training loss through the kernels within 1e-5
 relative of ``plain=True`` and each parameter's gradient within 1e-3 of
-its largest (the smoke's ``LOGIT_TOL`` basis).
+its largest (the smoke's ``LOGIT_TOL`` basis).  The reduced MoE model's
+prefill on the card against the CPU: each token's experts and each
+expert's tokens equal, or a flip at a near-tie (1e-4 relative under the
+CPU's own values, forced to the card's routing, against which the card is
+then held), logits and caches 1e-4; two card prefills equal bit for bit.
+One reduced hubert-xlarge train step on the card against the CPU: loss and
+gradient norm 1e-5 relative, first moments 1e-3 of each leaf's largest,
+``embed``'s exactly zero.
 """
 
 import numpy as np
@@ -298,6 +305,17 @@ FLASH_CASES = {
     # 16,384 keys in f32: the f32 kernel sums each tile's P V into a zeroed
     # partial added in IEEE f32, so its error must not grow with the keys
     "causal_16k_f32": ((1, 16384, 8, 2, 128), True, 0, torch.float32, 2e-5),
+    # the MoE and frontend paths' shapes: hubert-xlarge's bidirectional 16
+    # heads of 80 (two 64-column panels, the second one zero-filled past
+    # column 16) and internvl2-26b's 48 query heads over 8 KV heads of 128
+    "hubert_d80_bidirectional_f32": ((2, 1024, 16, 16, 80), False, 0,
+                                     torch.float32, 2e-5),
+    "hubert_d80_bidirectional_bf16": ((2, 1024, 16, 16, 80), False, 0,
+                                      torch.bfloat16, 2e-2),
+    "internvl_gqa48_8_f32": ((1, 2048, 48, 8, 128), True, 0, torch.float32,
+                             2e-5),
+    "internvl_gqa48_8_bf16": ((1, 2048, 48, 8, 128), True, 0,
+                              torch.bfloat16, 2e-2),
 }
 
 
@@ -574,3 +592,87 @@ def test_train_gradients_through_the_kernels_match_plain(cuda, arch, remat):
         assert gk[name] is not None and bool(gk[name].abs().max() > 0), name
         err = float((gk[name] - g).abs().max())
         assert err <= 1e-3 * float(g.abs().max()), name
+
+
+def on(tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def test_moe_prefill_on_the_card_matches_the_cpu(cuda):
+    """The reduced deepseek-moe-16b's prefill through the flash kernel on
+    the card against the plain path on the CPU, same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.serve import serve_inputs
+    from repro_torch.models import init_cache, prefill
+    from repro_torch.models import layers as L
+    cfg = get_config("deepseek-moe-16b").reduced()
+    params, prompts = serve_inputs(cfg, batch=2, prompt_len=64, seed=1,
+                                   dtype=torch.float32, device="cpu")
+    runs = []
+    for where in ("cpu", cuda, cuda):
+        before = fa.LAUNCHES
+        with L.recording(L.RoutingLog()) as log:
+            logits, cache = prefill(cfg, on(params, where),
+                                    init_cache(cfg, 2, 64, device=where),
+                                    {"tokens": prompts.to(where)})
+        assert fa.LAUNCHES - before == (0 if where == "cpu"
+                                        else cfg.num_layers)
+        runs.append((logits, cache, log))
+    torch.cuda.synchronize()
+    (lc, cc, log_c), (lk, ck, log_k), (lk2, ck2, log_k2) = runs
+    assert len(log_k.calls) == cfg.num_layers - cfg.first_dense_layers
+    # a deterministic combine: two card runs give the same bits
+    assert torch.equal(lk, lk2)
+    for seg in ck:
+        for k in ("k", "v"):
+            assert torch.equal(ck[seg][k], ck2[seg][k])
+    card = log_k.to("cpu")
+    if not L.same_routing(log_c, card):
+        # a flip between the two f32 orders: the CPU path at the card's
+        # routing, whose own values must put each flip at a near-tie
+        with L.recording(L.RoutingLog(force=card)) as forced:
+            lc, cc = prefill(cfg, params, init_cache(cfg, 2, 64),
+                             {"tokens": prompts})
+        assert L.routing_flips(forced, card)["worst_gap"] <= 1e-4
+    torch.testing.assert_close(lk.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for seg in cc:
+        for k in ("k", "v"):
+            torch.testing.assert_close(ck[seg][k].cpu(), cc[seg][k],
+                                       rtol=1e-4, atol=1e-4)
+
+
+def test_hubert_train_step_on_the_card_matches_the_cpu(cuda):
+    """One reduced hubert-xlarge train step (bidirectional flash kernel
+    forward and recompute, plain backward) against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.tree import leaves_with_paths
+    cfg = get_config("hubert-xlarge").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticTokenPipeline(
+        cfg.vocab_size, 2, 64, d_model=cfg.d_model, frontend=cfg.frontend,
+        frontend_seq=max(cfg.frontend_seq, 0)).batch_at(0).items()}
+    step = make_train_step(cfg)
+    out = {}
+    for where in ("cpu", cuda):
+        p = on(params, where)
+        before = fa.LAUNCHES
+        _, opt, m = step(p, init_opt_state(p), on(batch, where))
+        out[str(where)] = (opt, m, fa.LAUNCHES - before)
+    (oc, mc, nc), (ok, mk, nk) = out["cpu"], out[str(cuda)]
+    assert nc == 0 and nk == 2 * cfg.num_layers
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mk[key]), float(mc[key]), rtol=1e-5)
+    assert not ok.mu["embed"].any()
+    for (name, a), (_, b) in zip(leaves_with_paths(ok.mu),
+                                 leaves_with_paths(oc.mu)):
+        if name == "embed":
+            continue
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-3 * float(b.abs().max()), name

@@ -251,10 +251,16 @@ def test_params_from_numpy_refuses_a_tree_that_lacks_an_entry():
 
 
 def test_unported_families_and_layouts_raise():
-    for name in ("deepseek-moe-16b", "deepseek-v2-lite-16b", "zamba2-7b",
-                 "internvl2-26b", "hubert-xlarge"):
+    # MLA attention (A.10 (c)) and the hybrid family (A.10 (d)); the MoE,
+    # VLM and audio families run (tests/test_torch_moe.py,
+    # tests/test_torch_frontends.py)
+    for name, what in (("deepseek-v2-lite-16b", "MLA"),
+                       ("zamba2-7b", "hybrid")):
+        cfg = get_config(name).reduced()
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+            init_params(cfg, torch.Generator())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(get_config(name).reduced(), torch.Generator())
+            init_cache(cfg, 1, 8)
     with pytest.raises(NotImplementedError, match="int8 KV cache"):
         init_cache(dataclasses.replace(get_config("h2o-danube-3-4b")
                                        .reduced(), kv_cache_dtype="int8"),

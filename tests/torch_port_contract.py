@@ -2,9 +2,11 @@
 
 Imported by the ``tests/test_torch_*.py`` suites.  On the CPU the port's
 gather path adds its prefix sums and rounds its log in XLA's order
-(``xla_order_cumsum``, ``xla_order_log``), so its cuts are the reference's;
-the fused window-vet path (a block scan, as on the card) does not, so its
-change-point may move between statistical near-ties.  The contract:
+(``xla_order_cumsum``, ``xla_order_log``), so its cuts are the reference's.
+The fused window-vet path adds and rounds in the same order, on the CPU as
+on the card, but the reference's fused kernel rounds its segment SSE its
+own way, so against that kernel the change-point may move between
+statistical near-ties.  The contract:
 
 - where the cut ``t`` agrees, vet/ei/oc/pr agree to ``RTOL`` (1e-5): the
   same f32 pipeline, with sums taken in another order;
