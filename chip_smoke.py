@@ -7,7 +7,7 @@ once more with ``-Xptxas -v``: their kernels' registers and spills, none
 allowed in the flash, SSD and window-vet kernels, and the tensor-core
 instructions of the flash and SSD kernels from ``cuobjdump -sass`` (HGMMA
 required in flash, HMMA in SSD) print on the ``compiled`` line) and drives
-the port's main paths on one GPU, in eleven phases:
+the port's main paths on one GPU, in thirteen phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with CUDA-event times, bounds and,
@@ -15,7 +15,13 @@ the port's main paths on one GPU, in eleven phases:
    as a yardstick (timed here, never called by the port), flash attention
    also at the ``serve_moe`` and ``frontends`` phases' three shapes in f32
    (deepseek-moe-16b's 16 x 128 causal, internvl2-26b's 48/8 x 128 causal,
-   hubert-xlarge's bidirectional 16 x 80); flash attention's
+   hubert-xlarge's bidirectional 16 x 80, zamba2-7b's 32 x 112 causal),
+   the flash kernel's wide entry (D above 128, on the CUDA cores) at
+   deepseek-v2-lite-16b's MLA prefill shape (16 heads, Q and K of 192, V
+   of 128 zero-padded to 192: the padded output columns exactly 0) and at
+   D = 136 (GQA, windowed) and 256 (bidirectional, MHA and GQA) in f32
+   and bf16, SSD also at zamba2-7b's shape (112 heads of 64, state 64,
+   2048 positions) in f32 and bf16; flash attention's
    and SSD's bounds are on the tensor cores (bf16 at 989 TFLOP/s, TF32 at
    495 TFLOP/s with three passes a product in f32), with SSD's bound on
    the f32 units beside it.  The change-point kernel runs five ragged batches (a
@@ -90,7 +96,38 @@ the port's main paths on one GPU, in eleven phases:
    step beside the weight-read bound, tokens/s, peak bytes, the share of
    routed slots the capacity dropped, and a traced prefill and 4 decode
    steps;
-9. ``frontends`` — internvl2-26b at full width on 4 of its 48 layers
+9. ``serve_hybrid`` — the same entry point on zamba2-7b at its published
+   widths and full depth (81 Mamba2 layers, d_model 3584, 112 SSD heads
+   of 64, state 64; two shared transformer blocks of 32 MHA heads of 112
+   and ``d_ff`` 14336 applied before every 6th layer: 14 applications;
+   6.84 B f32 parameters drawn on the card; batch 2, 2048-token prompts,
+   331 generated tokens): 81 SSD and 14 flash launches a prefill.  A
+   fresh kernel-path prefill against the plain path (logits within
+   ``LOGIT_TOL``, the shared-attention caches within ``HYBRID_CACHE_TOL``;
+   the Mamba states left at zero, as the reference leaves them), every
+   Mamba and shared-attention block's kernel call against the plain block
+   on the plain path's own input (``LAYER_TOL``), the residual stream's
+   drift from the plain path layer by layer with both kernels, each
+   kernel alone and the plain path at another f32 order (reported), a
+   second kernel prefill bit for bit, 8 greedy decode steps; then the
+   same prefill and decode
+   with ``kv_cache_dtype="int8"`` on the same weights, kernel and plain
+   paths: logits equal to the f32 cache's, each dequantised cache within
+   one quantum of its f32 cache, the payloads' differences counted and
+   each explained by the f32 caches' own; prefill and decode ms beside the
+   weight-read bound, peak bytes, a traced prefill and decode;
+10. ``serve_mla`` — deepseek-v2-lite-16b at its published widths and
+   depth (27 layers of MLA: 16 heads, ``kv_lora_rank`` 512, Q and K of
+   128 + 64, V of 128; a dense first layer of ``d_ff`` 10944, then 26 MoE
+   layers of 64 routed experts of 1408 and 2 shared, top 6; 15.50 B f32
+   parameters drawn on the card; batch 2, 2048-token prompts, 171 tokens:
+   the vet without window snapshots, to keep the smoke's time):
+   27 launches of the flash kernel's wide entry a prefill and no narrow
+   one, the ``serve_moe`` routing contract, logits and the ``ckv``/
+   ``krope`` caches within ``LOGIT_TOL``, a bitwise repeat, 8 greedy
+   decode steps absorbed into the latent space, the same numbers as
+   ``serve_moe``;
+11. ``frontends`` — internvl2-26b at full width on 4 of its 48 layers
    (d_model 6144, 48/8 heads of 128, ``d_ff`` 16384, untied head, vocab
    92553; 2.70 B f32 parameters drawn on the card): ``prefill`` of
    batch 2 x (1024 patch embeddings + 1024 text tokens) and 8
@@ -101,7 +138,7 @@ the port's main paths on one GPU, in eleven phases:
    ``launch.train`` 4 steps of batch 2 x 1024 frame embeddings, the
    bidirectional flash kernel twice per layer and step, with the gradient
    check (``embed``, which the audio model never reads, exactly zero);
-10. ``transport`` — the ``fleet_fused`` fleet as
+12. ``transport`` — the ``fleet_fused`` fleet as
    ``TransportVetMux(2, engine=VetEngine("cuda", buckets=64))``: two
    spawned shard workers, each with its own CUDA context, launch the
    window-vet and change-point kernels (the driver's own counters must
@@ -123,7 +160,7 @@ the port's main paths on one GPU, in eleven phases:
    naming a ``tick_budget``.  Prints tick ms (transport, in-process,
    plain), round trips per shard, host ms by span and the workers' device
    bytes (``torch.cuda.mem_get_info`` from the driver);
-11. ``train`` — ``repro_torch.launch.train.train`` on full mamba2-130m
+13. ``train`` — ``repro_torch.launch.train.train`` on full mamba2-130m
    (128,958,336 f32 parameters; batch 8, seq_len 128, ``remat="full"``, 96
    steps, a checkpoint every 32 into a temporary directory): once
    uninterrupted, once cut at step 50 (``SimulatedFailure``) and resumed
@@ -144,9 +181,15 @@ the port's main paths on one GPU, in eleven phases:
    first layer and one MoE layer; 881,600,512 parameters drawn on the
    card) the same way, its aux loss finite and above 0 and the router, the
    stacked experts and the shared expert all reached by the gradient
-   check; the reduced mamba2-130m, h2o-danube-3-4b, deepseek-moe-16b,
-   internvl2-26b and hubert-xlarge trained 4 steps on the card and on the
-   CPU from the same weights (losses within 1e-4); and
+   check; zamba2-7b at full width on 7 of its 81 layers (both shared
+   blocks applied, before layers 0 and 6), SSD twice per layer and flash
+   twice per application and step, each gradient leaf held to the plain
+   path within max(1e-3, the plain path's card-to-CPU spread) on a 1 x
+   1024 batch; deepseek-v2-lite-16b at full width on 2 of its 27 layers
+   through the wide entry and its autograd route, as the MoE part; the
+   reduced mamba2-130m, h2o-danube-3-4b, deepseek-moe-16b, internvl2-26b,
+   hubert-xlarge, zamba2-7b and deepseek-v2-lite-16b trained 4 steps on the
+   card and on the CPU from the same weights (losses within 1e-4); and
    ``sched.autotune.tune`` on full mamba2-130m (batch 8, seq_len 64,
    ``n_micro`` x ``q_chunk`` in (1, 2) x (32, 64), 12 steps a candidate):
    four candidates, each with its vet.
@@ -170,6 +213,7 @@ line per phase, the card's name and power limit, the kernel table, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -194,16 +238,34 @@ TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 RTOL = 1e-5  # vet/ei/oc/pr where the cut agrees
 GAP = 1e-4  # relative SSE gap allowed between two near-tie cuts
 PHASES = ("kernels", "job", "analysis", "fleet_fused", "fleet_gather",
-          "serve", "serve_attn", "serve_moe", "frontends", "transport",
-          "train")
+          "serve", "serve_attn", "serve_moe", "serve_hybrid", "serve_mla",
+          "frontends", "transport", "train")
 SSD_RTOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py TestSSD
 # tests/test_kernels.py TestFlashAttention
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # serve: kernel vs plain prefill logits and KV caches, of the largest value
 LOGIT_TOL = 1e-3
+# serve_hybrid: the fresh prefills' shared-attention caches, kernel path
+# against plain, of the largest value.  zamba2-7b's 81 Mamba layers
+# amplify the flash kernel's 3xTF32 products about linearly with depth:
+# the caches reach 2.7e-3 with both kernels and with the flash kernel
+# alone, 4.7e-3 on the plain path with only its attention products in
+# 3xTF32 (``attention_products_3xtf32``), 4.3e-4 with the SSD kernel alone
+# (NVIDIA H100 80GB HBM3, 700.00 W; ``drift_probe`` reports these every
+# run).
+# Every layer's kernel call is held to LAYER_TOL from the plain path's own
+# input (``layerwise_check``), so the depth, not a call, sets this bound.
+# The logits stay held to LOGIT_TOL; the same drift brings them to 85% of
+# it (8.5e-4) on seed 0.
+HYBRID_CACHE_TOL = 5e-3
+LAYER_TOL = 1e-4
 # flash-attention kernel functions (csrc/flash_attention.cu) -> C entry
 FLASH_KERNELS = {"flash_wgmma_bf16": "flash_attention_bf16",
                  "flash_wgmma_tf32": "flash_attention_f32"}
+# the wide entry's instantiations (D from 136 to 256, CUDA cores) -> a
+# substring of their mangled names
+FLASH_WIDE_KERNELS = {"flash_wide_f32": "flash_wide_kernelIfE",
+                      "flash_wide_bf16": "flash_wide_kernelI13__nv_bfloat16"}
 # SSD kernel instantiations (csrc/ssd.cu: the prologue and the scan) -> a
 # substring of their mangled names
 SSD_KERNELS = {"ssd_gram_f32": "ssd_gram_kernelIf",
@@ -219,12 +281,15 @@ WINDOWVET_KERNELS = {**{f"windowvet_warp_e{e}": f"windowvet_warp_kernelILi{e}EE"
 # -> (their source in csrc/, a substring of their mangled names)
 PTXAS_KERNELS = {"flash_wgmma_bf16": ("flash_attention.cu", "flash_wgmma_bf16"),
                  "flash_wgmma_tf32": ("flash_attention.cu", "flash_wgmma_tf32"),
+                 **{k: ("flash_attention.cu", v)
+                    for k, v in FLASH_WIDE_KERNELS.items()},
                  **{k: ("ssd.cu", v) for k, v in SSD_KERNELS.items()},
                  "changepoint_kernel": ("changepoint.cu", "changepoint_kernel"),
                  **{k: ("windowvet.cu", v)
                     for k, v in WINDOWVET_KERNELS.items()}}
 # the kernels held to no spill
-NO_SPILL = (*FLASH_KERNELS, *SSD_KERNELS, *WINDOWVET_KERNELS)
+NO_SPILL = (*FLASH_KERNELS, *FLASH_WIDE_KERNELS, *SSD_KERNELS,
+            *WINDOWVET_KERNELS)
 
 
 class SmokeError(RuntimeError):
@@ -609,7 +674,9 @@ def phase_kernels(card: str, device: str = "cuda") -> dict:
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by})
 
-    out["ssd"] = ssd_cases(dev, lib, stream_ptr)
+    out["ssd"] = ssd_cases(dev, lib, stream_ptr) + ssd_cases(
+        dev, lib, stream_ptr, SSD_ZAMBA, (("float32", 64), ("bfloat16", 64)),
+        "zamba")
     out["flash_attention"] = flash_cases(dev, lib, stream_ptr)
     return out
 
@@ -639,10 +706,18 @@ def ssd_flops(b, t, h, p, n, chunk) -> tuple:
     return cb, per_head * b * h * nc
 
 
-def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128)) -> list:
+# zamba2-7b's scan at serve_hybrid's prompt: batch 2, 2048 positions, 112
+# heads of 64, state 64, chunk 64
+SSD_ZAMBA = (2, 2048, 112, 64, 64)
+
+
+def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128),
+              variants=(("float32", 64), ("bfloat16", 64), ("float32", 32)),
+              case: str = "serve") -> list:
     """SSD kernel against its plain version at the serve shape (B=4, T=512,
-    H=24, P=64, N=128): f32 and bf16 at chunk 64, and chunk 32 against
-    chunk 64 in f32; elementwise |a - b| <= rtol + rtol |b|.  The bound is
+    H=24, P=64, N=128) or ``shape``: by default f32 and bf16 at chunk 64,
+    and chunk 32 against chunk 64 in f32 (``variants``: (type, chunk));
+    elementwise |a - b| <= rtol + rtol |b|.  The bound is
     on the tensor cores in TF32 (495 TFLOP/s): three passes a product in
     f32; in bf16 one for C B^T (both operands exact in TF32) and two for
     the rest.  ``f32_unit_bound_ms`` keeps the bound on the f32 units (67
@@ -656,9 +731,8 @@ def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128)) -> list:
 
     rows = []
     ref64 = None
-    for dtype, chunk in ((torch.float32, 64), (torch.bfloat16, 64),
-                         (torch.float32, 32)):
-        name = str(dtype).split(".")[-1]
+    for name, chunk in variants:
+        dtype = getattr(torch, name)
         tol = SSD_RTOL[name]
         x, dt, a_log, bb, cc, d = ssd_inputs(*shape, dtype, dev)
         a_neg = -torch.exp(a_log)
@@ -699,7 +773,8 @@ def ssd_cases(dev, lib, stream_ptr, shape=(4, 512, 24, 64, 128)) -> list:
         require(lib.ssd_scan_smem_bytes(p_, n_, chunk, el) == smem,
                 f"ssd: ops.smem_bytes {smem} is not the library's "
                 f"{lib.ssd_scan_smem_bytes(p_, n_, chunk, el)}")
-        rows.append({"dtype": name, "chunk": chunk, "against": against,
+        rows.append({"case": case, "dtype": name, "chunk": chunk,
+                     "against": against,
                      "shape": list(shape), "tol": tol,
                      "max_abs_err": float(err.max()),
                      "max_err_over_tol": worst, "ms": ms, "call_ms": call_ms,
@@ -723,49 +798,89 @@ FLASH_SERVE = (2, 7168, 32, 8, 120)
 FLASH_MOE = (2, 2048, 16, 16, 128)
 FLASH_VLM = (2, 2048, 48, 8, 128)
 FLASH_HUBERT = (2, 1024, 16, 16, 80)
+# zamba2-7b's shared attention at serve_hybrid's prompt (32 MHA heads of
+# 112, causal, 2048 positions), and deepseek-v2-lite-16b's MLA prefill at
+# serve_mla's: 16 heads, Q and K of 128 + 64 = 192, V of 128 (padded to 192
+# for the wide entry), causal, 2048 positions
+FLASH_ZAMBA = (2, 2048, 32, 32, 112)
+FLASH_MLA = (2, 2048, 16, 16, 192)
+MLA_V_DIM = 128
 
 
 def flash_cases(dev, lib, stream_ptr) -> list:
     """Flash attention against its plain version at the serve_attn shape
     (f32 and bf16, causal with window 4096), causal (f32 and bf16) and
-    bidirectional at S = 2048, a ragged S = 200, and the serve_moe,
-    frontends and train phases' three shapes in f32; elementwise
-    |a - b| <= tol + tol |b|.  ``library_ms`` is one
-    ``scaled_dot_product_attention`` call on the same inputs and mask (KV
-    heads repeated to the query heads beforehand, as its fused backends take
-    them).  The bound counts the live pairs' operations on the tensor cores:
-    bf16 at 989 TFLOP/s, f32 as three TF32 passes (``TF32X3_OPS_PER_S``);
-    ``f32_unit_bound_ms`` keeps the f32 rows' bound on the f32 units (67
-    TFLOP/s), the basis before the kernels used the tensor cores."""
+    bidirectional at S = 2048, a ragged S = 200, the serve_moe, frontends
+    and train phases' three shapes and serve_hybrid's (D = 112) in f32; then
+    the wide entry (D above 128): serve_mla's MLA shape with V of 128
+    zero-padded to 192 (f32 and bf16; the padded output columns exactly 0,
+    the first 128 held against the plain attention over the unpadded V),
+    and D = 136 (GQA 16/4, window 300) and D = 256 (bidirectional, MHA and
+    GQA 8/2) in both types.  Elementwise |a - b| <= tol + tol |b|.
+    ``library_ms`` is one ``scaled_dot_product_attention`` call on the same
+    inputs and mask (KV heads repeated to the query heads beforehand, as
+    its fused backends take them; MLA's V unpadded at 128).  The bound
+    counts the live pairs' operations (2 (D + Dv) a pair) at the card's
+    peak for the type, whichever entry runs: bf16 on the tensor cores
+    (989 TFLOP/s), f32 as three TF32 passes there (``TF32X3_OPS_PER_S``).
+    ``f32_unit_bound_ms`` gives the bound on the f32 CUDA cores (67
+    TFLOP/s) beside it, for the f32 rows and for the wide entry, which runs
+    there in both types.  Bytes: Q, K and V read
+    and O written once at their own widths."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_plain, live_pairs
     from repro_torch.kernels.flash_attention import ops as fa
 
-    cases = (("serve_f32", FLASH_SERVE, True, 4096, torch.float32),
-             ("serve_bf16", FLASH_SERVE, True, 4096, torch.bfloat16),
-             ("causal_2048", (2, 2048, 32, 8, 120), True, 0, torch.float32),
-             ("causal_2048_bf16", (2, 2048, 32, 8, 120), True, 0,
-              torch.bfloat16),
-             ("bidirectional_2048", (2, 2048, 32, 8, 120), False, 0,
-              torch.float32),
-             ("ragged_200", (2, 200, 32, 8, 120), True, 0, torch.float32),
-             # the serve_moe, frontends and train phases' prefill shapes
-             ("moe_causal_2048", FLASH_MOE, True, 0, torch.float32),
-             ("vlm_causal_2048", FLASH_VLM, True, 0, torch.float32),
-             ("hubert_bidirectional_1024", FLASH_HUBERT, False, 0,
-              torch.float32))
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = (("serve_f32", FLASH_SERVE, True, 4096, f32),
+             ("serve_bf16", FLASH_SERVE, True, 4096, bf16),
+             ("causal_2048", (2, 2048, 32, 8, 120), True, 0, f32),
+             ("causal_2048_bf16", (2, 2048, 32, 8, 120), True, 0, bf16),
+             ("bidirectional_2048", (2, 2048, 32, 8, 120), False, 0, f32),
+             ("ragged_200", (2, 200, 32, 8, 120), True, 0, f32),
+             # the serve_moe, frontends, train and serve_hybrid phases'
+             # prefill shapes
+             ("moe_causal_2048", FLASH_MOE, True, 0, f32),
+             ("vlm_causal_2048", FLASH_VLM, True, 0, f32),
+             ("hubert_bidirectional_1024", FLASH_HUBERT, False, 0, f32),
+             ("zamba_causal_2048", FLASH_ZAMBA, True, 0, f32),
+             # the wide entry: serve_mla's shape with V padded, and its
+             # edges D = 136 and 256
+             ("mla_wide_causal_2048", FLASH_MLA, True, 0, f32, MLA_V_DIM),
+             ("mla_wide_causal_2048_bf16", FLASH_MLA, True, 0, bf16,
+              MLA_V_DIM),
+             ("wide_d136_gqa_window_1024", (2, 1024, 16, 4, 136), True, 300,
+              f32),
+             ("wide_d136_gqa_window_1024_bf16", (2, 1024, 16, 4, 136), True,
+              300, bf16),
+             ("wide_d256_bidirectional_1024", (2, 1024, 8, 8, 256), False, 0,
+              f32),
+             ("wide_d256_gqa_bidirectional_1024_bf16", (2, 1024, 8, 2, 256),
+              False, 0, bf16))
     rows = []
-    for name, shape, causal, window, dtype in cases:
+    for name, shape, causal, window, dtype, *dv in cases:
         b, s, h, kh, d = shape
+        dv = dv[0] if dv else d
         tname = str(dtype).split(".")[-1]
         tol = FLASH_TOL[tname]
         gen = torch.Generator(device=dev).manual_seed(len(rows))
         q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
-                   for sh in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
-        o_k = fa.flash_attention(q, k, v, causal=causal, window=window)
-        o_p = attention_plain(q, k, v, causal=causal, window=window)
+                   for sh in ((b, s, h, d), (b, s, kh, d), (b, s, kh, dv)))
+        scale = 1.0 / d ** 0.5
+        vk = F.pad(v, (0, d - dv)).contiguous() if dv < d else v
+        wide = fa.WIDE_LAUNCHES
+        o_k = fa.flash_attention(q, k, vk, causal=causal, window=window,
+                                 scale=scale)
+        require(fa.WIDE_LAUNCHES - wide == int(d > 128),
+                f"flash {name}: D = {d} ran the wrong entry")
+        o_p = attention_plain(q, k, v, causal=causal, window=window,
+                              scale=scale)
         torch.cuda.synchronize()
+        if dv < d:  # each output column weighs its own V column only
+            require(not bool(o_k[..., dv:].any()),
+                    f"flash {name}: the padded V columns are not 0")
+            o_k = o_k[..., :dv]
         a, ref = o_k.float(), o_p.float()
         require(bool(torch.isfinite(a).all()), f"flash {name}: non-finite")
         err = (a - ref).abs()
@@ -773,45 +888,47 @@ def flash_cases(dev, lib, stream_ptr) -> list:
         require(worst <= 1.0, f"flash {name}: {worst:.3g} x the tolerance "
                               f"{tol}")
         o_o = torch.empty_like(q)
-        entry = getattr(lib, fa._ENTRY[dtype])
-        args = ([t.data_ptr() for t in (q, k, v, o_o)]
-                + [b, s, h, kh, d, int(causal), window, 1.0 / d ** 0.5,
-                   stream_ptr()])
+        entry = getattr(lib, (fa._WIDE_ENTRY if d > 128 else fa._ENTRY)[dtype])
+        args = ([t.data_ptr() for t in (q, k, vk, o_o)]
+                + [b, s, h, kh, d, int(causal), window, scale, stream_ptr()])
         iters = 10 if s > 4096 else 50
         ms = cuda_ms(lambda: entry(*args), iters=iters)
-        call_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                                     window=window),
-                          iters=iters)
-        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=causal,
-                                                   window=window),
-                           iters=3, warmup=1)
+        call_ms = cuda_ms(lambda: fa.flash_attention(
+            q, k, vk, causal=causal, window=window, scale=scale), iters=iters)
+        plain_ms = cuda_ms(lambda: attention_plain(
+            q, k, v, causal=causal, window=window, scale=scale),
+            iters=3, warmup=1)
         pairs = live_pairs(s, causal=causal, window=window)
-        ops = 4.0 * d * pairs * b * h
-        nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kh * d)
+        ops = 2.0 * (d + dv) * pairs * b * h
+        nbytes = q.element_size() * (b * s * h * (d + dv)
+                                     + b * s * kh * (d + dv))
         if dtype == torch.float32:
             bms, by = bound_ms(nbytes, ops, TF32X3_OPS_PER_S)
             basis = "3xTF32 tensor cores, 495/3 TFLOP/s"
-            unit_ms = bound_ms(nbytes, ops, F32_OPS_PER_S)[0]
         else:
             bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
-            basis, unit_ms = "bf16 tensor cores, 989 TFLOP/s", None
+            basis = "bf16 tensor cores, 989 TFLOP/s"
+        unit_ms = (bound_ms(nbytes, ops, F32_OPS_PER_S)[0]
+                   if dtype == torch.float32 or d > 128 else None)
         qt = q.transpose(1, 2)
         kt = k.repeat_interleave(h // kh, dim=2).transpose(1, 2)
         vt = v.repeat_interleave(h // kh, dim=2).transpose(1, 2)
         mask = None
         if window:
             pos = torch.arange(s, device=dev)
-            mask = ((pos[:, None] >= pos[None, :])
-                    & (pos[:, None] - pos[None, :] < window))
+            mask = pos[:, None] - pos[None, :] < window
+            if causal:
+                mask &= pos[:, None] >= pos[None, :]
         lib_ms, lib_err = None, None
         try:
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask,
-                is_causal=causal and mask is None), iters=iters)
+                is_causal=causal and mask is None, scale=scale), iters=iters)
         except RuntimeError as exc:  # a yardstick, never the port's path
             lib_err = str(exc).splitlines()[0][:200]
         del qt, kt, vt, mask, o_o
         rows.append({"case": name, "dtype": tname, "shape": list(shape),
+                     "v_dim": dv, "entry": "wide" if d > 128 else "wgmma",
                      "causal": causal, "window": window, "tol": tol,
                      "max_abs_err": float(err.max()),
                      "max_err_over_tol": worst, "live_pairs_per_head": pairs,
@@ -819,9 +936,10 @@ def flash_cases(dev, lib, stream_ptr) -> list:
                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                      "bound_basis": basis, "f32_unit_bound_ms": unit_ms,
                      "library_ms": lib_ms, "library_error": lib_err,
-                     "smem_bytes": fa.smem_bytes(dtype),
-                     "blocks": -(-s // fa.block_rows(dtype)) * h * b})
-        del q, k, v, o_k, o_p, a, ref, err
+                     **({} if d > 128 else {
+                         "smem_bytes": fa.smem_bytes(dtype),
+                         "blocks": -(-s // fa.block_rows(dtype)) * h * b})})
+        del q, k, v, vk, o_k, o_p, a, ref, err
         torch.cuda.empty_cache()
     return rows
 
@@ -838,6 +956,13 @@ def _counters():
 def zero_counts():
     for mod in _counters().values():
         mod.LAUNCHES = 0
+    _counters()["flash_attention"].WIDE_LAUNCHES = 0
+
+
+def wide_count() -> int:
+    """The flash wrapper's wide-entry launches (also in its ``LAUNCHES``)
+    since ``zero_counts``."""
+    return _counters()["flash_attention"].WIDE_LAUNCHES
 
 
 def read_counts() -> dict:
@@ -1045,14 +1170,7 @@ def phase_serve(card: str, cfg=None, device: str = "cuda", batch: int = 4,
     require(launches["ssd"] == cfg.num_layers,
             f"serve: expected {cfg.num_layers} SSD launches (one per layer's "
             f"prefill), got {launches}")
-    require(res.tokens.shape == (batch, gen_len), "serve: token shape")
-    require(np.all((res.tokens >= 0) & (res.tokens < cfg.vocab_size)),
-            "serve: token outside the vocabulary")
-    require(res.vet is not None and np.isfinite(res.vet) and res.vet >= 1.0
-            - 1e-6, f"serve: vet {res.vet}")
-    require(res.windows is not None and res.windows.workers >= 2,
-            "serve: fewer than two window snapshots")
-    require(np.all(np.isfinite(res.windows.vet)), "serve: window vets")
+    serve_checks(res, cfg, batch, gen_len, "serve")
 
     # Kernel path against the plain path: same card, same weights.
     params, prompts = serve_inputs(cfg, batch=batch, prompt_len=prompt_len,
@@ -1268,14 +1386,7 @@ def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
     require(launches["flash_attention"] == cfg.num_layers,
             f"serve_attn: expected {cfg.num_layers} flash-attention launches "
             f"(one per layer's prefill), got {launches}")
-    require(res.tokens.shape == (batch, gen_len), "serve_attn: token shape")
-    require(np.all((res.tokens >= 0) & (res.tokens < cfg.vocab_size)),
-            "serve_attn: token outside the vocabulary")
-    require(res.vet is not None and np.isfinite(res.vet) and res.vet >= 1.0
-            - 1e-6, f"serve_attn: vet {res.vet}")
-    require(res.windows is not None and res.windows.workers >= 2,
-            "serve_attn: fewer than two window snapshots")
-    require(np.all(np.isfinite(res.windows.vet)), "serve_attn: window vets")
+    serve_checks(res, cfg, batch, gen_len, "serve_attn")
     torch.cuda.empty_cache()  # the serving run's weights are gone
 
     # Kernel path against the plain path: same card, same weights, each
@@ -1348,11 +1459,13 @@ def phase_serve_attn(card: str, cfg=None, device: str = "cuda",
 
 # ------------------------------------------------------------- serve_moe
 def cache_err(a, b) -> tuple:
-    """(largest |a - b| over every K/V segment of two caches, the largest
-    |b|)."""
-    err = max(float((a[s][n] - b[s][n]).abs().max()) for s in b
-              for n in ("k", "v"))
-    scale = max(float(b[s][n].abs().max()) for s in b for n in ("k", "v"))
+    """(largest |a - b| over every floating tensor of two cache trees: K
+    and V, their int8 scales, MLA's ``ckv`` and ``krope``, a hybrid's
+    shared-attention caches and Mamba states; the largest |b|)."""
+    pairs = [(a[s][n].float(), b[s][n].float()) for s in b for n in b[s]
+             if b[s][n].is_floating_point()]
+    err = max(float((x - y).abs().max()) for x, y in pairs)
+    scale = max(float(y.abs().max()) for _, y in pairs)
     return err, scale
 
 
@@ -1405,14 +1518,7 @@ def phase_serve_moe(card: str, device: str = "cuda", batch: int = 2,
     require(launches["flash_attention"] == cfg.num_layers,
             f"serve_moe: expected {cfg.num_layers} flash-attention launches "
             f"(one per layer's prefill), got {launches}")
-    require(res.tokens.shape == (batch, gen_len), "serve_moe: token shape")
-    require(np.all((res.tokens >= 0) & (res.tokens < cfg.vocab_size)),
-            "serve_moe: token outside the vocabulary")
-    require(res.vet is not None and np.isfinite(res.vet) and res.vet >= 1.0
-            - 1e-6, f"serve_moe: vet {res.vet}")
-    require(res.windows is not None and res.windows.workers >= 2,
-            "serve_moe: fewer than two window snapshots")
-    require(np.all(np.isfinite(res.windows.vet)), "serve_moe: window vets")
+    serve_checks(res, cfg, batch, gen_len, "serve_moe")
     torch.cuda.empty_cache()  # the serving run's weights are gone
 
     params, prompts = serve_inputs(cfg, batch=batch, prompt_len=prompt_len,
@@ -1493,6 +1599,543 @@ def phase_serve_moe(card: str, device: str = "cuda", batch: int = 2,
             * 1e3, "launches": launches, "tokens_per_s": res.tokens_per_s,
             "vet": res.vet, "ei": res.ei, "pr": res.pr,
             "window_vets": [float(v) for v in res.windows.vet],
+            "mux_ticks": ms.ticks, "mux_dispatches": ms.dispatches,
+            "anomaly_flags": len(res.flags),
+            "decode_units": int(res.unit_times.size),
+            "peak_device_bytes": int(peak),
+            "prefill_routed_slots": routed, "prefill_dropped_slots": dropped,
+            "prefill_dropped_share": dropped / routed,
+            "routing": routing, "prefill_bitwise_repeat": True,
+            "prefill_logits_max_abs_err": err, "logit_scale": scale,
+            "kv_cache_max_abs_err": kv_err, "kv_cache_scale": kv_scale,
+            "greedy_equal_steps": greedy, "traced": traced,
+            "reduced_vs_cpu": small}
+
+
+# ------------------------------------------------ serve_hybrid, serve_mla
+def serve_checks(res, cfg, batch: int, gen_len: int, context: str,
+                 windows: bool = True) -> None:
+    """What every serve phase holds of ``serve``'s result: the tokens'
+    shape and range, a finite vet of at least 1, and (``windows``) two
+    window snapshots of the live dashboard."""
+    require(res.tokens.shape == (batch, gen_len), f"{context}: token shape")
+    require(np.all((res.tokens >= 0) & (res.tokens < cfg.vocab_size)),
+            f"{context}: token outside the vocabulary")
+    require(res.vet is not None and np.isfinite(res.vet) and res.vet >= 1.0
+            - 1e-6, f"{context}: vet {res.vet}")
+    if windows:
+        require(res.windows is not None and res.windows.workers >= 2,
+                f"{context}: fewer than two window snapshots")
+        require(np.all(np.isfinite(res.windows.vet)),
+                f"{context}: window vets")
+
+
+def held_logits(lk, lr, cfg, context: str) -> tuple:
+    """(largest |lk - lr| over the live vocabulary, the largest |lr|),
+    within ``LOGIT_TOL`` of the scale."""
+    import torch
+    live = torch.arange(lk.shape[-1], device=lk.device) < cfg.vocab_size
+    a, b = lk[:, live].double(), lr[:, live].double()
+    require(bool(torch.isfinite(a).all()), f"{context}: non-finite logits")
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    require(err <= LOGIT_TOL * scale, f"{context}: prefill logits off by "
+                                      f"{err:.3g} (scale {scale:.3g})")
+    return err, scale
+
+
+def timed_prefill(cfg, params, cache, batch_in, plain: bool = False):
+    """(logits, cache, ms, launches) of one synchronised prefill."""
+    import torch
+    from repro_torch.models import prefill
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(cfg, params, cache, batch_in, plain=plain)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return logits, cache, ms, {**read_counts(), "flash_wide": wide_count()}
+
+
+def _tf32(x):
+    """f32 -> TF32 (10-bit mantissa), nearest with ties away from zero, as
+    the flash kernel's f32 entry rounds an operand."""
+    import torch
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _einsum_3xtf32(eq, a, b):
+    """``einsum`` in f32 from three TF32 products, as the flash kernel's f32
+    entry forms Q Kᵀ and P V: a = ab + as, b = bb + bs (each part rounded
+    to TF32), as bb + ab bs + ab bb; each product exact in f32."""
+    import torch
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(a - ab), _tf32(b - bb)
+    return ((torch.einsum(eq, as_, bb) + torch.einsum(eq, ab, bs))
+            + torch.einsum(eq, ab, bb))
+
+
+@contextlib.contextmanager
+def attention_products_3xtf32():
+    """Within it, ``attention_plain`` forms its two products in 3xTF32, as
+    the flash kernel's f32 entry does, and changes nothing else (not the
+    kernel's tiles, its base-2 online softmax or its order of sums): the
+    plain version's module sees a ``torch`` whose ``einsum`` is
+    ``_einsum_3xtf32``.  ``drift_probe`` and ``layerwise_check`` use it to
+    ask whether that arithmetic explains the kernel path's drift."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref
+
+    class Torch3xTF32:
+        einsum = staticmethod(_einsum_3xtf32)
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+    ref.torch = Torch3xTF32()
+    try:
+        yield
+    finally:
+        ref.torch = torch
+
+
+def layerwise_check(cfg, params, batch_in, s_max: int) -> dict:
+    """A plain-path prefill in which every Mamba block and every
+    shared-attention block also runs through the kernels (SSD; flash) on
+    the plain path's own input to that block: each kernel output within
+    ``LAYER_TOL`` of the plain output's largest value.  This holds every
+    kernel call of the model at its full-size activations, apart from the
+    amplification of earlier layers' differences that a free prefill
+    sees.  Beside it, reported and not held: the plain Mamba block at
+    another f32 order (SSD chunk 32) and the plain attention block with
+    its products in 3xTF32 (``attention_products_3xtf32``) on the same
+    input, the size of one call's rounding in those arithmetics."""
+    import dataclasses
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import init_cache, prefill
+    mamba, attn = B.mamba_block_apply, B.block_prefill
+    c32 = dataclasses.replace(cfg, ssm_chunk=32)
+    worst = {"mamba": 0.0, "attention": 0.0, "mamba_plain_chunk32": 0.0,
+             "attention_plain_3xtf32": 0.0}
+    calls = {"mamba": 0, "attention": 0}
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    def mamba_twin(lp, x, c, *, plain=False):
+        want = mamba(lp, x, c, plain=True)
+        worst["mamba"] = max(worst["mamba"], rel(mamba(lp, x, c), want))
+        worst["mamba_plain_chunk32"] = max(
+            worst["mamba_plain_chunk32"], rel(mamba(lp, x, c32, plain=True),
+                                              want))
+        calls["mamba"] += 1
+        return want
+
+    def attn_twin(lp, x, c, cache, *, q_chunk=1024, plain=False):
+        got, _ = B.block_apply(lp, x, c, q_chunk=q_chunk)
+        with attention_products_3xtf32():
+            got3, _ = B.block_apply(lp, x, c, q_chunk=q_chunk, plain=True)
+        want, cache = attn(lp, x, c, cache, q_chunk=q_chunk, plain=True)
+        worst["attention"] = max(worst["attention"], rel(got, want))
+        worst["attention_plain_3xtf32"] = max(
+            worst["attention_plain_3xtf32"], rel(got3, want))
+        calls["attention"] += 1
+        return want, cache
+
+    B.mamba_block_apply, B.block_prefill = mamba_twin, attn_twin
+    try:
+        with torch.no_grad():
+            prefill(cfg, params, init_cache(cfg, batch_in["tokens"].shape[0],
+                                            s_max, device=batch_in[
+                                                "tokens"].device),
+                    batch_in, plain=True)
+    finally:
+        B.mamba_block_apply, B.block_prefill = mamba, attn
+    require(worst["mamba"] <= LAYER_TOL and worst["attention"] <= LAYER_TOL,
+            f"layerwise: a kernel call differs from the plain path on its "
+            f"input by {worst} of the output's largest value (calls {calls})")
+    return {"calls": calls, "worst_rel": worst, "tol": LAYER_TOL}
+
+
+def drift_probe(cfg, params, batch_in, s_max: int, every: int = 8) -> dict:
+    """Which kernel drives a free prefill's drift from the plain path:
+    prefills of the hybrid with both kernels, the SSD kernel alone
+    (attention plain), the flash kernel alone (SSD plain), the plain path
+    at another f32 order (SSD chunk 32), and the plain path with its
+    attention products in 3xTF32 (``attention_products_3xtf32``), each
+    against the plain path.
+    For each: the residual stream's largest difference after every
+    ``every``-th Mamba layer and after the last, the logits' and the shared
+    K/V caches', each relative to the plain run's largest value.  Reported,
+    not held: ``layerwise_check`` holds every call, the phase the caches.
+    The plain run's residual streams stay on the card (4.75 GB at
+    ``serve_hybrid``'s shape)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import init_cache, prefill
+    mamba, attn = B.mamba_block_apply, B.block_prefill
+    plain_at, now = [], []  # the plain run's residuals; this run's gaps
+    mode = {}
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    def mamba_hook(lp, x, c, *, plain=False):
+        y = mamba(lp, x, c, plain=mode["ssd_plain"])
+        if mode["name"] == "plain":
+            plain_at.append(y)
+        else:
+            now.append(rel(y, plain_at[len(now)]))
+        return y
+
+    def attn_hook(lp, x, c, cache, *, q_chunk=1024, plain=False):
+        return attn(lp, x, c, cache, q_chunk=q_chunk,
+                    plain=mode["flash_plain"])
+
+    b, dev = batch_in["tokens"].shape[0], batch_in["tokens"].device
+    chunk32 = dataclasses.replace(cfg, ssm_chunk=32)
+    runs = (("plain", cfg, True, True), ("kernel", cfg, False, False),
+            ("ssd_kernel", cfg, False, True),
+            ("flash_kernel", cfg, True, False),
+            ("plain_chunk32", chunk32, True, True),
+            ("plain_attention_3xtf32", cfg, True, True))
+    out, base = {}, None
+    B.mamba_block_apply, B.block_prefill = mamba_hook, attn_hook
+    try:
+        for name, c, ssd_plain, flash_plain in runs:
+            mode.update(name=name, ssd_plain=ssd_plain,
+                        flash_plain=flash_plain)
+            now.clear()
+            with torch.no_grad(), (
+                    attention_products_3xtf32() if name.endswith("3xtf32")
+                    else contextlib.nullcontext()):
+                logits, cache = prefill(c, params, init_cache(
+                    c, b, s_max, device=dev), batch_in)
+            shared = cache["shared_attn"]
+            if base is None:
+                base = (logits, shared)
+                continue
+            scale = max(float(base[1][n].abs().max()) for n in ("k", "v"))
+            live = torch.arange(logits.shape[-1], device=dev) < cfg.vocab_size
+            out[name] = {
+                "logits_rel": rel(logits[:, live], base[0][:, live]),
+                "cache_rel": max(float((shared[n] - base[1][n]).abs().max())
+                                 for n in ("k", "v")) / scale,
+                f"layer_rel_every_{every}": now[::every] + (
+                    now[-1:] if (len(now) - 1) % every else [])}
+            del logits, cache, shared
+    finally:
+        B.mamba_block_apply, B.block_prefill = mamba, attn
+    del plain_at, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_part(cfg, params, batch_in, s_max: int, ck, cp, logits_k,
+              pos: int, steps: int) -> dict:
+    """The same prefill with ``kv_cache_dtype="int8"`` on the same weights,
+    kernel and plain paths, each into its own int8 cache, held to the f32
+    caches ``ck`` (kernel) and ``cp`` (plain) over the prompt's ``pos``
+    positions: the logits equal the f32 kernel path's bit for bit (a
+    prefill attends unquantised); each path's dequantised cache within one
+    quantum (its scale) of its own f32 cache; the kernel and plain paths'
+    payloads compared entry by entry (the count of entries that differ and
+    the largest difference reported), each difference explained by the f32
+    caches' own: |deq_k - deq_p| <= |ck - cp| + (s_k + s_p) / 2, and
+    |s_k - s_p| <= max over the row of |ck - cp| / 127.  Then ``steps``
+    greedy decode steps of both int8 paths with equal tokens."""
+    import dataclasses
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import init_cache
+    c8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    dev, b = logits_k.device, logits_k.shape[0]
+    lk8, c8k, ms, _ = timed_prefill(c8, params, init_cache(
+        c8, b, s_max, device=dev), batch_in)
+    lp8, c8p, plain_ms, _ = timed_prefill(c8, params, init_cache(
+        c8, b, s_max, device=dev), batch_in, plain=True)
+    require(bool(torch.equal(lk8, logits_k)),
+            "int8: the prefill's logits differ from the f32 cache's")
+    quanta, flips, entries, most = 0.0, 0, 0, 0
+    slack = 0.0  # the largest excess over the bound (must stay <= 0)
+    for seg in c8k:
+        if "k_scale" not in c8k[seg]:
+            continue
+        for name in ("k", "v"):
+            qk, sk = c8k[seg][name][:, :, :pos], c8k[seg][f"{name}_scale"]
+            qp, sp = c8p[seg][name][:, :, :pos], c8p[seg][f"{name}_scale"]
+            sk, sp = sk[:, :, :pos].float(), sp[:, :, :pos].float()
+            fk = ck[seg][name][:, :, :pos].float()
+            fp = cp[seg][name][:, :, :pos].float()
+            dk = B._kv_dequant(qk, sk, torch.float32)
+            dp = B._kv_dequant(qp, sp, torch.float32)
+            quanta = max(quanta,
+                         float(((dk - fk).abs() / sk[..., None]).max()),
+                         float(((dp - fp).abs() / sp[..., None]).max()))
+            diff = (qk.int() - qp.int()).abs()
+            flips += int((diff > 0).sum())
+            most = max(most, int(diff.max()))
+            entries += qk.numel()
+            gap = (fk - fp).abs()
+            bound = gap + (sk + sp)[..., None] / 2
+            slack = max(slack, float(((dk - dp).abs() - bound * (1 + 1e-5)
+                                      - 1e-6).max()))
+            row = gap.amax(dim=-1) / 127
+            slack = max(slack, float(((sk - sp).abs() - row * (1 + 1e-5)
+                                      - 1e-6).max()))
+            del dk, dp, fk, fp, gap, bound
+    require(quanta <= 1.0, f"int8: a dequantised cache lies {quanta:.3g} "
+                           f"quanta from its f32 cache")
+    require(slack <= 0.0, f"int8: the kernel and plain int8 caches differ "
+                          f"by {slack:.3g} more than their f32 caches explain")
+    greedy = held_greedy(c8, params, c8k, c8p, lk8, lp8, pos, steps, "int8")
+    return {"kernel_prefill_ms": ms, "plain_prefill_ms": plain_ms,
+            "logits_equal_f32_cache": True,
+            "max_dequant_err_quanta": quanta, "payload_flips": flips,
+            "payload_entries": entries, "max_payload_diff": most,
+            "greedy_equal_steps": greedy,
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for c in c8k.values() for t in c.values())}
+
+
+def phase_serve_hybrid(card: str, device: str = "cuda", batch: int = 2,
+                       prompt_len: int = 2048, gen_len: int = 331,
+                       decode_check: int = 8, unit: int = 5) -> dict:
+    """Full zamba2-7b through the port's serve entry point (81 Mamba2
+    layers and 14 shared-attention applications: 81 SSD and 14 flash
+    launches a prefill), then the kernel path's prefill against the plain
+    path (logits, shared-attention caches), a second kernel prefill bit
+    for bit, greedy decode, the int8 KV cache, and a traced prefill and
+    decode."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve, serve_inputs
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.tree import leaves
+
+    cfg = get_config("zamba2-7b")
+    apps = -(-cfg.num_layers // cfg.hybrid_attn_every)
+    want = {"ssd": cfg.num_layers, "flash_attention": apps, "flash_wide": 0}
+    dev = torch.device(device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = serve(cfg, batch=batch, prompt_len=prompt_len, gen_len=gen_len,
+                device=dev, verbose=False, init_device=dev, record_unit=unit)
+    torch.cuda.synchronize()
+    launches = {**read_counts(), "flash_wide": wide_count()}
+    peak = torch.cuda.max_memory_allocated()
+    require(all(launches[k] == v for k, v in want.items()),
+            f"serve_hybrid: expected {want} launches (one SSD per layer, one "
+            f"flash per shared-attention application), got {launches}")
+    serve_checks(res, cfg, batch, gen_len, "serve_hybrid")
+    torch.cuda.empty_cache()  # the serving run's weights are gone
+
+    params, prompts = serve_inputs(cfg, batch=batch, prompt_len=prompt_len,
+                                   seed=0, dtype=torch.float32, device=dev,
+                                   init_device=dev)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    s_max = prompt_len + gen_len
+    batch_in = {"tokens": prompts}
+
+    def new_cache():
+        return init_cache(cfg, batch, s_max, device=dev)
+
+    logits_k, ck, kernel_ms, per = timed_prefill(cfg, params, new_cache(),
+                                                 batch_in)
+    require(all(per[k] == v for k, v in want.items()),
+            f"serve_hybrid: a prefill launched {per}, expected {want}")
+    again, ca, _, _ = timed_prefill(cfg, params, new_cache(), batch_in)
+    require(bool(torch.equal(again, logits_k)) and cache_err(ca, ck)[0] == 0,
+            "serve_hybrid: a second kernel-path prefill differs from the "
+            "first")
+    del again, ca
+    logits_p, cp, plain_ms, _ = timed_prefill(cfg, params, new_cache(),
+                                              batch_in, plain=True)
+    err, scale = held_logits(logits_k, logits_p, cfg, "serve_hybrid")
+    kv_err, kv_scale = cache_err(ck, cp)
+    require(kv_err <= HYBRID_CACHE_TOL * kv_scale,
+            f"serve_hybrid: shared-attention caches kernel vs plain off by "
+            f"{kv_err:.3g} (scale {kv_scale:.3g})")
+    apps_err = [float((ck["shared_attn"][n][a] - cp["shared_attn"][n][a])
+                      .abs().max() / kv_scale) for a in range(apps)
+                for n in ("k",)]
+    require(not any(bool(t.any()) for t in ck["seg0"].values()),
+            "serve_hybrid: the prefill wrote the Mamba states")
+    require(np.array_equal(res.tokens[:, 0],
+                           torch.argmax(logits_k, -1).cpu().numpy()),
+            "serve_hybrid: first token differs from a fresh prefill on the "
+            "same weights")
+    greedy = held_greedy(cfg, params, ck, cp, logits_k, logits_p,
+                         prompt_len, decode_check, "serve_hybrid")
+    # the decode above changed the caches' Mamba states and positions past
+    # the prompt; the int8 part compares the prompt's positions only
+    int8 = int8_part(cfg, params, batch_in, s_max, ck, cp, logits_k,
+                     prompt_len, decode_check)
+    del cp
+    torch.cuda.empty_cache()
+    layers = layerwise_check(cfg, params, batch_in, prompt_len)
+    torch.cuda.empty_cache()
+    drift = drift_probe(cfg, params, batch_in, prompt_len)
+    tk = torch.argmax(logits_k, -1)[:, None]
+    pos = prompt_len + decode_check
+    traced = {
+        "prefill": device_time(lambda: prefill(cfg, params, ck, batch_in),
+                               top=10, match=("flash_", "ssd_", "gemm")),
+        "decode_4_steps": device_time(lambda: [
+            decode_step(cfg, params, ck, tk, pos + j) for j in range(4)],
+            top=10, match=("gemm", "gemv")),
+    }
+    del params, ck
+    torch.cuda.empty_cache()
+    small = reduced_vs_cpu(dev, "zamba2-7b")
+    ms = res.mux
+    return {"phase": "serve_hybrid", "card": card, "arch": cfg.name,
+            "params": cfg.param_count(), "weight_bytes": weight_bytes,
+            "layers": cfg.num_layers, "shared_attn_applications": apps,
+            "batch": batch, "prompt_len": prompt_len, "gen_len": gen_len,
+            "weights_drawn_on": "card", "init_s": res.init_s,
+            "prefill_ms": res.prefill_s * 1e3,
+            "kernel_prefill_ms": kernel_ms, "plain_prefill_ms": plain_ms,
+            "decode_ms_per_step_median": float(np.median(res.unit_times))
+            / unit * 1e3,
+            "decode_weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S
+            * 1e3, "launches": launches, "launches_per_prefill": per,
+            "wide_launches": launches["flash_wide"],
+            "tokens_per_s": res.tokens_per_s,
+            "vet": res.vet, "ei": res.ei, "pr": res.pr,
+            "window_vets": [float(v) for v in res.windows.vet],
+            "mux_ticks": ms.ticks, "mux_dispatches": ms.dispatches,
+            "anomaly_flags": len(res.flags),
+            "decode_units": int(res.unit_times.size),
+            "peak_device_bytes": int(peak), "prefill_bitwise_repeat": True,
+            "prefill_logits_max_abs_err": err, "logit_scale": scale,
+            "kv_cache_max_abs_err": kv_err, "kv_cache_scale": kv_scale,
+            "kv_cache_tol": HYBRID_CACHE_TOL,
+            "kv_cache_rel_err_by_application": apps_err,
+            "layerwise": layers, "drift": drift,
+            "greedy_equal_steps": greedy, "int8": int8, "traced": traced,
+            "reduced_vs_cpu": small}
+
+
+def phase_serve_mla(card: str, device: str = "cuda", batch: int = 2,
+                    prompt_len: int = 2048, gen_len: int = 171,
+                    decode_check: int = 8, unit: int = 5) -> dict:
+    """Full deepseek-v2-lite-16b through the port's serve entry point (27
+    layers of MLA: 27 launches of the flash kernel's wide entry a prefill,
+    none of the narrow ones), then the kernel path's prefill against the
+    plain path under the routing contract (``held_routing``; logits and the
+    ``ckv``/``krope`` caches), a second kernel prefill bit for bit, greedy
+    decode (absorbed into the latent space), and a traced prefill and
+    decode.  It serves 171 tokens (34 unit records: the vet, no window
+    snapshot) to keep the smoke near half its time limit; serve_hybrid
+    carries the dashboard's two windows."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve, serve_inputs
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.tree import leaves
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    want = {"ssd": 0, "flash_attention": cfg.num_layers,
+            "flash_wide": cfg.num_layers}
+    dev = torch.device(device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = serve(cfg, batch=batch, prompt_len=prompt_len, gen_len=gen_len,
+                device=dev, verbose=False, init_device=dev, record_unit=unit)
+    torch.cuda.synchronize()
+    launches = {**read_counts(), "flash_wide": wide_count()}
+    peak = torch.cuda.max_memory_allocated()
+    require(all(launches[k] == v for k, v in want.items()),
+            f"serve_mla: expected {want} launches (one wide flash launch per "
+            f"layer's prefill), got {launches}")
+    serve_checks(res, cfg, batch, gen_len, "serve_mla",
+                 windows=gen_len >= 331)
+    torch.cuda.empty_cache()
+
+    params, prompts = serve_inputs(cfg, batch=batch, prompt_len=prompt_len,
+                                   seed=0, dtype=torch.float32, device=dev,
+                                   init_device=dev)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    s_max = prompt_len + gen_len
+    batch_in = {"tokens": prompts}
+
+    def new_cache(where):
+        return init_cache(cfg, batch, s_max, device=where)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    got = routed_prefill(cfg, params, batch_in, new_cache(dev))
+    torch.cuda.synchronize()
+    kernel_prefill_ms = (time.perf_counter() - t0) * 1e3
+    per = {**read_counts(), "flash_wide": wide_count()}
+    require(all(per[k] == v for k, v in want.items()),
+            f"serve_mla: a prefill launched {per}, expected {want}")
+    logits_k, ck, log_k = got
+    again = routed_prefill(cfg, params, batch_in, new_cache(dev))
+    require(bool(torch.equal(again[0], logits_k))
+            and cache_err(again[1], ck)[0] == 0.0
+            and all(torch.equal(a.probs, b.probs)
+                    and torch.equal(a.slot, b.slot)
+                    for a, b in zip(again[2].calls, log_k.calls)),
+            "serve_mla: a second kernel-path prefill differs from the first")
+    del again
+    routing, logits_r, cr = held_routing(cfg, params, batch_in, new_cache,
+                                         got, dev, "serve_mla")
+    err, scale = held_logits(logits_k, logits_r, cfg,
+                             f"serve_mla (routing {routing})")
+    kv_err, kv_scale = cache_err(ck, cr)
+    require(kv_err <= LOGIT_TOL * kv_scale,
+            f"serve_mla: ckv/krope caches kernel vs plain off by "
+            f"{kv_err:.3g} (scale {kv_scale:.3g}; routing {routing})")
+    require(np.array_equal(res.tokens[:, 0],
+                           torch.argmax(logits_k, -1).cpu().numpy()),
+            "serve_mla: first token differs from a fresh prefill on the "
+            "same weights")
+    routed = sum(c.top_idx.numel() for c in log_k.calls)
+    dropped = sum(int(c.dropped) for c in log_k.calls)
+    del log_k, got
+    greedy = held_greedy(cfg, params, ck, cr, logits_k, logits_r,
+                         prompt_len, decode_check, "serve_mla")
+    del cr
+    torch.cuda.empty_cache()
+    tk = torch.argmax(logits_k, -1)[:, None]
+    pos = prompt_len + decode_check
+    traced = {
+        "prefill": device_time(lambda: prefill(cfg, params, ck, batch_in),
+                               top=10, match=("flash_wide", "gemm", "Sort",
+                                              "gather")),
+        "decode_4_steps": device_time(lambda: [
+            decode_step(cfg, params, ck, tk, pos + j) for j in range(4)],
+            top=10, match=("gemm", "gemv")),
+    }
+    del params, ck
+    torch.cuda.empty_cache()
+    small = reduced_vs_cpu(dev, "deepseek-v2-lite-16b")
+    ms = res.mux
+    return {"phase": "serve_mla", "card": card, "arch": cfg.name,
+            "params": cfg.param_count(), "weight_bytes": weight_bytes,
+            "batch": batch, "prompt_len": prompt_len, "gen_len": gen_len,
+            "weights_drawn_on": "card", "init_s": res.init_s,
+            "prefill_ms": res.prefill_s * 1e3,
+            "kernel_prefill_ms": kernel_prefill_ms,
+            "plain_prefill_ms": routing["plain_ms"],
+            "decode_ms_per_step_median": float(np.median(res.unit_times))
+            / unit * 1e3,
+            "decode_weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S
+            * 1e3, "launches": launches, "launches_per_prefill": per,
+            "wide_launches": launches["flash_wide"],
+            "tokens_per_s": res.tokens_per_s,
+            "vet": res.vet, "ei": res.ei, "pr": res.pr,
+            "window_vets": ([float(v) for v in res.windows.vet]
+                            if res.windows is not None else []),
             "mux_ticks": ms.ticks, "mux_dispatches": ms.dispatches,
             "anomaly_flags": len(res.flags),
             "decode_units": int(res.unit_times.size),
@@ -2614,6 +3257,99 @@ def train_moe_part(dev, layers: int = 2, steps: int = 4, batch: int = 2,
             "launches": counts, "gradients": grads}
 
 
+def train_hybrid_part(dev, layers: int = 7, steps: int = 4, batch: int = 2,
+                      seq_len: int = 2048, q_chunk: int = 1024) -> dict:
+    """zamba2-7b at full width on ``layers`` of its 81 layers: the shared
+    blocks apply before layers 0 and 6, so both take gradients (summed over
+    their applications).  Trained through the SSD kernel (twice per layer
+    and step) and the flash kernel (twice per application and step) with
+    weights drawn on the card; every gradient leaf of the kernel path held
+    to the plain path within max(1e-3, the plain path's own card-to-CPU
+    spread) on a batch of 1 x 1024 (the CPU's share of the check)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"), num_layers=layers)
+    apps = -(-layers // cfg.hybrid_attn_every)
+    require(apps == cfg.n_shared_attn_blocks == 2,
+            f"train: {layers} hybrid layers apply {apps} shared blocks")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = counted(lambda: train(
+        cfg, steps=steps, batch=batch, seq_len=seq_len, q_chunk=q_chunk,
+        params=params, verbose=False, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    expect = {"ssd": 2 * layers * steps, "flash_attention": 2 * apps * steps,
+              "changepoint": report_launches(steps // 5), "windowvet": 0}
+    require(counts == expect, f"train: hybrid launches {counts}, derived "
+                              f"{expect}")
+    losses = np.asarray(res.losses)
+    require(np.all(np.isfinite(losses)), f"train: hybrid losses {losses}")
+    grads = gradient_check(cfg, params, train_batch(cfg, 1, 1024, dev),
+                           q_chunk=q_chunk, spread_on_cpu=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": layers, "cut": "num_layers 81 -> "
+            f"{layers}", "shared_attn_applications": apps,
+            "params": cfg.param_count(), "steps": steps, "batch": batch,
+            "seq_len": seq_len, "q_chunk": q_chunk,
+            "weights_drawn_on": "card", "losses": res.losses,
+            "ms_per_step": res.phase_totals["step"] / steps * 1e3,
+            "peak_device_bytes": int(peak), "launches": counts,
+            "gradient_batch": [1, 1024], "gradients": grads}
+
+
+def train_mla_part(dev, layers: int = 2, steps: int = 4, batch: int = 2,
+                   seq_len: int = 2048, q_chunk: int = 1024) -> dict:
+    """deepseek-v2-lite-16b at full width on ``layers`` of its 27 layers
+    (the dense first layer and one MoE layer), trained through the flash
+    kernel's wide entry (MLA's Q and K of 192, V padded from 128) and its
+    autograd route, weights drawn on the card; its aux loss; its gradients
+    against the plain path, every leaf reached."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              num_layers=layers)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = counted(lambda: train(
+        cfg, steps=steps, batch=batch, seq_len=seq_len, q_chunk=q_chunk,
+        params=params, verbose=False, device=dev))
+    wide = wide_count()
+    peak = torch.cuda.max_memory_allocated()
+    expect = {"ssd": 0, "flash_attention": 2 * layers * steps,
+              "changepoint": report_launches(steps // 5), "windowvet": 0}
+    require(counts == expect and wide == 2 * layers * steps,
+            f"train: mla launches {counts} ({wide} wide), derived {expect}, "
+            f"all wide")
+    losses = np.asarray(res.losses)
+    require(np.all(np.isfinite(losses)), f"train: mla losses {losses}")
+    grads = gradient_check(cfg, params, train_batch(cfg, batch, seq_len, dev),
+                           q_chunk=q_chunk)
+    require(np.isfinite(grads["aux_kernel"]) and grads["aux_kernel"] > 0,
+            f"train: mla aux loss {grads['aux_kernel']}")
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": layers, "cut": "num_layers 27 -> "
+            f"{layers}", "params": cfg.param_count(), "steps": steps,
+            "batch": batch, "seq_len": seq_len, "q_chunk": q_chunk,
+            "weights_drawn_on": "card", "losses": res.losses,
+            "ms_per_step": res.phase_totals["step"] / steps * 1e3,
+            "peak_device_bytes": int(peak), "launches": counts,
+            "wide_launches": wide, "gradients": grads}
+
+
 def train_reduced_part(dev, steps: int = 4) -> dict:
     """The reduced configs trained on the card and on the CPU from the same
     seeded weights and batches: losses within ``REDUCED_RTOL``."""
@@ -2621,7 +3357,8 @@ def train_reduced_part(dev, steps: int = 4) -> dict:
     from repro_torch.launch.train import train
     out = {}
     for arch in ("mamba2-130m", "h2o-danube-3-4b", "deepseek-moe-16b",
-                 "internvl2-26b", "hubert-xlarge"):
+                 "internvl2-26b", "hubert-xlarge", "zamba2-7b",
+                 "deepseek-v2-lite-16b"):
         cfg = get_config(arch).reduced()
         kw = dict(steps=steps, batch=2, seq_len=64, verbose=False)
         cpu = np.asarray(train(cfg, device="cpu", **kw).losses)
@@ -2666,8 +3403,9 @@ def phase_train(card: str, device: str = "cuda") -> dict:
     """Training on the card: full mamba2-130m (train, cut and resume,
     gradients, steady steps, a traced step), the 4-layer full-width
     h2o-danube-3-4b and the 2-layer full-width deepseek-moe-16b through the
-    flash kernel, the reduced configs against the CPU, and the
-    autotuner."""
+    flash kernel, the 7-layer full-width zamba2-7b through both kernels,
+    the 2-layer full-width deepseek-v2-lite-16b through the flash kernel's
+    wide entry, the reduced configs against the CPU, and the autotuner."""
     import torch
     dev = torch.device(device)
     t0 = time.perf_counter()
@@ -2675,14 +3413,18 @@ def phase_train(card: str, device: str = "cuda") -> dict:
     for name, part in (("mamba", lambda: train_mamba_part(dev)),
                        ("danube", lambda: train_danube_part(dev)),
                        ("moe", lambda: train_moe_part(dev)),
+                       ("hybrid", lambda: train_hybrid_part(dev)),
+                       ("mla", lambda: train_mla_part(dev)),
                        ("reduced_vs_cpu", lambda: train_reduced_part(dev)),
                        ("tune", lambda: train_tune_part(dev))):
         t1 = time.perf_counter()
         out[name] = part()
         out[name]["seconds"] = time.perf_counter() - t1
     out["launches"] = {k: sum(out[p]["launches"][k]
-                              for p in ("mamba", "danube", "moe", "tune"))
+                              for p in ("mamba", "danube", "moe", "hybrid",
+                                        "mla", "tune"))
                        for k in out["mamba"]["launches"]}
+    out["wide_launches"] = out["mla"]["wide_launches"]
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -2757,6 +3499,12 @@ def main(argv=None) -> int:
     if "serve_moe" in phases:
         results["serve_moe"] = phase_serve_moe(card)
         emit(results["serve_moe"])
+    if "serve_hybrid" in phases:
+        results["serve_hybrid"] = phase_serve_hybrid(card)
+        emit(results["serve_hybrid"])
+    if "serve_mla" in phases:
+        results["serve_mla"] = phase_serve_mla(card)
+        emit(results["serve_mla"])
     if "frontends" in phases:
         results["frontends"] = phase_frontends(card)
         emit(results["frontends"])
@@ -2770,15 +3518,21 @@ def main(argv=None) -> int:
     launches = {"changepoint": 0, "windowvet": 0, "ssd": 0,
                 "flash_attention": 0}
     for p in ("job", "analysis", "fleet_fused", "fleet_gather", "serve",
-              "serve_attn", "serve_moe", "frontends", "transport", "train"):
-        for k, v in results.get(p, {}).get("launches", {}).items():
-            launches[k] += v
+              "serve_attn", "serve_moe", "serve_hybrid", "serve_mla",
+              "frontends", "transport", "train"):
+        for k in launches:
+            launches[k] += results.get(p, {}).get("launches", {}).get(k, 0)
+    # the flash wrapper counts both entries; the table splits them
+    wide = sum(results.get(p, {}).get("wide_launches", 0)
+               for p in ("serve_hybrid", "serve_mla", "train"))
     table = []
     if "kernels" in results:
         cpk = results["kernels"]["changepoint"][1]  # (1024, 1000): the job
         wvk = results["kernels"]["windowvet"][0]  # the ragged fleet tick
         sdk = results["kernels"]["ssd"][0]  # f32, the serve prefill shape
         fak = results["kernels"]["flash_attention"][0]  # f32, serve_attn
+        fwk = next(c for c in results["kernels"]["flash_attention"]
+                   if c["case"] == "mla_wide_causal_2048")  # f32, serve_mla
         table = [
             {"name": "changepoint", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/changepoint.cu",
@@ -2813,14 +3567,29 @@ def main(argv=None) -> int:
             {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
-             "launches": launches["flash_attention"],
+             "launches": launches["flash_attention"] - wide,
              "max_abs_err": max(c["max_abs_err"] for c in
                                 results["kernels"]["flash_attention"]
-                                if c["dtype"] == "float32"),
+                                if c["dtype"] == "float32"
+                                and c["entry"] == "wgmma"),
              "ms": fak["ms"], "plain_ms": fak["plain_ms"],
              "bound_ms": fak["bound_ms"], "bound_by": fak["bound_by"],
              "bound_basis": fak["bound_basis"],
+             "f32_unit_bound_ms": fak["f32_unit_bound_ms"],
              "library_ms": fak["library_ms"]},
+            {"name": "flash_attention_wide", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
+             "launches": wide,
+             "max_abs_err": max(c["max_abs_err"] for c in
+                                results["kernels"]["flash_attention"]
+                                if c["dtype"] == "float32"
+                                and c["entry"] == "wide"),
+             "ms": fwk["ms"], "plain_ms": fwk["plain_ms"],
+             "bound_ms": fwk["bound_ms"], "bound_by": fwk["bound_by"],
+             "bound_basis": fwk["bound_basis"],
+             "f32_unit_bound_ms": fwk["f32_unit_bound_ms"],
+             "library_ms": fwk["library_ms"]},
         ]
     if set(phases) == set(PHASES):
         require(all(k["launches"] > 0 for k in table),

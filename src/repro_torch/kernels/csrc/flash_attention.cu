@@ -8,7 +8,9 @@
 // The function.  o[b, q, h] = softmax_k(scale q.k) v over the keys a query
 // may see: k < S, causal: k <= q, window > 0: q - k < window; query head h
 // reads KV head h / (H / KH).  q and o are (B, S, H, D), k and v
-// (B, S, KH, D), all in the entry's type; D is any multiple of 8 up to 128.
+// (B, S, KH, D), all in the entry's type; D is any multiple of 8 up to 128
+// for the two tensor-core entries below and up to 256 for the wide entries
+// (flash_wide_kernel, after them).
 // The softmax runs online in f32 with the scale folded into base 2
 // (2^x of s * scale * log2 e); a row with nothing live yet uses 0 as its
 // base, so exp never sees -inf - -inf and a fully masked row gives 0.
@@ -722,11 +724,189 @@ flash_wgmma_tf32(const float* __restrict__ q, const float* __restrict__ k,
 #undef FA_REGS64
 #undef FA_REGS16
 
+// ============================================ wide head dimensions: SIMT f32
+// flash_wide_kernel<T> takes what the two entries above cannot: D from 136
+// to 256 (DeepSeek-V2's MLA prefill has query and key heads of 192).  The
+// same function, masks, dead-block loop bounds, block order and base-2
+// online softmax as the wgmma entries; the TPU kernel it serves is the same
+// (flash_attention/kernel.py:94, whose BlockSpecs take any D).
+//
+// Simple on purpose: 256 threads own 64 query rows, four threads a row.
+// Q (64 x D), one K tile and one V tile (32 keys x D) are converted to f32
+// into shared memory (rows of D + 4 floats, so the 8 rows and 4 keys a warp
+// reads at once sit in distinct banks).  For each key tile a thread forms
+// 8 of its row's 32 scores on the CUDA cores in f32, the quad runs the
+// online-softmax step (softmax_step), P goes through shared memory at f32,
+// and each thread adds P V into D / 4 columns of its row (pairs 8 j + 2 t,
+// 8 j + 2 t + 1) held in registers.  Inputs in bf16 are raised to f32 on
+// load, so the bf16 entry keeps P at f32 too, and rounds only the output.
+//
+// What bounds it: the f32 CUDA cores (67 TFLOP/s on an H100) at best; in
+// practice the shared-memory reads feeding them (about one load per two
+// FMAs in P V), no tensor cores and no copy overlap.  MLA's prefill shape
+// (B = 2, S = 2048, H = 16, D = 192, causal) needs 51.6 GFLOP: 0.77 ms at
+// the f32 units' peak.  The card's bound for the function is lower: its
+// 43.0 GFLOP (V at 128) on the tensor cores, 0.26 ms as three TF32 passes
+// in f32 and 0.043 ms in bf16.  A wgmma design for D up to 256 is later
+// work.
+constexpr int kWideBm = 64;       // query rows per block
+constexpr int kWideBn = 32;       // keys per K / V tile
+constexpr int kWideThreads = 256;  // four threads a query row
+constexpr int kWideMaxDim = 256;
+constexpr int kWidePad = 4;       // floats after each row of Q, K and V
+constexpr int kWidePStride = kWideBn + 4;  // floats per row of P
+
+__host__ __device__ constexpr size_t wide_smem(int D) {
+  return 4ull * ((kWideBm + 2 * kWideBn) * (D + kWidePad) +
+                 kWideBm * kWidePStride);
+}
+static_assert(wide_smem(kWideMaxDim) <= 232448,
+              "the wide entry's block exceeds the shared memory of an SM");
+
+// Eight elements of a row at src (16-byte aligned) into f32 at dst.
+__device__ __forceinline__ void load8(const float* src, float* dst) {
+  reinterpret_cast<float4*>(dst)[0] = reinterpret_cast<const float4*>(src)[0];
+  reinterpret_cast<float4*>(dst)[1] = reinterpret_cast<const float4*>(src)[1];
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// rows x D of a (B, S, heads, D) tensor, rows from `row0`, into shared
+// memory at `dst` (row stride D + kWidePad); rows past S are zero.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
+                                           float* dst, int rows, int row0,
+                                           int b, int head, int S, int heads,
+                                           int D) {
+  const int per_row = D / 8;
+  for (int i = threadIdx.x; i < rows * per_row; i += kWideThreads) {
+    const int r = i / per_row, c = 8 * (i - r * per_row);
+    float* out = dst + r * (D + kWidePad) + c;
+    if (row0 + r < S) {
+      load8(src + ((static_cast<size_t>(b) * S + row0 + r) * heads + head) *
+                      D + c,
+            out);
+    } else {
+      reinterpret_cast<float4*>(out)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<float4*>(out)[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o, int S, int H,
+                  int KH, int D, int causal, int window, float sl2) {
+  extern __shared__ float4 smem_wide[];
+  const int ld = D + kWidePad;
+  float* qs = reinterpret_cast<float*>(smem_wide);
+  float* ks = qs + kWideBm * ld;
+  float* vs = ks + kWideBn * ld;
+  float* ps = vs + kWideBn * ld;
+
+  const int nq = (S + kWideBm - 1) / kWideBm;
+  const BlockPos bp = block_pos(nq, H, KH);
+  const int q0 = bp.iq * kWideBm;
+  const int q_last = min(q0 + kWideBm, S) - 1;
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_last = causal ? q_last : S - 1;
+  const int t_first = k_first / kWideBn;
+  const int ntiles = k_last / kWideBn - t_first + 1;
+
+  const int r = threadIdx.x >> 2, t = threadIdx.x & 3;
+  const int qpos = q0 + r;
+  stage_rows(q, qs, kWideBm, q0, bp.b, bp.h, S, H, D);
+
+  float acc[kWideMaxDim / 8][2];
+#pragma unroll
+  for (int j = 0; j < kWideMaxDim / 8; ++j) acc[j][0] = acc[j][1] = 0.0f;
+  float m[1] = {-inf_f()}, l[1] = {0.0f};
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = (t_first + it) * kWideBn;
+    __syncthreads();  // the previous tile's K, V and P are read
+    stage_rows(k, ks, kWideBn, k0, bp.b, bp.kvh, S, KH, D);
+    stage_rows(v, vs, kWideBn, k0, bp.b, bp.kvh, S, KH, D);
+    __syncthreads();
+
+    // scores of keys t + 4 i, i < 8, against this thread's row
+    float x[1][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[0][i] = 0.0f;
+    const float* qrow = qs + r * ld;
+    for (int d = 0; d < D; d += 4) {
+      const float4 qv = *reinterpret_cast<const float4*>(qrow + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(ks + (t + 4 * i) * ld + d);
+        x[0][i] = fmaf(qv.x, kv.x, x[0][i]);
+        x[0][i] = fmaf(qv.y, kv.y, x[0][i]);
+        x[0][i] = fmaf(qv.z, kv.z, x[0][i]);
+        x[0][i] = fmaf(qv.w, kv.w, x[0][i]);
+      }
+    }
+    const bool edge =
+        crosses_mask(k0, kWideBn, q0, kWideBm, S, causal, window);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      x[0][i] *= sl2;
+      if (edge && !live(qpos, k0 + t + 4 * i, S, causal, window))
+        x[0][i] = -inf_f();
+    }
+    float alpha[1];
+    softmax_step(x, m, l, alpha);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ps[r * kWidePStride + t + 4 * i] = x[0][i];
+#pragma unroll
+    for (int j = 0; j < kWideMaxDim / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+    }
+    __syncthreads();
+
+    const float* prow = ps + r * kWidePStride;
+    for (int kk = 0; kk < kWideBn; ++kk) {
+      const float p = prow[kk];
+      const float* vrow = vs + kk * ld + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kWideMaxDim / 8; ++j) {
+        if (8 * j < D) {
+          const float2 vv = *reinterpret_cast<const float2*>(vrow + 8 * j);
+          acc[j][0] = fmaf(p, vv.x, acc[j][0]);
+          acc[j][1] = fmaf(p, vv.y, acc[j][1]);
+        }
+      }
+    }
+  }
+
+  const float inv = inv_rowsum(l[0]);
+  if (qpos >= S) return;
+  T* row = o + ((static_cast<size_t>(bp.b) * S + qpos) * H + bp.h) * D;
+#pragma unroll
+  for (int j = 0; j < kWideMaxDim / 8; ++j)
+    if (8 * j < D) store2(row + 8 * j + 2 * t, acc[j][0] * inv,
+                          acc[j][1] * inv);
+}
+
 // ================================================================= host side
 bool valid_shape(int batch, int S, int H, int KH, int D, int window,
-                 int rows) {
+                 int rows, int max_dim = kFaMaxDim) {
   if (batch <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH || D <= 0 ||
-      D % 8 || D > kFaMaxDim || window < 0)
+      D % 8 || D > max_dim || window < 0)
     return false;
   const long long blocks =
       static_cast<long long>((S + rows - 1) / rows) * H * batch;
@@ -818,6 +998,23 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_wide(const T* q, const T* k, const T* v, T* o, int batch, int S,
+                int H, int KH, int D, int causal, int window, float scale,
+                cudaStream_t stream) {
+  if (!valid_shape(batch, S, H, KH, D, window, kWideBm, kWideMaxDim))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = wide_smem(D);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (S + kWideBm - 1) / kWideBm * H * batch;
+  flash_wide_kernel<T><<<blocks, kWideThreads, smem, stream>>>(
+      q, k, v, o, S, H, KH, D, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -844,5 +1041,27 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     int window, float scale,
                                     cudaStream_t stream) {
   return repro_torch::launch_bf16(q, k, v, o, batch, seqlen, heads, kv_heads,
+                                  headdim, causal, window, scale, stream);
+}
+
+// The same function for D a multiple of 8 up to 256, on the CUDA cores in
+// f32 (flash_wide_kernel); the wrapper sends it D above 128 only.
+extern "C" int flash_attention_wide_f32(const float* q, const float* k,
+                                        const float* v, float* o, int batch,
+                                        int seqlen, int heads, int kv_heads,
+                                        int headdim, int causal, int window,
+                                        float scale, cudaStream_t stream) {
+  return repro_torch::launch_wide(q, k, v, o, batch, seqlen, heads, kv_heads,
+                                  headdim, causal, window, scale, stream);
+}
+
+extern "C" int flash_attention_wide_bf16(const __nv_bfloat16* q,
+                                         const __nv_bfloat16* k,
+                                         const __nv_bfloat16* v,
+                                         __nv_bfloat16* o, int batch,
+                                         int seqlen, int heads, int kv_heads,
+                                         int headdim, int causal, int window,
+                                         float scale, cudaStream_t stream) {
+  return repro_torch::launch_wide(q, k, v, o, batch, seqlen, heads, kv_heads,
                                   headdim, causal, window, scale, stream);
 }

@@ -17,8 +17,15 @@ run on the tensor cores, one block per query tile of a (b, h):
   for one consumer warpgroup of 64 query rows.
 
 Unlike the reference's wrapper it pads nothing: the TMA's zero fill and the
-kernel's masks cover the ragged last tile and D < 128.  ``LAUNCHES``
-counts kernel launches.
+kernel's masks cover the ragged last tile and D < 128.
+
+Head dimensions from 136 to 256 (the reference's kernel takes any D; MLA's
+query and key heads are 192 wide) go to a third, simple entry
+(``flash_wide_kernel``): 64 query rows a block, K and V tiles of 32 keys
+staged in shared memory at f32, scores and P V on the CUDA cores in f32 and
+P kept at f32, for both types (bf16 inputs are raised to f32 on load).
+``LAUNCHES`` counts the launches of every entry; ``WIDE_LAUNCHES`` counts
+those of the wide entry alone, so a run can show which entry ran.
 
 **Gradients.**  On CUDA tensors of which one requires grad (with grad
 enabled), ``flash_attention`` runs through ``_FlashAttention``, a
@@ -42,16 +49,21 @@ import torch
 from .. import runtime
 from .ref import attention_plain
 
-__all__ = ["LAUNCHES", "block_rows", "flash_attention", "smem_bytes"]
+__all__ = ["LAUNCHES", "WIDE_LAUNCHES", "block_rows", "flash_attention",
+           "smem_bytes"]
 
 # Kernel launches issued by ``flash_attention`` on CUDA tensors (a plain
 # counter: callers zero it and read it back to prove a path ran through the
-# kernel).
+# kernel), every entry's; ``WIDE_LAUNCHES`` the wide entry's alone.
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
-_MAX_DIM = 128
+_WIDE_ENTRY = {torch.float32: "flash_attention_wide_f32",
+               torch.bfloat16: "flash_attention_wide_bf16"}
+_NARROW_DIM = 128  # the tensor-core entries' largest D
+_MAX_DIM = 256  # the wide entry's
 # dtype -> (query rows of a kernel block, its dynamic shared memory in
 # bytes; csrc/flash_attention.cu).  bfloat16: Q and two stages of K and V
 # at 128 rows x 128 padded columns; float32: the big and small copies of Q
@@ -63,13 +75,13 @@ _BLOCK = {torch.bfloat16: (128, 5 * 2 * 128 * 128 + 5 * 8 + 1024),
 
 
 def block_rows(dtype) -> int:
-    """Query rows of one kernel block for q of ``dtype``."""
+    """Query rows of one tensor-core kernel block for q of ``dtype``."""
     return _BLOCK[dtype][0]
 
 
 def smem_bytes(dtype) -> int:
-    """Dynamic shared memory of one kernel block for q of ``dtype``
-    (``csrc/flash_attention.cu``; it does not depend on the head
+    """Dynamic shared memory of one tensor-core kernel block for q of
+    ``dtype`` (``csrc/flash_attention.cu``; it does not depend on the head
     dimension, which the tiles pad to 128)."""
     return _BLOCK[dtype][1]
 
@@ -79,8 +91,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """o (B,S,H,D) from q (B,S,H,D) and k, v (B,S,KH,D), H % KH == 0.
 
     On CUDA: q, k and v are one type, float32 or bfloat16, contiguous and
-    16-byte aligned on one device; D a multiple of 8 up to 128.  The kernel
-    launches on the current stream without synchronising.  Differentiable
+    16-byte aligned on one device; D a multiple of 8 up to 256 (above 128
+    the wide entry runs).  The kernel launches on the current stream
+    without synchronising.  Differentiable
     on every device: on CUDA tensors that require grad the kernel's forward
     pairs with the plain version's backward (module docstring).
 
@@ -150,12 +163,15 @@ def _launch(q, k, v, causal, window, scale):
             raise ValueError(f"{name} must be 16-byte aligned")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty_like(q)
-    fn = getattr(runtime.load_library(), _ENTRY[q.dtype])
+    wide = d > _NARROW_DIM
+    entry = (_WIDE_ENTRY if wide else _ENTRY)[q.dtype]
+    fn = getattr(runtime.load_library(), entry)
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   b, s, h, kh, d, int(bool(causal)), int(window), float(scale),
                   torch.cuda.current_stream().cuda_stream)
-    runtime.check(code, _ENTRY[q.dtype])
-    global LAUNCHES
+    runtime.check(code, entry)
+    global LAUNCHES, WIDE_LAUNCHES
     LAUNCHES += 1
+    WIDE_LAUNCHES += int(wide)
     return o

@@ -28,10 +28,13 @@ the retained windows come back through ``collect``.  ``tune=True``
 tick's measured duration as the objective, strictly between ticks, and
 its report lands on ``ServeResult.tuner``.
 
-Usage: ``python -m repro_torch.launch.serve --arch mamba2-130m``,
-``--arch h2o-danube-3-4b`` or ``--arch deepseek-moe-16b`` (on the card; ``REPRO_TORCH_DEVICE=cpu`` and
-``--reduced`` to run on the CPU), with ``--shards N``, ``--transport`` and
-``--tune`` as options.
+Usage: ``python -m repro_torch.launch.serve --arch mamba2-130m``, or any
+decoder config: ``--arch h2o-danube-3-4b``, ``--arch deepseek-moe-16b``,
+``--arch zamba2-7b`` (the hybrid), ``--arch deepseek-v2-lite-16b`` (MLA)
+(on the card; ``REPRO_TORCH_DEVICE=cpu`` and ``--reduced`` to run on the
+CPU), with ``--shards N``, ``--transport`` and ``--tune`` as options.
+``kv_cache_dtype="int8"`` on the config serves an attention model from the
+int8 KV cache.
 """
 
 from __future__ import annotations
@@ -49,8 +52,7 @@ from ..engine import BatchVetResult, VetEngine, default_engine
 from ..fleet import MuxStats, ShardedVetMux, TransportVetMux
 from ..fleet.knobs import mux_knob_hooks
 from ..kernels.runtime import require_device, resolve_device
-from ..models import (decode_step, init_cache, init_params, prefill,
-                      segments_of)
+from ..models import decode_step, init_cache, init_params, prefill
 from ..obs import LedgerReport, Tracer, format_ledger, ledger_from, write_chrome
 from ..obs.trace import timed as _timed
 from ..profiling import RecordProfiler
@@ -113,12 +115,13 @@ def _check_prompt_len(cfg, prompt_len: int, q_chunk: int = 1024) -> None:
     """The reference's prompt-length rules, before any weight is drawn.
 
     Raises:
-        ValueError: an SSM prompt that is not a multiple of
-            ``cfg.ssm_chunk`` (the SSD scan's chunking), or an attention
-            prompt longer than ``q_chunk`` that is not a multiple of it
-            (the query-chunked attention's blocks).
+        ValueError: a prompt of an SSM or hybrid model that is not a
+            multiple of ``cfg.ssm_chunk`` (the SSD scan's chunking), or an
+            attention prompt longer than ``q_chunk`` that is not a
+            multiple of it (the query-chunked attention's blocks).  A
+            hybrid prompt meets both rules.
     """
-    if cfg.family == "ssm" and prompt_len % cfg.ssm_chunk:
+    if cfg.is_ssm_layer_model and prompt_len % cfg.ssm_chunk:
         raise ValueError(f"sequence length {prompt_len} is not a multiple "
                          f"of the SSD chunk {cfg.ssm_chunk}")
     if cfg.num_heads and prompt_len > q_chunk and prompt_len % q_chunk:
@@ -162,14 +165,12 @@ def serve(
         ValueError: an encoder-only config (hubert-xlarge); a
             vision-language config (internvl2-26b: the reference's serve
             feeds token prompts only, so serving images is a feature it
-            lacks); for an SSM model, ``prompt_len`` not a multiple of
-            ``cfg.ssm_chunk`` (the SSD scan's chunking); for an attention
-            model, ``prompt_len`` above 1024 and not a multiple of it (the
-            attention's query chunk).  The length rules are the
-            reference's.  All raised before any weight is drawn.
-        NotImplementedError: a model the port does not run yet (the hybrid
-            family, ROADMAP A.10 (d); MLA attention, A.10 (c)), before any
-            weight is drawn.
+            lacks); for an SSM or hybrid model, ``prompt_len`` not a
+            multiple of ``cfg.ssm_chunk`` (the SSD scan's chunking); for a
+            model with attention (the hybrid's included), ``prompt_len``
+            above 1024 and not a multiple of it (the attention's query
+            chunk).  The length rules are the reference's.  All raised
+            before any weight is drawn.
         RuntimeError: the resolved device is CUDA and no card is present.
     """
     cfg = get_config(cfg_or_name) if isinstance(cfg_or_name, str) else cfg_or_name
@@ -180,7 +181,6 @@ def serve(
             f"{cfg.name} is a vision-language model and serve feeds token "
             f"prompts only, as the reference's serve does: serving images "
             f"is a feature the reference lacks")
-    segments_of(cfg)  # a model not ported yet raises here
     _check_prompt_len(cfg, prompt_len)
     if tracer is None and trace_path is not None:
         tracer = Tracer()

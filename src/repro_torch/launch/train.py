@@ -108,9 +108,7 @@ def train(
 
     Raises:
         SimulatedFailure: at ``fail_at_step``, after that step's update.
-        NotImplementedError: ``mesh`` is not ``None`` (ROADMAP A.13), or a
-            model the port does not run yet (the hybrid family, ROADMAP
-            A.10 (d); MLA attention, A.10 (c)).
+        NotImplementedError: ``mesh`` is not ``None`` (ROADMAP A.13).
         RuntimeError: the resolved device is CUDA and no card is present.
     """
     cfg = get_config(cfg_or_name) if isinstance(cfg_or_name, str) else cfg_or_name

@@ -1,21 +1,34 @@
 """Block-level assembly (the port of ``repro.models.blocks``): the GQA/SWA
-attention block with its KV cache, the pre-norm transformer block with a
-dense or an MoE feed-forward, and the Mamba2 block, each with its
-decode-step variant.
+and MLA attention blocks with their decode caches, the pre-norm transformer
+block with a dense or an MoE feed-forward, and the Mamba2 block, each with
+its decode-step variant.
 
-**The KV cache is written in place.**  ``attn_prefill`` and ``attn_decode``
-write the new keys and values into the cache tensors they are given and
-return the same tensors, where the reference (immutable arrays) returns
-updated copies.  At the full width of h2o-danube-3-4b the cache is about
-3 GB, so a copy per decode step would double its memory and time.  A
-caller that runs two paths from one cache clones it first.
+**The decode cache is written in place.**  ``attn_prefill`` and
+``attn_decode`` (and their MLA forms) write the new entries into the cache
+tensors they are given and return the same tensors, where the reference
+(immutable arrays) returns updated copies.  At the full width of
+h2o-danube-3-4b the cache is about 3 GB, so a copy per decode step would
+double its memory and time.  A caller that runs two paths from one cache
+clones it first.
 
-Not in this slice (each raises ``NotImplementedError`` naming ROADMAP):
-MLA attention (``mla_*``, ROADMAP A.10 (c)) and the int8 KV cache
-(``_kv_quant``, A.10 (e); no config of the repo selects it).
+**The int8 KV cache** (``kv_cache_dtype="int8"``; no config selects it, the
+reference serves it on request) stores K and V as a per-token, per-head
+symmetric int8 payload with the scale ``max|x| / 127`` (floored at 1e-8) in
+the cache's dtype beside it, as the reference's ``_kv_quant`` does; decode
+attends over the dequantised cache.  MLA keeps its latent cache (``ckv``,
+``krope``) in the model dtype whatever ``kv_cache_dtype`` says, as the
+reference does.
+
+**MLA** (DeepSeek-V2) prefills through per-head K and V materialised from
+the latent, query and key heads ``qk_nope_dim + qk_rope_dim`` wide (192 at
+full size) and V ``v_head_dim`` wide (``layers.attention`` pads V for the
+flash kernel); decode is absorbed into the latent space and stays plain
+PyTorch, its einsums in f32, as the reference's jnp is.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,28 +37,18 @@ from . import layers as L
 __all__ = ["attn_apply", "attn_cache_shape", "attn_decode", "attn_init",
            "attn_prefill", "block_apply", "block_decode", "block_init",
            "block_prefill", "mamba_block_apply", "mamba_block_decode",
-           "mamba_block_init", "mamba_state_shape"]
-
-
-def _require_gqa(cfg) -> None:
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            f"{cfg.name} uses MLA attention, not ported yet (ROADMAP A.10 "
-            f"(c))")
-
-
-def _require_dense_cache(cache) -> None:
-    if "k_scale" in cache:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP A.10 (e))")
+           "mamba_block_init", "mamba_state_shape", "mla_apply",
+           "mla_decode", "mla_init", "mla_prefill"]
 
 
 # =============================================================== GQA attention
 
 
 def attn_init(gen: torch.Generator, cfg, dtype):
-    """Projections stored flat (D, H*Dh), as the reference stores them."""
-    _require_gqa(cfg)
+    """Projections stored flat (D, H*Dh), as the reference stores them; an
+    MLA config's are ``mla_init``'s."""
+    if cfg.attention == "mla":
+        return mla_init(gen, cfg, dtype)
     d, kh, dh = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
     h = cfg.num_heads_padded
     dev = gen.device
@@ -108,36 +111,71 @@ def _attend(p, x, cfg, q_chunk, plain):
 
 def attn_apply(p, x, cfg, *, q_chunk: int = 1024, plain: bool = False):
     """Full-sequence attention (train / prefill).  x: (B,S,D)."""
-    _require_gqa(cfg)
+    if cfg.attention == "mla":
+        return mla_apply(p, x, cfg, q_chunk=q_chunk, plain=plain)
     return _attend(p, x, cfg, q_chunk, plain)[0]
+
+
+def _kv_quant(x):
+    """x: (..., Dh) -> (int8 payload, f32 scale (...,)): per row of Dh, the
+    symmetric scale ``max|x| / 127`` floored at 1e-8 and ``x / scale``
+    rounded half to even (``torch.round``, as ``jnp.round`` rounds) and
+    clipped to [-127, 127].  Under ``jit`` XLA turns the reference's
+    division by the constant 127 into a product with f32(1/127), so the
+    port multiplies too: the scales are the jitted reference's bit for
+    bit."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) * (1.0 / 127.0), min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequant(q, scale, dtype):
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def _write_kv(cache, k, v, at: int) -> None:
+    """K and V of positions [at, at + S) into ``cache`` in place, quantised
+    when the cache is int8 (its scales stored in the cache's dtype)."""
+    s = k.shape[1]
+    if "k_scale" in cache:
+        for name, t in (("k", k), ("v", v)):
+            payload, scale = _kv_quant(t)
+            cache[name][:, at:at + s] = payload
+            cache[f"{name}_scale"][:, at:at + s] = scale
+    else:
+        cache["k"][:, at:at + s] = k
+        cache["v"][:, at:at + s] = v
 
 
 def attn_prefill(p, x, cfg, cache, *, q_chunk: int = 1024,
                  plain: bool = False):
     """Full attention over the prompt, writing K/V of positions [0, S) into
     ``cache`` in place.  Returns (out (B,S,D), cache)."""
-    _require_gqa(cfg)
-    _require_dense_cache(cache)
+    if cfg.attention == "mla":
+        return mla_prefill(p, x, cfg, cache, q_chunk=q_chunk, plain=plain)
     out, k, v = _attend(p, x, cfg, q_chunk, plain)
-    s = x.shape[1]
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
+    _write_kv(cache, k, v, 0)
     return out, cache
 
 
 def attn_decode(p, x, cfg, cache, pos: int):
-    """One-token decode.  x: (B,1,D); cache {"k","v"}: (B,S_max,KH,Dh);
-    ``pos`` is the index of the current token, whose K/V are written into
+    """One-token decode.  x: (B,1,D); cache {"k","v"}: (B,S_max,KH,Dh)
+    (int8 with ``k_scale``/``v_scale`` (B,S_max,KH) beside them); ``pos``
+    is the index of the current token, whose K/V are written into
     ``cache`` in place.  Returns (out (B,1,D), cache)."""
-    _require_gqa(cfg)
-    _require_dense_cache(cache)
+    if cfg.attention == "mla":
+        return mla_decode(p, x, cfg, cache, pos)
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    cache["k"][:, pos:pos + 1] = k
-    cache["v"][:, pos:pos + 1] = v
-    o = L.decode_attention(q, cache["k"], cache["v"], pos + 1,
-                           window=_window(cfg))
+    _write_kv(cache, k, v, pos)
+    if "k_scale" in cache:
+        kc = _kv_dequant(cache["k"], cache["k_scale"], x.dtype)
+        vc = _kv_dequant(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        kc, vc = cache["k"], cache["v"]
+    o = L.decode_attention(q, kc, vc, pos + 1, window=_window(cfg))
     hm = _head_mask(cfg, o.dtype, o.device)
     if hm is not None:
         o = o * hm
@@ -145,14 +183,120 @@ def attn_decode(p, x, cfg, cache, pos: int):
 
 
 def attn_cache_shape(cfg, batch: int, s_max: int, dtype, device=None):
-    """Zero KV cache of one attention block."""
-    _require_gqa(cfg)
-    if getattr(cfg, "kv_cache_dtype", "bf16") == "int8":
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP A.10 (e))")
+    """Zero decode cache of one attention block: MLA's latent ``ckv`` (B,
+    S_max, kv_lora_rank) and ``krope`` (B, S_max, qk_rope_dim); else K and
+    V (B, S_max, KH, Dh), int8 with per-token-per-head scales in ``dtype``
+    under ``kv_cache_dtype="int8"``."""
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if cfg.attention == "mla":
+        return {"ckv": zeros((batch, s_max, cfg.kv_lora_rank)),
+                "krope": zeros((batch, s_max, cfg.qk_rope_dim))}
     shape = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if getattr(cfg, "kv_cache_dtype", "bf16") == "int8":
+        return {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                "k_scale": zeros(shape[:3]), "v_scale": zeros(shape[:3])}
+    return {"k": zeros(shape), "v": zeros(shape)}
+
+
+# ================================================================ MLA (DSv2)
+
+
+def mla_init(gen: torch.Generator, cfg, dtype):
+    d, h = cfg.d_model, cfg.num_heads
+    nope, rope, vdim, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim,
+                              cfg.v_head_dim, cfg.kv_lora_rank)
+    return {
+        "wq": L.dense_init(gen, d, (h * (nope + rope),), dtype),
+        "wkv_a": L.dense_init(gen, d, (lora + rope,), dtype),
+        "kv_norm": torch.ones(lora, dtype=dtype, device=gen.device),
+        "wkv_b": L.dense_init(gen, lora, (h * (nope + vdim),), dtype),
+        "wo": L.dense_init(gen, h * vdim, (d,), dtype),
+    }
+
+
+def _mla_qkv(p, x, cfg, positions):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope), the normed latent ckv
+    (B,S,lora), k_rope (B,S,rope)), rope applied."""
+    b, s, _ = x.shape
+    nope, rope, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = x @ p["wkv_a"]  # (B, S, lora + rope)
+    ckv, k_rope = kv_a[..., :lora], kv_a[..., lora:]
+    ckv = L.rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    k_rope = L.apply_rope(k_rope[:, :, None, :], positions,
+                          cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_attend(p, x, cfg, q_chunk, plain):
+    """MLA over the full sequence: (out (B,S,D), ckv, k_rope)."""
+    b, s, _ = x.shape
+    h, nope, vdim = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    positions = torch.arange(s, device=x.device)[None, :]
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, cfg, positions)
+    kv = (ckv @ p["wkv_b"]).reshape(b, s, h, nope + vdim)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, cfg.qk_rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    scale = 1.0 / math.sqrt(nope + cfg.qk_rope_dim)
+    o = L.attention(q, k, v, causal=cfg.causal, q_chunk=q_chunk, scale=scale,
+                    plain=plain)
+    return o.reshape(b, s, h * vdim) @ p["wo"], ckv, k_rope
+
+
+def mla_apply(p, x, cfg, *, q_chunk: int = 1024, plain: bool = False):
+    """Training / prefill MLA: per-head K (``k_nope`` and the shared
+    ``k_rope``) and V materialised from the latent, attention at the scale
+    1/sqrt(nope + rope).  V (``v_head_dim`` wide) is narrower than Q and K;
+    on the kernel path ``layers.attention`` zero-pads it to their width and
+    keeps its first columns, which gives MLA's output exactly."""
+    return _mla_attend(p, x, cfg, q_chunk, plain)[0]
+
+
+def mla_prefill(p, x, cfg, cache, *, q_chunk: int = 1024,
+                plain: bool = False):
+    """``mla_apply`` over the prompt, writing the latent ``ckv`` and
+    ``krope`` of positions [0, S) into ``cache`` in place (the projections
+    run once; the reference computes them twice, to the same values)."""
+    out, ckv, k_rope = _mla_attend(p, x, cfg, q_chunk, plain)
+    s = x.shape[1]
+    cache["ckv"][:, :s] = ckv
+    cache["krope"][:, :s] = k_rope
+    return out, cache
+
+
+def mla_decode(p, x, cfg, cache, pos: int):
+    """Absorbed MLA decode: scores ``q_nope W_uk . ckv + q_rope . krope``
+    in the latent space, values latent until ``W_uv`` and ``wo``; the
+    einsums after the query's absorption in f32, as the reference's.  The
+    current token's ``ckv``/``krope`` are written into ``cache`` at
+    ``pos`` in place."""
+    b = x.shape[0]
+    nope, rope, vdim, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim,
+                              cfg.v_head_dim, cfg.kv_lora_rank)
+    h = cfg.num_heads
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv(p, x, cfg, positions)
+    cache["ckv"][:, pos:pos + 1] = ckv_new
+    cache["krope"][:, pos:pos + 1] = krope_new
+    cc, kc = cache["ckv"].float(), cache["krope"].float()
+    wkb = p["wkv_b"].reshape(lora, h, nope + vdim)
+    w_uk, w_uv = wkb[..., :nope], wkb[..., nope:]
+    q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope, w_uk)  # (B, 1, H, lora)
+    s_lat = torch.einsum("bqhl,bkl->bhqk", q_lat.float(), cc)
+    s_rope = torch.einsum("bqhr,bkr->bhqk", q_rope.float(), kc)
+    s = (s_lat + s_rope) * (1.0 / math.sqrt(nope + rope))
+    kpos = torch.arange(cc.shape[1], device=x.device)
+    s = s.masked_fill(~(kpos < pos + 1), -torch.inf)
+    prob = torch.softmax(s, dim=-1)
+    ctx_lat = torch.einsum("bhqk,bkl->bqhl", prob, cc)
+    o = torch.einsum("bqhl,lhv->bqhv", ctx_lat, w_uv.float()).to(x.dtype)
+    return o.reshape(b, 1, h * vdim) @ p["wo"], cache
 
 
 # ========================================================== transformer block

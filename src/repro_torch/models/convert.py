@@ -37,11 +37,13 @@ def params_from_numpy(cfg, tree, device=None, dtype=torch.float32):
 
     Raises:
         KeyError: a top-level entry the port's model expects is missing.
-        NotImplementedError: a model family the port does not run yet.
     """
     want = ["embed", "final_norm"] + [f"seg{i}" for i, _ in
                                       enumerate(segments_of(cfg))]
-    # (an MoE model's seg0 is its dense first layers, seg1 its MoE layers)
+    # (an MoE model's seg0 is its dense first layers, seg1 its MoE layers;
+    # a hybrid's shared attention blocks are stacked apart)
+    if cfg.family == "hybrid":
+        want.append("shared_attn")
     if not cfg.tie_embeddings:
         want.append("head")
     missing = [k for k in want if k not in tree]

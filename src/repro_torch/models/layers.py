@@ -96,7 +96,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Grouped attention, causal or sliding-window (the reference's
     query-chunked ``attention``).
 
-    q: (B, S, H, Dh); k, v: (B, S, KH, Dh) with H % KH == 0 -> (B, S, H, Dh).
+    q, k: (B, S, H or KH, Dh); v: (B, S, KH, Dv), Dv <= Dh, H % KH == 0
+    -> (B, S, H, Dv).
     On CUDA tensors this launches the flash-attention kernel; on CPU
     tensors, or with ``plain=True``, it runs the plain version in query
     blocks of ``q_chunk``.  Both mask as the reference's kernel does.  For
@@ -106,6 +107,13 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     Only ``causal=False`` with a window and ``S > q_chunk``, which no
     config selects, differs: the reference's windowed query blocks force
     causality there.
+
+    V may be narrower than Q and K (MLA: 128 against 192), as the
+    reference's layer allows.  The plain version takes it as it is; the
+    kernel path zero-pads V to the query width and keeps the first columns
+    of the output.  Each output column is a weighted sum of its own V
+    column, so the padded columns change nothing in the others and come
+    out exactly 0.
 
     Raises:
         ValueError: ``S > q_chunk`` and ``S % q_chunk != 0`` (the reference
@@ -118,8 +126,12 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     if plain:
         return attention_plain(q, k, v, causal=causal, window=window,
                                scale=scale, q_chunk=q_chunk)
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window, scale=scale)
+    dv = v.shape[-1]
+    if dv < q.shape[-1]:
+        v = F.pad(v, (0, q.shape[-1] - dv))
+    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal=causal, window=window, scale=scale)
+    return o if o.shape[-1] == dv else o[..., :dv]
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,

@@ -1,5 +1,6 @@
-"""Full-model assembly for the ``dense``, ``moe``, ``vlm``, ``audio`` and
-``ssm`` families (the port of ``repro.models.model``): parameters stacked
+"""Full-model assembly for every family of the repo (``dense``, ``moe``,
+``vlm``, ``audio``, ``ssm`` and ``hybrid``; the port of
+``repro.models.model``): parameters stacked
 on a leading layer dimension (``params["seg0"]``, as the reference's
 scanned segments store them), embeddings, the two frontend stubs and the
 head, the full-sequence ``forward`` and ``loss_fn`` of training, the decode
@@ -9,7 +10,12 @@ the reference scans.
 Segments per family, as the reference lays them out: ``dense``, ``vlm``
 and ``audio`` one ``("dense", L)``; ``moe`` ``("dense",
 first_dense_layers)`` then ``("moe", L - first_dense_layers)``; ``ssm``
-one ``("mamba", L)``.  A VLM's batch carries ``embeddings`` (B,
+one ``("mamba", L)``; ``hybrid`` (zamba2-7b) one ``("zamba", L)`` of Mamba2
+blocks plus ``params["shared_attn"]``, ``n_shared_attn_blocks`` stacked
+dense transformer blocks: before layer ``li`` with ``li %
+hybrid_attn_every == 0`` the shared block ``(li // every) % n_shared``
+runs, each such application with a KV cache of its own
+(``cache["shared_attn"]``).  A VLM's batch carries ``embeddings`` (B,
 frontend_seq, D), the patch embeddings put before its text tokens; its
 loss is over the text tail, and decode positions after a prefill start at
 ``frontend_seq`` plus the text tokens.  An audio model's batch is its frame
@@ -23,11 +29,15 @@ the SSD and flash kernels launch again there); ``"dots"`` also keeps the
 outputs of the plain matrix products (``aten.mm``/``addmm``, the
 reference's ``checkpoint_dots_with_no_batch_dims``) through a selective
 checkpoint; ``"none"`` keeps everything.  The gradients are the same under
-all three.
+all three.  A hybrid layer's shared-attention application and its Mamba
+block are checkpointed as one body, as the reference checkpoints them; the
+shared blocks' gradients sum over their applications, as under
+``jax.grad``.
 
 Reference behaviour kept on purpose: ``prefill`` leaves the Mamba caches
-untouched (the reference does not capture the SSM state from a prompt, so
-decode starts from a zero state); a prompt whose length is not a multiple
+untouched, a hybrid's too, and fills only its shared-attention caches (the
+reference does not capture the SSM state from a prompt, so decode starts
+from a zero state); a prompt whose length is not a multiple
 of ``cfg.ssm_chunk`` is refused by the SSD scan, and an attention prompt
 longer than ``q_chunk`` that is not a multiple of it by the attention.
 
@@ -36,9 +46,6 @@ longer than ``q_chunk`` that is not a multiple of it by the attention.
 at the positions they fill, Mamba states at every decode step) and hand
 back a dict holding the same tensors.  A caller that runs two paths gives
 each its own cache (or clones one first).
-
-The hybrid family (zamba2-7b, ROADMAP A.10 (d)) and MLA attention
-(deepseek-v2-lite-16b, A.10 (c)) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,22 +67,11 @@ Params = Dict[str, Any]
 
 
 def segments_of(cfg) -> Tuple[Tuple[str, int], ...]:
-    """The model's segments of homogeneous blocks, as (kind, layers).
-
-    Raises:
-        NotImplementedError: the hybrid family (ROADMAP A.10 (d)) or MLA
-            attention (A.10 (c)).
-    """
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name} is a hybrid model, not ported yet (ROADMAP A.10 "
-            f"(d))")
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            f"{cfg.name} uses MLA attention, not ported yet (ROADMAP A.10 "
-            f"(c))")
+    """The model's segments of homogeneous blocks, as (kind, layers)."""
     if cfg.family == "ssm":
         return (("mamba", cfg.num_layers),)
+    if cfg.family == "hybrid":
+        return (("zamba", cfg.num_layers),)
     if cfg.is_moe:
         fd = cfg.first_dense_layers
         return ((("dense", fd),) if fd else ()) + (("moe",
@@ -125,9 +121,13 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> Params:
         if kind in ("dense", "moe"):
             fn = functools.partial(B.block_init, gen, cfg, dtype,
                                    moe=kind == "moe")
-        else:
+        else:  # the Mamba backbone of ``ssm`` and ``hybrid``
             fn = functools.partial(B.mamba_block_init, gen, cfg, dtype)
         p[f"seg{i}"] = _stack_init(fn, count)
+    if cfg.family == "hybrid":
+        p["shared_attn"] = _stack_init(
+            functools.partial(B.block_init, gen, cfg, dtype),
+            cfg.n_shared_attn_blocks)
     p["final_norm"] = torch.ones(cfg.d_model, dtype=dtype, device=gen.device)
     if not cfg.tie_embeddings:
         p["head"] = L.dense_init(gen, cfg.d_model, (cfg.vocab_padded,), dtype)
@@ -138,7 +138,6 @@ def embed_inputs(cfg, params: Params, batch) -> torch.Tensor:
     """Token embedding, or the frontend stub's: an audio model's batch is
     its frame embeddings; a VLM's patch embeddings, cast to the token
     embeddings' dtype, come before its text tokens."""
-    segments_of(cfg)  # raises for a family not ported
     if cfg.frontend == "audio_frames":
         return batch["embeddings"]
     tok = params["embed"][batch["tokens"]]
@@ -156,6 +155,31 @@ def _mask_pad_logits(cfg, logits):
     neg = torch.tensor(torch.finfo(torch.float32).min, dtype=logits.dtype,
                        device=logits.device)
     return torch.where(col < cfg.vocab_size, logits, neg)
+
+
+def _n_attn_apps(cfg) -> int:
+    """A hybrid model's shared-attention applications: one every
+    ``hybrid_attn_every`` layers from layer 0."""
+    return -(-cfg.num_layers // cfg.hybrid_attn_every)
+
+
+def _shared_at(cfg, li: int):
+    """(application, shared block) run before hybrid layer ``li``, or
+    None."""
+    every = cfg.hybrid_attn_every
+    if li % every:
+        return None
+    return li // every, (li // every) % cfg.n_shared_attn_blocks
+
+
+def _zamba_body(lp, shared, li, x, *, cfg, q_chunk, plain):
+    """Hybrid layer ``li``: its shared-attention application, if any, then
+    its Mamba block."""
+    at = _shared_at(cfg, li)
+    if at is not None:
+        x, _ = B.block_apply(shared[at[1]], x, cfg, q_chunk=q_chunk,
+                             plain=plain)
+    return B.mamba_block_apply(lp, x, cfg, plain=plain)
 
 
 def _logits(cfg, params, x):
@@ -216,17 +240,24 @@ def forward(cfg, params: Params, batch, *, remat: str = "full",
     Raises:
         ValueError: an unknown ``remat``; a sequence length the SSD chunk
             or the attention's query chunk does not divide.
-        NotImplementedError: a family the port does not run yet.
     """
     x = embed_inputs(cfg, params, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, count) in enumerate(segments_of(cfg)):
-        for lp in _unstack(params[f"seg{i}"], count):
+        if kind == "zamba":
+            shared = _unstack(params["shared_attn"],
+                              cfg.n_shared_attn_blocks)
+        for li, lp in enumerate(_unstack(params[f"seg{i}"], count)):
             if kind in ("dense", "moe"):
                 body = functools.partial(B.block_apply, lp, cfg=cfg,
                                          q_chunk=q_chunk, plain=plain)
                 x, aux = _remat(body, remat)(x)
                 aux_total = aux_total + aux
+            elif kind == "zamba":
+                body = functools.partial(_zamba_body, lp, shared, li,
+                                         cfg=cfg, q_chunk=q_chunk,
+                                         plain=plain)
+                x = _remat(body, remat)(x)
             else:
                 body = functools.partial(B.mamba_block_apply, lp, cfg=cfg,
                                          plain=plain)
@@ -261,18 +292,26 @@ def loss_fn(cfg, params: Params, batch, *, remat: str = "full",
 
 def init_cache(cfg, batch: int, s_max: int, dtype=torch.float32,
                device=None):
-    """Per-segment stacked decode caches: (layers, B, s_max, KH, Dh) K and V
-    for attention segments (dense and MoE), zero Mamba states for SSM
-    segments."""
+    """Per-segment stacked decode caches: each layer's attention cache
+    (``blocks.attn_cache_shape``: K and V, int8 ones with their scales, or
+    MLA's latent) for attention segments (dense and MoE), zero Mamba states
+    for SSM and hybrid segments, and a hybrid model's attention cache per
+    shared-attention application under ``"shared_attn"``."""
+    def stacked(one, count):
+        return {k: torch.zeros((count,) + tuple(v.shape), dtype=v.dtype,
+                               device=device) for k, v in one.items()}
+
     cache: Dict[str, Any] = {}
     for i, (kind, count) in enumerate(segments_of(cfg)):
         if kind in ("dense", "moe"):
             one = B.attn_cache_shape(cfg, batch, s_max, dtype, device="meta")
         else:
             one = B.mamba_state_shape(cfg, batch, dtype, device="meta")
-        cache[f"seg{i}"] = {k: torch.zeros((count,) + tuple(v.shape),
-                                           dtype=v.dtype, device=device)
-                            for k, v in one.items()}
+        cache[f"seg{i}"] = stacked(one, count)
+        if kind == "zamba":
+            cache["shared_attn"] = stacked(
+                B.attn_cache_shape(cfg, batch, s_max, dtype, device="meta"),
+                _n_attn_apps(cfg))
     return cache
 
 
@@ -281,7 +320,8 @@ def prefill(cfg, params: Params, cache, batch, *, q_chunk: int = 1024,
     """Run a full prompt; returns (last-token logits (B, V), cache).
 
     Attention segments write K/V of every prompt position into ``cache`` in
-    place; Mamba segments leave theirs untouched, as the reference's do.
+    place, a hybrid's shared-attention applications into theirs; Mamba
+    segments leave their states untouched, as the reference's do.
     ``plain=True`` runs the attention's and the SSD scan's plain versions on
     every device (the on-card reference for the kernel path).  A VLM's
     prompt is its patch embeddings and then its tokens, so its decode
@@ -296,8 +336,14 @@ def prefill(cfg, params: Params, cache, batch, *, q_chunk: int = 1024,
                 x, _ = B.block_prefill(lp, x, cfg,
                                        _layer(cache[f"seg{i}"], li),
                                        q_chunk=q_chunk, plain=plain)
-            else:
-                x = B.mamba_block_apply(lp, x, cfg, plain=plain)
+                continue
+            at = _shared_at(cfg, li) if kind == "zamba" else None
+            if at is not None:
+                x, _ = B.block_prefill(
+                    _layer(params["shared_attn"], at[1]), x, cfg,
+                    _layer(cache["shared_attn"], at[0]), q_chunk=q_chunk,
+                    plain=plain)
+            x = B.mamba_block_apply(lp, x, cfg, plain=plain)
     return _head(cfg, params, x[:, -1:])[:, 0], dict(cache)
 
 
@@ -306,8 +352,8 @@ def decode_step(cfg, params: Params, cache, tokens, pos: int):
     token being generated (unused by SSM layers, as in the reference).
 
     Returns (logits (B, V), cache).  The cache is written in place:
-    attention K/V at ``pos``, Mamba states in full; the same tensors come
-    back.
+    attention K/V at ``pos`` (a hybrid's per shared-attention
+    application), Mamba states in full; the same tensors come back.
     """
     x = params["embed"][tokens]
     for i, (kind, count) in enumerate(segments_of(cfg)):
@@ -317,6 +363,11 @@ def decode_step(cfg, params: Params, cache, tokens, pos: int):
             if kind in ("dense", "moe"):
                 x, _ = B.block_decode(lp, x, cfg, lc, pos)
                 continue
+            at = _shared_at(cfg, li) if kind == "zamba" else None
+            if at is not None:
+                x, _ = B.block_decode(_layer(params["shared_attn"], at[1]), x,
+                                      cfg, _layer(cache["shared_attn"], at[0]),
+                                      pos)
             x, st = B.mamba_block_decode(lp, x, cfg, lc)
             for k, t in st.items():
                 lc[k].copy_(t)

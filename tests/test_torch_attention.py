@@ -6,7 +6,8 @@ Kernel function: the port's ``flash_attention`` on CPU tensors (which runs
 interpret mode, as ``tests/test_kernels.py`` runs it, and against its dense
 oracle ``attention_ref``, over every case of that suite's ``ATTN_SWEEP``
 plus h2o-danube-3-4b's head shape (D = 120, GQA 4:1, a window shorter than
-the sequence).  Tolerances are that suite's: 2e-5 (rtol and atol) in f32,
+the sequence) and three head dimensions of the CUDA wrapper's wide entry
+(136, 192, 256).  Tolerances are that suite's: 2e-5 (rtol and atol) in f32,
 2e-2 in bf16.
 
 Kernel numerics: the CUDA kernel cannot run here, so plain-PyTorch
@@ -44,6 +45,10 @@ from test_kernels import ATTN_SWEEP
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 H2O_CASE = (1, 256, 8, 2, 120, True, 64)  # D=120, GQA 4:1, window < S
+# head dimensions the CUDA wrapper sends to its wide entry (136 to 256):
+# MLA's 192, and both ends with GQA, a window and no mask
+WIDE_CASES = [(1, 128, 4, 2, 136, True, 48), (1, 128, 2, 2, 192, True, 0),
+              (1, 64, 4, 1, 256, False, 0)]
 
 
 def qkv(b, s, h, kh, d, seed=0):
@@ -60,7 +65,7 @@ def both(arrays, dtype):
 
 
 @pytest.mark.parametrize("b,s,h,kh,d,causal,window",
-                         ATTN_SWEEP + [H2O_CASE])
+                         ATTN_SWEEP + [H2O_CASE] + WIDE_CASES)
 def test_kernel_function_matches_reference_f32(b, s, h, kh, d, causal,
                                                window):
     (jq, jk, jv), (q, k, v) = both(qkv(b, s, h, kh, d, seed=s + d), "float32")

@@ -10,7 +10,11 @@ contraction); the window-vet kernel's cuts equal the plain version's on
 every row, its other lanes agree to 1e-5, and a row's lanes are the same
 alone and padded to 4096.  SSD and flash attention take the reference
 suite's tolerances (tests/test_kernels.py): SSD 2e-4 in f32 and 5e-2 in
-bf16, attention 2e-5 in f32 and 2e-2 in bf16; model prefill logits 1e-4.
+bf16, attention 2e-5 in f32 and 2e-2 in bf16, the wide entry (D 136-256)
+too, and MLA's V zero-padded for it bit for bit the padded call's first
+columns, the padded ones exactly 0; model prefill logits 1e-4, the
+reduced MLA and hybrid models' caches too, MLA's routing under the
+routing contract.
 Gradients through the kernels' autograd routes: each input gradient within
 1e-4 of its largest plain-autograd gradient (the routes' backward is the
 plain version's, so the two differ only where the saved inputs do: not at
@@ -342,15 +346,102 @@ def test_flash_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# the wide entry (D from 136 to 256, CUDA cores, P at f32): MLA's 192 at
+# full width, the entry's edges 136 and 256, MHA and GQA, causal, windowed
+# (a window that is no multiple of the 32-key tile) and bidirectional, a
+# ragged S, both types
+WIDE_FLASH_CASES = {
+    "mla_d192_causal_f32": ((2, 512, 16, 16, 192), True, 0, torch.float32,
+                            2e-5),
+    "mla_d192_causal_bf16": ((2, 512, 16, 16, 192), True, 0, torch.bfloat16,
+                             2e-2),
+    "d136_gqa_window_f32": ((1, 300, 8, 2, 136), True, 70, torch.float32,
+                            2e-5),
+    "d136_gqa_window_bf16": ((1, 300, 8, 2, 136), True, 70, torch.bfloat16,
+                             2e-2),
+    "d256_bidirectional_f32": ((1, 200, 4, 4, 256), False, 0, torch.float32,
+                               2e-5),
+    "d256_bidirectional_bf16": ((1, 200, 4, 4, 256), False, 0,
+                                torch.bfloat16, 2e-2),
+    "d192_window_not_causal_f32": ((1, 256, 4, 2, 192), False, 50,
+                                   torch.float32, 2e-5),
+    "d256_mqa_ragged_f32": ((2, 97, 4, 1, 256), True, 0, torch.float32, 2e-5),
+    "d144_single_query_f32": ((2, 1, 4, 2, 144), True, 0, torch.float32,
+                              2e-5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_FLASH_CASES))
+def test_wide_flash_entry_matches_plain(cuda, case):
+    """The wide entry against the plain version on the same CUDA tensors:
+    one launch, counted in ``LAUNCHES`` and ``WIDE_LAUNCHES``."""
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.flash_attention import ops as fa
+    shape, causal, window, dtype, tol = WIDE_FLASH_CASES[case]
+    q, k, v = flash_inputs(shape, dtype, cuda)
+    before, wide = fa.LAUNCHES, fa.WIDE_LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert (fa.LAUNCHES, fa.WIDE_LAUNCHES) == (before + 1, wide + 1)
+    want = attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_narrow_entries_do_not_count_as_wide(cuda):
+    from repro_torch.kernels.flash_attention import ops as fa
+    q, k, v = flash_inputs((1, 64, 4, 2, 128), torch.float32, cuda)
+    before, wide = fa.LAUNCHES, fa.WIDE_LAUNCHES
+    fa.flash_attention(q, k, v)
+    assert (fa.LAUNCHES, fa.WIDE_LAUNCHES) == (before + 1, wide)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_v_padding_through_the_wide_entry(cuda, dtype):
+    """MLA's prefill shape at a short S: Q and K of 192, V of 128 padded to
+    192 for the kernel.  The padded columns come out exactly 0 and the
+    first 128 are the plain attention over the unpadded V; the autograd
+    route gives the plain gradients."""
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(3)
+    q, k = (torch.randn((2, 256, 16, 192), generator=g).to(cuda, dtype)
+            for _ in range(2))
+    v = torch.randn((2, 256, 16, 128), generator=g).to(cuda, dtype)
+    scale = 192 ** -0.5
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    padded = fa.flash_attention(q, k, torch.nn.functional.pad(v, (0, 64)),
+                                scale=scale)
+    assert not padded[..., 128:].any()
+    wide = fa.WIDE_LAUNCHES
+    got = L.attention(q, k, v, scale=scale)
+    assert fa.WIDE_LAUNCHES == wide + 1 and got.shape == v.shape
+    want = attention_plain(q, k, v, scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got, padded[..., :128], rtol=0, atol=0)
+    if dtype == torch.float32:
+        w = torch.randn(v.shape, device=cuda)
+        _, a = grads_of(lambda *t: L.attention(*t, scale=scale), (q, k, v), w)
+        _, b = grads_of(lambda *t: attention_plain(*t, scale=scale),
+                        (q, k, v), w)
+        for name, x, y in zip("qkv", a, b):
+            err = float((x - y).abs().max())
+            assert err <= 1e-4 * float(y.abs().max()), name
+
+
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
     from repro_torch.kernels.flash_attention import ops as fa
     q, k, v = flash_inputs((1, 64, 4, 2, 32), torch.float32, cuda)
-    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
         fa.flash_attention(q[..., :28].contiguous(), k[..., :28].contiguous(),
                            v[..., :28].contiguous())
-    big = flash_inputs((1, 64, 4, 2, 136), torch.float32, cuda)
-    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+    big = flash_inputs((1, 64, 4, 2, 264), torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
         fa.flash_attention(*big)
+    wide = flash_inputs((1, 64, 4, 2, 196), torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        fa.flash_attention(*wide)
     with pytest.raises(ValueError, match="not a multiple of KV heads"):
         fa.flash_attention(q[:, :, :3].contiguous(), k, v)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -676,3 +767,74 @@ def test_hubert_train_step_on_the_card_matches_the_cpu(cuda):
             continue
         err = float((a.cpu() - b).abs().max())
         assert err <= 1e-3 * float(b.abs().max()), name
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-7b"])
+def test_mla_and_hybrid_prefill_kernel_matches_plain_path(cuda, arch):
+    """The reduced MLA and hybrid prefills through the kernels (flash with
+    V padded for MLA; SSD in every Mamba layer and flash in every
+    shared-attention application for the hybrid) against the plain path
+    on the same card and weights, each path with its own cache; the MoE
+    routing of the MLA model under the routing contract."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as sd
+    from repro_torch.launch.serve import serve_inputs
+    from repro_torch.models import init_cache, prefill
+    from repro_torch.models import layers as L
+    cfg = get_config(arch).reduced()
+    params, prompts = serve_inputs(cfg, batch=2, prompt_len=64, seed=1,
+                                   dtype=torch.float32, device=cuda)
+    f0, s0 = fa.LAUNCHES, sd.LAUNCHES
+    with L.recording(L.RoutingLog()) as log:
+        got, ck = prefill(cfg, params, init_cache(cfg, 2, 64, device=cuda),
+                          {"tokens": prompts})
+    if arch == "zamba2-7b":
+        assert (fa.LAUNCHES - f0, sd.LAUNCHES - s0) == (2, cfg.num_layers)
+    else:
+        assert (fa.LAUNCHES - f0, sd.LAUNCHES - s0) == (cfg.num_layers, 0)
+    with L.recording(L.RoutingLog(force=log if log.calls else None)) as fl:
+        want, cp = prefill(cfg, params, init_cache(cfg, 2, 64, device=cuda),
+                           {"tokens": prompts}, plain=True)
+    if log.calls:
+        assert L.routing_flips(fl, log)["worst_gap"] <= 1e-4
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for seg in cp:
+        for name in cp[seg]:
+            torch.testing.assert_close(ck[seg][name], cp[seg][name],
+                                       rtol=1e-4, atol=1e-4)
+
+
+def test_hybrid_loss_and_gradients_on_the_card_match_the_cpu(cuda):
+    """The reduced zamba2-7b's loss and every gradient leaf (both shared
+    blocks' included) through the kernels on the card against the CPU:
+    loss 1e-5 relative, each leaf within 1e-3 of its largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as sd
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.tree import leaves_with_paths, tree_map
+    cfg = get_config("zamba2-7b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticTokenPipeline(cfg.vocab_size, 2, 64).batch_at(0).items()}
+    out = {}
+    for where in ("cpu", cuda):
+        live = tree_map(lambda t: t.to(where).requires_grad_(), params)
+        named = leaves_with_paths(live)
+        f0, s0 = fa.LAUNCHES, sd.LAUNCHES
+        loss, _ = loss_fn(cfg, live, {k: v.to(where)
+                                      for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+        out[str(where)] = (loss.item(), (fa.LAUNCHES - f0, sd.LAUNCHES - s0),
+                           {n: g.cpu() for (n, _), g in zip(named, grads)})
+    (lc, nc, gc), (lk, nk, gk) = out["cpu"], out[str(cuda)]
+    # the forward and remat="full"'s recompute: two flash launches per
+    # shared-attention application, two SSD launches per layer
+    assert nc == (0, 0) and nk == (4, 2 * cfg.num_layers)
+    assert abs(lk - lc) <= 1e-5 * abs(lc)
+    for name, g in gc.items():
+        assert bool(gk[name].abs().max() > 0), name
+        err = float((gk[name] - g).abs().max())
+        assert err <= 1e-3 * float(g.abs().max()), name

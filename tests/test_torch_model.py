@@ -250,22 +250,43 @@ def test_params_from_numpy_refuses_a_tree_that_lacks_an_entry():
         params_from_numpy(cfg, tree)
 
 
-def test_unported_families_and_layouts_raise():
-    # MLA attention (A.10 (c)) and the hybrid family (A.10 (d)); the MoE,
-    # VLM and audio families run (tests/test_torch_moe.py,
-    # tests/test_torch_frontends.py)
-    for name, what in (("deepseek-v2-lite-16b", "MLA"),
-                       ("zamba2-7b", "hybrid")):
-        cfg = get_config(name).reduced()
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-            init_params(cfg, torch.Generator())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_cache(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        init_cache(dataclasses.replace(get_config("h2o-danube-3-4b")
-                                       .reduced(), kv_cache_dtype="int8"),
-                   1, 8)
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_every_config_runs_reduced_on_the_cpu(name):
+    """``init_params``, ``init_cache``, ``forward``, ``loss_fn``,
+    ``prefill`` and ``decode_step`` on each config's ``reduced()`` form
+    (the decoder ones, with the int8 KV cache too): finite values of the
+    expected shapes."""
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.models import forward, loss_fn
+    cfg = get_config(name).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    fs = max(cfg.frontend_seq, 0)
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticTokenPipeline(
+        cfg.vocab_size, 2, 16, d_model=cfg.d_model, frontend=cfg.frontend,
+        frontend_seq=fs).batch_at(0).items()}
+    logits, _ = forward(cfg, params, batch, remat="none")
+    assert logits.shape[-1] == cfg.vocab_padded
+    loss, _ = loss_fn(cfg, params, batch)
+    assert bool(torch.isfinite(loss))
+    if not cfg.supports_decode or cfg.frontend == "audio_frames":
+        return
+    for kv in ("bf16", "int8"):
+        c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        cache = init_cache(c, 2, fs + 16 + 2)
+        out, cache = prefill(c, params, cache, batch)
+        tok = torch.argmax(out, -1)[:, None]
+        out, _ = decode_step(c, params, cache, tok, fs + 16)
+        assert out.shape == (2, cfg.vocab_padded)
+        assert bool(torch.isfinite(out[:, :cfg.vocab_size]).all())
+
+
+def test_the_split_projection_layout_raises():
+    # ssm_split_proj is a TPU sharding layout (A.13); every family and the
+    # int8 KV cache run (tests/test_torch_mla.py, test_torch_hybrid.py,
+    # test_torch_kv_int8.py)
     split = dataclasses.replace(get_config("mamba2-130m").reduced(),
                                 ssm_split_proj=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
         L.mamba_init(torch.Generator(), split, torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+        init_params(split, torch.Generator())
