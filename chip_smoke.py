@@ -16,10 +16,10 @@ the port's main paths on one GPU, in thirteen phases:
    also at the ``serve_moe`` and ``frontends`` phases' three shapes in f32
    (deepseek-moe-16b's 16 x 128 causal, internvl2-26b's 48/8 x 128 causal,
    hubert-xlarge's bidirectional 16 x 80, zamba2-7b's 32 x 112 causal),
-   the flash kernel's wide entry (D above 128, on the CUDA cores) at
-   deepseek-v2-lite-16b's MLA prefill shape (16 heads, Q and K of 192, V
-   of 128 zero-padded to 192: the padded output columns exactly 0) and at
-   D = 136 (GQA, windowed) and 256 (bidirectional, MHA and GQA) in f32
+   the flash kernel's wide entries (D above 128, ``wgmma``, V at its own
+   width) at deepseek-v2-lite-16b's MLA prefill shape (16 heads, Q and K
+   of 192, V of 128) and at D = 136 (GQA, windowed) and 256
+   (bidirectional, MHA and GQA; V as wide as D, two V panels) in f32
    and bf16, SSD also at zamba2-7b's shape (112 heads of 64, state 64,
    2048 positions) in f32 and bf16; flash attention's
    and SSD's bounds are on the tensor cores (bf16 at 989 TFLOP/s, TF32 at
@@ -259,13 +259,18 @@ LOGIT_TOL = 1e-3
 # it (8.5e-4) on seed 0.
 HYBRID_CACHE_TOL = 5e-3
 LAYER_TOL = 1e-4
-# flash-attention kernel functions (csrc/flash_attention.cu) -> C entry
-FLASH_KERNELS = {"flash_wgmma_bf16": "flash_attention_bf16",
-                 "flash_wgmma_tf32": "flash_attention_f32"}
-# the wide entry's instantiations (D from 136 to 256, CUDA cores) -> a
-# substring of their mangled names
-FLASH_WIDE_KERNELS = {"flash_wide_f32": "flash_wide_kernelIfE",
-                      "flash_wide_bf16": "flash_wide_kernelI13__nv_bfloat16"}
+# flash-attention kernels (csrc/flash_attention.cu: the bf16 template at
+# the panels and key tile that D sets, the f32 kernel of D up to 128 and
+# the f32 template above it) -> a substring of their mangled names: those
+# of D up to 128 (the C entries flash_attention_bf16 and _f32), then the
+# wide entries' (D from 136 to 256)
+FLASH_KERNELS = {"flash_wgmma_bf16_2_128": "flash_wgmma_bf16ILi2ELi128E",
+                 "flash_wgmma_tf32": "flash_wgmma_tf32"}
+FLASH_WIDE_KERNELS = {
+    "flash_wgmma_wide_tf32_6_32": "flash_wgmma_wide_tf32ILi6ELi32E",
+    "flash_wgmma_wide_tf32_8_16": "flash_wgmma_wide_tf32ILi8ELi16E",
+    "flash_wgmma_bf16_3_128": "flash_wgmma_bf16ILi3ELi128E",
+    "flash_wgmma_bf16_4_64": "flash_wgmma_bf16ILi4ELi64E"}
 # SSD kernel instantiations (csrc/ssd.cu: the prologue and the scan) -> a
 # substring of their mangled names
 SSD_KERNELS = {"ssd_gram_f32": "ssd_gram_kernelIf",
@@ -279,10 +284,9 @@ WINDOWVET_KERNELS = {**{f"windowvet_warp_e{e}": f"windowvet_warp_kernelILi{e}EE"
                      "windowvet_block": "windowvet_block_kernel"}
 # kernel functions whose registers and spills the ``compiled`` line reports
 # -> (their source in csrc/, a substring of their mangled names)
-PTXAS_KERNELS = {"flash_wgmma_bf16": ("flash_attention.cu", "flash_wgmma_bf16"),
-                 "flash_wgmma_tf32": ("flash_attention.cu", "flash_wgmma_tf32"),
-                 **{k: ("flash_attention.cu", v)
-                    for k, v in FLASH_WIDE_KERNELS.items()},
+PTXAS_KERNELS = {**{k: ("flash_attention.cu", v)
+                    for k, v in {**FLASH_KERNELS,
+                                 **FLASH_WIDE_KERNELS}.items()},
                  **{k: ("ssd.cu", v) for k, v in SSD_KERNELS.items()},
                  "changepoint_kernel": ("changepoint.cu", "changepoint_kernel"),
                  **{k: ("windowvet.cu", v)
@@ -395,8 +399,9 @@ def ptxas_report(checks) -> dict:
 
 def sass_counts(lib_path) -> dict:
     """Tensor-core instructions of each flash and SSD kernel in the built
-    library (``cuobjdump -sass``): HGMMA is wgmma, HMMA is mma.sync.  Both
-    flash kernels must hold HGMMA, both SSD kernels HMMA."""
+    library (``cuobjdump -sass``): HGMMA is wgmma, HMMA is mma.sync.  Every
+    flash kernel, the wide ones too, must hold HGMMA, both SSD kernels
+    HMMA."""
     from repro_torch.kernels import runtime
     tool = (shutil.which("cuobjdump")
             or str(Path(runtime._nvcc()).parent / "cuobjdump"))
@@ -406,7 +411,8 @@ def sass_counts(lib_path) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = next((k for k, pat in {**{f: f for f in FLASH_KERNELS},
+            name = next((k for k, pat in {**FLASH_KERNELS,
+                                          **FLASH_WIDE_KERNELS,
                                           **SSD_KERNELS}.items()
                          if pat in m.group(1)), None)
             if name:
@@ -416,7 +422,8 @@ def sass_counts(lib_path) -> dict:
             for op in ("HGMMA", "HMMA"):
                 if re.search(rf"\b{op}\b", line):
                     out[name][op] += 1
-    require(all(out.get(k, {}).get("HGMMA", 0) > 0 for k in FLASH_KERNELS),
+    require(all(out.get(k, {}).get("HGMMA", 0) > 0
+                for k in (*FLASH_KERNELS, *FLASH_WIDE_KERNELS)),
             f"a flash kernel has no HGMMA: {out}")
     require(all(out.get(k, {}).get("HMMA", 0) > 0 for k in SSD_KERNELS),
             f"an SSD kernel has no HMMA: {out}")
@@ -800,8 +807,8 @@ FLASH_VLM = (2, 2048, 48, 8, 128)
 FLASH_HUBERT = (2, 1024, 16, 16, 80)
 # zamba2-7b's shared attention at serve_hybrid's prompt (32 MHA heads of
 # 112, causal, 2048 positions), and deepseek-v2-lite-16b's MLA prefill at
-# serve_mla's: 16 heads, Q and K of 128 + 64 = 192, V of 128 (padded to 192
-# for the wide entry), causal, 2048 positions
+# serve_mla's: 16 heads, Q and K of 128 + 64 = 192, V of 128 (the wide
+# entry takes it at that width), causal, 2048 positions
 FLASH_ZAMBA = (2, 2048, 32, 32, 112)
 FLASH_MLA = (2, 2048, 16, 16, 192)
 MLA_V_DIM = 128
@@ -812,21 +819,18 @@ def flash_cases(dev, lib, stream_ptr) -> list:
     (f32 and bf16, causal with window 4096), causal (f32 and bf16) and
     bidirectional at S = 2048, a ragged S = 200, the serve_moe, frontends
     and train phases' three shapes and serve_hybrid's (D = 112) in f32; then
-    the wide entry (D above 128): serve_mla's MLA shape with V of 128
-    zero-padded to 192 (f32 and bf16; the padded output columns exactly 0,
-    the first 128 held against the plain attention over the unpadded V),
-    and D = 136 (GQA 16/4, window 300) and D = 256 (bidirectional, MHA and
-    GQA 8/2) in both types.  Elementwise |a - b| <= tol + tol |b|.
+    the wide entries (D above 128), V given at its own width: serve_mla's
+    MLA shape with V of 128 (f32 and bf16), and D = 136 (GQA 16/4, window
+    300) and D = 256 (bidirectional, MHA and GQA 8/2) with V as wide as D
+    (two V panels) in both types.  Elementwise |a - b| <= tol + tol |b|.
     ``library_ms`` is one ``scaled_dot_product_attention`` call on the same
     inputs and mask (KV heads repeated to the query heads beforehand, as
-    its fused backends take them; MLA's V unpadded at 128).  The bound
-    counts the live pairs' operations (2 (D + Dv) a pair) at the card's
-    peak for the type, whichever entry runs: bf16 on the tensor cores
-    (989 TFLOP/s), f32 as three TF32 passes there (``TF32X3_OPS_PER_S``).
-    ``f32_unit_bound_ms`` gives the bound on the f32 CUDA cores (67
-    TFLOP/s) beside it, for the f32 rows and for the wide entry, which runs
-    there in both types.  Bytes: Q, K and V read
-    and O written once at their own widths."""
+    its fused backends take them).  The bound counts the live pairs'
+    operations (2 (D + Dv) a pair) at the card's peak for the type: bf16 on
+    the tensor cores (989 TFLOP/s), f32 as three TF32 passes there
+    (``TF32X3_OPS_PER_S``).  ``f32_unit_bound_ms`` gives the f32 rows'
+    bound on the f32 CUDA cores (67 TFLOP/s) beside it.  Bytes: Q, K and V
+    read and O written once at their own widths."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_plain, live_pairs
@@ -845,8 +849,8 @@ def flash_cases(dev, lib, stream_ptr) -> list:
              ("vlm_causal_2048", FLASH_VLM, True, 0, f32),
              ("hubert_bidirectional_1024", FLASH_HUBERT, False, 0, f32),
              ("zamba_causal_2048", FLASH_ZAMBA, True, 0, f32),
-             # the wide entry: serve_mla's shape with V padded, and its
-             # edges D = 136 and 256
+             # the wide entries: serve_mla's shape with V at 128, and
+             # their edges D = 136 and 256
              ("mla_wide_causal_2048", FLASH_MLA, True, 0, f32, MLA_V_DIM),
              ("mla_wide_causal_2048_bf16", FLASH_MLA, True, 0, bf16,
               MLA_V_DIM),
@@ -868,33 +872,31 @@ def flash_cases(dev, lib, stream_ptr) -> list:
         q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
                    for sh in ((b, s, h, d), (b, s, kh, d), (b, s, kh, dv)))
         scale = 1.0 / d ** 0.5
-        vk = F.pad(v, (0, d - dv)).contiguous() if dv < d else v
         wide = fa.WIDE_LAUNCHES
-        o_k = fa.flash_attention(q, k, vk, causal=causal, window=window,
+        o_k = fa.flash_attention(q, k, v, causal=causal, window=window,
                                  scale=scale)
         require(fa.WIDE_LAUNCHES - wide == int(d > 128),
                 f"flash {name}: D = {d} ran the wrong entry")
         o_p = attention_plain(q, k, v, causal=causal, window=window,
                               scale=scale)
         torch.cuda.synchronize()
-        if dv < d:  # each output column weighs its own V column only
-            require(not bool(o_k[..., dv:].any()),
-                    f"flash {name}: the padded V columns are not 0")
-            o_k = o_k[..., :dv]
+        require(o_k.shape == o_p.shape == (b, s, h, dv),
+                f"flash {name}: output shape {tuple(o_k.shape)}")
         a, ref = o_k.float(), o_p.float()
         require(bool(torch.isfinite(a).all()), f"flash {name}: non-finite")
         err = (a - ref).abs()
         worst = float((err / (tol + tol * ref.abs())).max())
         require(worst <= 1.0, f"flash {name}: {worst:.3g} x the tolerance "
                               f"{tol}")
-        o_o = torch.empty_like(q)
+        o_o = torch.empty_like(o_k)
         entry = getattr(lib, (fa._WIDE_ENTRY if d > 128 else fa._ENTRY)[dtype])
-        args = ([t.data_ptr() for t in (q, k, vk, o_o)]
-                + [b, s, h, kh, d, int(causal), window, scale, stream_ptr()])
+        dims = [b, s, h, kh, d] + ([dv] if d > 128 else [])
+        args = ([t.data_ptr() for t in (q, k, v, o_o)]
+                + dims + [int(causal), window, scale, stream_ptr()])
         iters = 10 if s > 4096 else 50
         ms = cuda_ms(lambda: entry(*args), iters=iters)
         call_ms = cuda_ms(lambda: fa.flash_attention(
-            q, k, vk, causal=causal, window=window, scale=scale), iters=iters)
+            q, k, v, causal=causal, window=window, scale=scale), iters=iters)
         plain_ms = cuda_ms(lambda: attention_plain(
             q, k, v, causal=causal, window=window, scale=scale),
             iters=3, warmup=1)
@@ -909,7 +911,7 @@ def flash_cases(dev, lib, stream_ptr) -> list:
             bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
             basis = "bf16 tensor cores, 989 TFLOP/s"
         unit_ms = (bound_ms(nbytes, ops, F32_OPS_PER_S)[0]
-                   if dtype == torch.float32 or d > 128 else None)
+                   if dtype == torch.float32 else None)
         qt = q.transpose(1, 2)
         kt = k.repeat_interleave(h // kh, dim=2).transpose(1, 2)
         vt = v.repeat_interleave(h // kh, dim=2).transpose(1, 2)
@@ -939,7 +941,7 @@ def flash_cases(dev, lib, stream_ptr) -> list:
                      **({} if d > 128 else {
                          "smem_bytes": fa.smem_bytes(dtype),
                          "blocks": -(-s // fa.block_rows(dtype)) * h * b})})
-        del q, k, v, vk, o_k, o_p, a, ref, err
+        del q, k, v, o_k, o_p, a, ref, err
         torch.cuda.empty_cache()
     return rows
 
@@ -2030,7 +2032,9 @@ def phase_serve_mla(card: str, device: str = "cuda", batch: int = 2,
     plain path under the routing contract (``held_routing``; logits and the
     ``ckv``/``krope`` caches), a second kernel prefill bit for bit, greedy
     decode (absorbed into the latent space), and a traced prefill and
-    decode.  It serves 171 tokens (34 unit records: the vet, no window
+    decode.  Reports the logits' and caches' errors as shares of
+    ``LOGIT_TOL`` and the wide entry's share of the traced prefill's device
+    time.  It serves 171 tokens (34 unit records: the vet, no window
     snapshot) to keep the smoke near half its time limit; serve_hybrid
     carries the dashboard's two windows."""
     import torch
@@ -2110,12 +2114,17 @@ def phase_serve_mla(card: str, device: str = "cuda", batch: int = 2,
     pos = prompt_len + decode_check
     traced = {
         "prefill": device_time(lambda: prefill(cfg, params, ck, batch_in),
-                               top=10, match=("flash_wide", "gemm", "Sort",
-                                              "gather")),
+                               top=10, match=("flash_wgmma", "gemm",
+                                              "Sort", "gather")),
         "decode_4_steps": device_time(lambda: [
             decode_step(cfg, params, ck, tk, pos + j) for j in range(4)],
             top=10, match=("gemm", "gemv")),
     }
+    pre = traced["prefill"]
+    # the wide entry's share of the traced prefill's device time (every
+    # flash launch of MLA's prefill is a wide one)
+    wide_share = (pre["matched"]["flash_wgmma"]["ms"] / pre["device_ms"]
+                  if "matched" in pre else None)
     del params, ck
     torch.cuda.empty_cache()
     small = reduced_vs_cpu(dev, "deepseek-v2-lite-16b")
@@ -2145,6 +2154,9 @@ def phase_serve_mla(card: str, device: str = "cuda", batch: int = 2,
             "routing": routing, "prefill_bitwise_repeat": True,
             "prefill_logits_max_abs_err": err, "logit_scale": scale,
             "kv_cache_max_abs_err": kv_err, "kv_cache_scale": kv_scale,
+            "logits_share_of_tol": err / (LOGIT_TOL * scale),
+            "kv_cache_share_of_tol": kv_err / (LOGIT_TOL * kv_scale),
+            "wide_share_of_traced_prefill": wide_share,
             "greedy_equal_steps": greedy, "traced": traced,
             "reduced_vs_cpu": small}
 
@@ -3308,8 +3320,8 @@ def train_mla_part(dev, layers: int = 2, steps: int = 4, batch: int = 2,
                    seq_len: int = 2048, q_chunk: int = 1024) -> dict:
     """deepseek-v2-lite-16b at full width on ``layers`` of its 27 layers
     (the dense first layer and one MoE layer), trained through the flash
-    kernel's wide entry (MLA's Q and K of 192, V padded from 128) and its
-    autograd route, weights drawn on the card; its aux loss; its gradients
+    kernel's wide entry (MLA's Q and K of 192, V of 128) and its autograd
+    route, weights drawn on the card; its aux loss; its gradients
     against the plain path, every leaf reached."""
     import dataclasses
     import torch

@@ -3,27 +3,30 @@
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::flash_attention
 // (the Pallas body _kernel), whose grid (B, H, nQ, nK) runs the key axis in
-// sequence and carries the online-softmax m, l and acc in VMEM scratch.
+// sequence and carries the online-softmax m, l and acc in VMEM scratch; its
+// BlockSpecs take any D.
 //
 // The function.  o[b, q, h] = softmax_k(scale q.k) v over the keys a query
 // may see: k < S, causal: k <= q, window > 0: q - k < window; query head h
-// reads KV head h / (H / KH).  q and o are (B, S, H, D), k and v
-// (B, S, KH, D), all in the entry's type; D is any multiple of 8 up to 128
-// for the two tensor-core entries below and up to 256 for the wide entries
-// (flash_wide_kernel, after them).
+// reads KV head h / (H / KH).  q (B, S, H, D) and k (B, S, KH, D), v
+// (B, S, KH, Dv) and o (B, S, H, Dv), all in the entry's type; D is a
+// multiple of 8 up to 256 and Dv one up to D (DeepSeek-V2's MLA prefill
+// has query and key heads of 192 and V of 128).
 // The softmax runs online in f32 with the scale folded into base 2
 // (2^x of s * scale * log2 e); a row with nothing live yet uses 0 as its
 // base, so exp never sees -inf - -inf and a fully masked row gives 0.
 //
 // What bounds it on an H100: operations.  Each live (query, key) pair costs
-// 4 D operations (q.k and p v) against 2 D elements of K and V that a
-// query tile shares; at the serve shape of h2o-danube-3-4b (B = 2,
-// S = 7168, H = 32, KH = 8, D = 120, window 4096) a launch does 644 GFLOP
-// on 550 MB, far above the ~300 operations per byte where the tensor cores
-// become the limit: 0.65 ms in bf16 (989 TFLOP/s), 3.9 ms in f32 carried
-// as three TF32 products (495 / 3 TFLOP/s).
+// 2 (D + Dv) operations (q.k and p v) against D + Dv elements of K and V
+// that a query tile shares; at the serve shape of h2o-danube-3-4b (B = 2,
+// S = 7168, H = 32, KH = 8, D = Dv = 120, window 4096) a launch does
+// 644 GFLOP on 550 MB, far above the ~300 operations per byte where the
+// tensor cores become the limit: 0.65 ms in bf16 (989 TFLOP/s), 3.9 ms in
+// f32 carried as three TF32 products (495 / 3 TFLOP/s).  At MLA's prefill
+// shape (B = 2, S = 2048, H = KH = 16, D = 192, Dv = 128, causal) it is
+// 43.0 GFLOP: 0.0434 ms in bf16, 0.260 ms in f32.
 //
-// Both entries keep the work to the live tiles: a block owns one query
+// Every design keeps the work to the live tiles: a block owns one query
 // tile of (b, h) and walks only the key tiles from the one holding
 // q0 - window + 1 (window > 0) to, when causal, the one holding its last
 // query (the dead-block test of kernel.py:75-80 as loop bounds), so
@@ -31,48 +34,71 @@
 // only on tiles that cross the diagonal, the window's edge or S.  Blocks
 // run the query tiles last-first (the widest spans start early) and the
 // H / KH query heads that share a KV head side by side, so their K and V
-// tiles are read from L2.
+// tiles are read from L2.  Q and K sit in shared memory as panels of
+// 128-byte rows (64 bf16 or 32 f32 columns) under the 128-byte swizzle
+// that wgmma reads; the more panels D takes, the fewer keys a stage holds.
+// Where V may be narrower than Q and K (the bf16 kernel and the wide f32
+// one), a block also owns one panel of at most 128 V columns
+// (blockIdx.y): Dv <= 128 is one panel, a wider V two, each block forming
+// Q K^T anew, so the O accumulator stays at 64 registers a thread.
 //
-// bf16 entry (flash_wgmma_bf16): 288 threads, 128 query rows.
+// bf16 (flash_wgmma_bf16<NP, BN>): 288 threads, 128 query rows.
 //   * Tensor cores: two consumer warpgroups own 64 query rows each.
-//     S = Q K^T is wgmma m64n128k16 with both operands in shared memory;
+//     S = Q K^T is wgmma m64n(BN)k16 with both operands in shared memory;
 //     P, rounded to bf16, becomes the A fragment of the P V wgmma straight
 //     from the S accumulator's registers (the two layouts coincide), and V
 //     is the MN-major B operand, so P never goes through shared memory.
 //   * Overlap: one producer warp keeps TMA loads (cp.async.bulk.tensor) of
-//     128-key K and V tiles in flight into a two-stage ring guarded by
+//     BN-key K and V tiles in flight into a two-stage ring guarded by
 //     mbarriers (full: bytes landed; empty: both warpgroups done), so the
 //     next tile's copy runs under this tile's products; Q arrives once by
 //     TMA.  No __syncthreads in the loop.
-//   * Tiles and D: every tile is 128 rows by two 64-column panels of 128
-//     bytes under the 128-byte swizzle that wgmma reads.  The tensor maps
-//     are (D, heads, S, B) with a box of one head and one batch, so columns
-//     past D and rows past S fill with zeros inside the batch: D = 120 is
-//     padded to 128 and a ragged S is cut by TMA, the host pads nothing.
-//     Shared memory: Q 32 KiB + 2 stages x (K 32 + V 32 KiB) = 160 KiB.
+//   * Tiles and D: Q and K take NP 64-column panels, V two.  The tensor
+//     maps are (D or Dv, heads, S, B) with a box of one head and one
+//     batch, so columns past D or Dv and rows past S fill with zeros
+//     inside the batch (the padding adds 0 to the scores): D = 120 is
+//     padded to 128 and D = 136 to 192, a ragged S is cut by TMA, the host
+//     pads nothing.  NP = 2 (D <= 128) and NP = 3 (D <= 192) take 128-key
+//     tiles, NP = 4 64: Q 16 NP KiB + 2 stages x (K 16 NP + V 32 KiB) at
+//     128 keys = 160 and 208 KiB, at 64 keys 64 + 2 x (32 + 16) = 160 KiB.
 //
-// f32 entry (flash_wgmma_tf32): 256 threads, 64 query rows, 32-key tiles.
+// f32: 3xTF32 on wgmma, 256 threads, 64 query rows.
 //   * Tensor cores at f32 accuracy (3xTF32): each operand x is split into
 //     big = tf32_rna(x) and small = tf32_rna(x - big), and small.big +
-//     big.small + big.big goes into the f32 accumulator, for Q K^T and for
-//     P V; one TF32 pass keeps ~3 digits and misses the f32 tolerance.
-//     wgmma (m64n32k8 for S, m64n128k8 for P V) and not mma.sync: an
-//     mma.sync kernel of the same split, eight consumer warps under the
-//     168-register cap of twelve warps, took 1.56-1.66x the time on an
-//     H100 at full size.  wgmma's tf32 form takes only K-major operands,
-//     so V is stored transposed.
+//     big.small + big.big goes into f32, for Q K^T and for P V; one TF32
+//     pass keeps ~3 digits and misses the f32 tolerance.  wgmma and not
+//     mma.sync: an mma.sync kernel of the same split, eight consumer warps
+//     under the 168-register cap of twelve warps, took 1.56-1.66x the time
+//     on an H100 at full size.  wgmma's tf32 form takes only K-major
+//     operands, so V is stored transposed.
 //   * Overlap: a splitting warpgroup loads each K and V tile, splits it
 //     once into big and small copies (V transposed) in the swizzled layout
 //     wgmma reads, and signals an mbarrier; the consumer warpgroup's
 //     products run from those copies while the next tile is loaded and
-//     split (two stages).  Q is split once per block.  P stays in
-//     registers as the A operand of P V: the keys of each 8 are stored in
-//     V^T in the order P's registers give them.  Each tile's P V products
-//     sum into a zeroed partial added to the output in IEEE f32, so the
-//     error does not grow with the keys (the tensor cores' own f32
-//     accumulation drifts with the number of products it takes).
-//   * Shared memory: 64 KiB of Q copies + 2 stages x 64 KiB of K and V^T
-//     copies = 192 KiB.
+//     split.  Q is split once per block.  P stays in registers as the A
+//     operand of P V: the keys of each 8 are stored in V^T in the order
+//     P's registers give them.  Each tile's P V products sum into a zeroed
+//     partial added to the output in IEEE f32, so the error does not grow
+//     with the keys (the tensor cores' own f32 accumulation drifts with
+//     the number of products it takes).
+//   * D <= 128 (flash_wgmma_tf32, V as wide as D): 32-key tiles; K and
+//     V^T share a two-stage ring, and Q K^T is three m64n32k8 products a
+//     k-step.  Q's copies 64 KiB + 2 stages x 64 KiB = 192 KiB.
+//   * D 136-256 (flash_wgmma_wide_tf32<NP, BN>, V of width Dv): Q's copies
+//     alone take 96 or 128 KiB, so each K panel holds the tile's BN big
+//     rows, then its BN small ones, and big.big and big.small are one
+//     wgmma m64n(2 BN)k8 reading Q's big copy once, small.big one
+//     m64n(BN)k8 (three separate products were slower on an H100 at
+//     D = 192); K is double-buffered and freed as soon as S is formed, V^T
+//     has barriers of its own and holds 32 keys: one 32-key tile or two
+//     16-key tiles side by side.  NP = 6 (D <= 192) takes 32-key tiles:
+//     96 KiB of Q copies + 2 x 48 KiB of K + 32 KiB of V^T = 224 KiB;
+//     NP = 8 16 keys: 128 + 2 x 32 + 32 = 224 KiB.  The same design at
+//     D <= 128 (NP = 4, two V^T tiles) took 1.13-1.21x the time of the one
+//     above on an H100 (tools/flash_probe.py), so each keeps its side of
+//     D = 128.
+// The templates build each k-step's wgmma descriptor where it is used
+// (desc_at), which keeps them free of spills.
 
 // CUtensorMap's types; the encoder itself is looked up in libcuda at run time
 #include <cuda.h>
@@ -85,7 +111,9 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kFaMaxDim = 128;  // largest head dimension
+constexpr int kFaMaxDim = 128;    // the narrow C entries' largest D
+constexpr int kWideMaxDim = 256;  // the wide C entries'
+constexpr int kVPanel = 128;      // V columns of one block
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Keys [k0, k0 + bn) of query rows [qr0, qr0 + rows): does any pair need a
@@ -170,17 +198,14 @@ __device__ __forceinline__ BlockPos block_pos(int nq, int H, int KH) {
 
 // ======================================================= bf16: wgmma + TMA
 constexpr int kBm = 128;                        // query rows per block
-constexpr int kBn = 128;                        // keys per K / V tile
-constexpr int kPanelBytes = 128 * 128;          // 128 rows x 64 bf16
-constexpr int kTileBytes = 2 * kPanelBytes;     // D padded to 128
 constexpr int kWgThreads = 128;
 constexpr int kBf16Threads = 2 * kWgThreads + 32;  // + one producer warp
-// Q, then K of stages 0-1, then V of stages 0-1, then 5 mbarriers; 1 KiB
-// of slack aligns the tiles to the 1,024 bytes the swizzle repeats over.
-// kBm and kBf16Smem are copied in flash_attention/ops.py (_BLOCK); a test
+// Shared memory of the D <= 128 tiles (NP = 2, 128 keys): Q, K and V of two
+// stages, each 128 rows x two 64-column panels of 128 bytes, 5 mbarriers
+// and 1 KiB of alignment slack (Bf16Tiles<2, 128>::kSmem).  kBm and
+// kBf16Smem are copied in flash_attention/ops.py (_BLOCK); a test
 // evaluates these constexpr lines and holds the copy to them.
-constexpr int kBarOffset = 5 * kTileBytes;
-constexpr size_t kBf16Smem = kBarOffset + 5 * 8 + 1024;
+constexpr size_t kBf16Smem = 5 * 2 * 128 * 128 + 5 * 8 + 1024;
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
@@ -299,29 +324,79 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+#define FA_REGS32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d (64 x 64, f32) (+)= A (64 x 16) B (16 x 64), both bf16 and K-major in
+// shared memory; accumulate unless scale_d == 0.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : FA_ACC16(0), FA_ACC16(16)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Descriptor d advanced by `off` bytes, formed where it is used: the empty
+// asm hides d's value, so the compiler cannot hoist one descriptor per
+// k-step out of the tile loop and hold them all in registers (at D = 256
+// that is 128 registers, and the kernels spill).  d's 14-bit address
+// field cannot carry: shared addresses stay below 2^18.
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint32_t off) {
+  asm volatile("" : "+l"(d));
+  return d + (off >> 4);
+}
+
+// bf16 tiles: NP 64-column panels of Q (128 rows) and K (BN rows), two
+// 64-column panels of V (BN rows); Q, K of stages 0-1, V of stages 0-1,
+// then 5 mbarriers, and 1 KiB of slack for the 1,024-byte alignment.
+template <int NP, int BN>
+struct Bf16Tiles {
+  static constexpr int kQPanel = kBm * 128;
+  static constexpr int kKPanel = BN * 128;
+  static constexpr int kQBytes = NP * kQPanel;
+  static constexpr int kKBytes = NP * kKPanel;
+  static constexpr int kVBytes = 2 * kKPanel;
+  static constexpr int kBarOffset = kQBytes + 2 * (kKBytes + kVBytes);
+  static constexpr size_t kSmem = kBarOffset + 5 * 8 + 1024;
+  static_assert(kSmem <= 232448,
+                "the bf16 block exceeds the shared memory of an SM");
+};
+static_assert(Bf16Tiles<2, 128>::kSmem == kBf16Smem,
+              "kBf16Smem is not the D <= 128 tiles' shared memory");
+
+template <int NP, int BN>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_wgmma_bf16(const __grid_constant__ CUtensorMap qmap,
-                 const __grid_constant__ CUtensorMap kmap,
-                 const __grid_constant__ CUtensorMap vmap,
-                 __nv_bfloat16* __restrict__ o, int S, int H, int KH, int D,
-                 int causal, int window, float sl2) {
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      __nv_bfloat16* __restrict__ o, int S, int H, int KH,
+                      int D, int Dv, int causal, int window, float sl2) {
+  using L = Bf16Tiles<NP, BN>;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
-  const uint32_t k_s = base + kTileBytes;      // + stage * kTileBytes
-  const uint32_t v_s = base + 3 * kTileBytes;  // + stage * kTileBytes
-  const uint32_t bar = base + kBarOffset;      // full 0-1, empty 0-1, q
+  const uint32_t k_s = base + L::kQBytes;     // + stage * kKBytes
+  const uint32_t v_s = k_s + 2 * L::kKBytes;  // + stage * kVBytes
+  const uint32_t bar = base + L::kBarOffset;  // full 0-1, empty 0-1, q
   const uint32_t full0 = bar, empty0 = bar + 16, qfull = bar + 32;
 
   const int nq = (S + kBm - 1) / kBm;
   const BlockPos bp = block_pos(nq, H, KH);
+  const int v0 = kVPanel * static_cast<int>(blockIdx.y);  // V column
   const int q0 = bp.iq * kBm;
   const int q_last = min(q0 + kBm, S) - 1;
   const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
   const int k_last = causal ? q_last : S - 1;
-  const int t_first = k_first / kBn;
-  const int ntiles = k_last / kBn - t_first + 1;
+  const int t_first = k_first / BN;
+  const int ntiles = k_last / BN - t_first + 1;
 
   if (threadIdx.x == 0) {
     mbar_init(full0, 1);
@@ -336,20 +411,23 @@ flash_wgmma_bf16(const __grid_constant__ CUtensorMap qmap,
   if (threadIdx.x >= 2 * kWgThreads) {
     // ---- producer warp: Q once, then K and V tiles through the ring ----
     if (threadIdx.x == 2 * kWgThreads) {
-      mbar_expect_tx(qfull, kTileBytes);
-      tma_load(q_s, &qmap, qfull, 0, bp.h, q0, bp.b);
-      tma_load(q_s + kPanelBytes, &qmap, qfull, 64, bp.h, q0, bp.b);
+      mbar_expect_tx(qfull, L::kQBytes);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        tma_load(q_s + p * L::kQPanel, &qmap, qfull, 64 * p, bp.h, q0, bp.b);
       for (int i = 0; i < ntiles; ++i) {
         const int s = i & 1;
         mbar_wait(empty0 + 8 * s, ((i >> 1) & 1) ^ 1);
-        const int k0 = (t_first + i) * kBn;
+        const int k0 = (t_first + i) * BN;
         const uint32_t full = full0 + 8 * s;
-        mbar_expect_tx(full, 2 * kTileBytes);
-        const uint32_t ks = k_s + s * kTileBytes, vs = v_s + s * kTileBytes;
-        tma_load(ks, &kmap, full, 0, bp.kvh, k0, bp.b);
-        tma_load(ks + kPanelBytes, &kmap, full, 64, bp.kvh, k0, bp.b);
-        tma_load(vs, &vmap, full, 0, bp.kvh, k0, bp.b);
-        tma_load(vs + kPanelBytes, &vmap, full, 64, bp.kvh, k0, bp.b);
+        mbar_expect_tx(full, L::kKBytes + L::kVBytes);
+        const uint32_t ks = k_s + s * L::kKBytes, vs = v_s + s * L::kVBytes;
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          tma_load(ks + p * L::kKPanel, &kmap, full, 64 * p, bp.kvh, k0,
+                   bp.b);
+        tma_load(vs, &vmap, full, v0, bp.kvh, k0, bp.b);
+        tma_load(vs + L::kKPanel, &vmap, full, v0 + 64, bp.kvh, k0, bp.b);
       }
     }
     return;
@@ -359,42 +437,39 @@ flash_wgmma_bf16(const __grid_constant__ CUtensorMap qmap,
   const int wg = threadIdx.x / kWgThreads;
   const int t = threadIdx.x % kWgThreads;
   const int lane = t & 31;
-  const int qw0 = q0 + 64 * wg;                    // first row of the group
+  const int qw0 = q0 + 64 * wg;
   const int qa = qw0 + 16 * (t >> 5) + (lane >> 2);  // rows qa and qa + 8
-  const int c0 = 2 * (lane & 3);                   // columns c0, c0 + 1 of
-                                                   // each 8-column block
+  const int c0 = 2 * (lane & 3);
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
   float m[2] = {-inf_f(), -inf_f()}, l[2] = {0.0f, 0.0f};
 
   mbar_wait(qfull, 0);
-  const uint32_t q_wg = q_s + 64 * 128 * wg;  // this group's 64 rows
+  const uint32_t q_wg = q_s + 64 * 128 * wg;  // this group's rows, panel 0
   for (int i = 0; i < ntiles; ++i) {
     const int s = i & 1;
-    const int k0 = (t_first + i) * kBn;
+    const int k0 = (t_first + i) * BN;
     mbar_wait(full0 + 8 * s, (i >> 1) & 1);
-    const uint32_t ks = k_s + s * kTileBytes, vs = v_s + s * kTileBytes;
+    const uint32_t ks = k_s + s * L::kKBytes, vs = v_s + s * L::kVBytes;
 
-    // S = Q K^T over D padded to 128: 8 steps of 16, 32 bytes into a panel
-    float sc[64];
+    float sc[BN / 2];
+    const uint64_t qd = sw128_desc(q_wg, 16, 1024);
+    const uint64_t kd = sw128_desc(ks, 16, 1024);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t off = (kk >> 2) * kPanelBytes + (kk & 3) * 32;
-      wgmma_ss(sc, sw128_desc(q_wg + off, 16, 1024),
-               sw128_desc(ks + off, 16, 1024), kk > 0);
-    }
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      wgmma_ss(sc, desc_at(qd, (kk >> 2) * L::kQPanel + (kk & 3) * 32),
+               desc_at(kd, (kk >> 2) * L::kKPanel + (kk & 3) * 32), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
 
-    // accumulator layout: sc[4j + e] is row qa + 8 (e >> 1), key
-    // k0 + 8 j + c0 + (e & 1)
-    float x[2][32];
-    const bool edge = crosses_mask(k0, kBn, qw0, 64, S, causal, window);
+    // sc[4j + e] is row qa + 8 (e >> 1), key k0 + 8 j + c0 + (e & 1)
+    float x[2][BN / 4];
+    const bool edge = crosses_mask(k0, BN, qw0, 64, S, causal, window);
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float val = sc[4 * j + e] * sl2;
@@ -408,47 +483,44 @@ flash_wgmma_bf16(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int i2 = 0; i2 < 64; ++i2) acc[i2] *= alpha[(i2 >> 1) & 1];
 
-    // P as the A fragments of P V: keys 16 kk .. 16 kk + 15 are the
-    // accumulator's column blocks 2 kk and 2 kk + 1.
-    uint32_t pa[8][4];
+    uint32_t pa[BN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < BN / 16; ++kk) {
       pa[kk][0] = pack_bf16(x[0][4 * kk], x[0][4 * kk + 1]);
       pa[kk][1] = pack_bf16(x[1][4 * kk], x[1][4 * kk + 1]);
       pa[kk][2] = pack_bf16(x[0][4 * kk + 2], x[0][4 * kk + 3]);
       pa[kk][3] = pack_bf16(x[1][4 * kk + 2], x[1][4 * kk + 3]);
     }
-    // acc += P V: V is MN-major, its two 64-column panels kPanelBytes apart
-    // (leading offset), 8-key row groups 1,024 bytes apart (stride offset)
+    // acc += P V: V MN-major, its two 64-column panels kKPanel apart
     fence_regs(acc);
+    const uint64_t vd = sw128_desc(vs, L::kKPanel, 1024);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_rs(acc, pa[kk], sw128_desc(vs + kk * 16 * 128, kPanelBytes, 1024));
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(acc, pa[kk], desc_at(vd, kk * 16 * 128));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
     mbar_arrive(empty0 + 8 * s);
   }
 
-  // ---- epilogue: o = acc / l, columns past D dropped ----------------------
+  // ---- epilogue: o = acc / l, this panel's columns below Dv ---------------
   const float inv[2] = {inv_rowsum(l[0]), inv_rowsum(l[1])};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = qa + 8 * r;
     if (qpos >= S) continue;
     __nv_bfloat16* row =
-        o + ((static_cast<size_t>(bp.b) * S + qpos) * H + bp.h) * D;
+        o + ((static_cast<size_t>(bp.b) * S + qpos) * H + bp.h) * Dv;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const int col = 8 * j + c0;
-      if (col < D)
+      const int col = v0 + 8 * j + c0;
+      if (col < Dv)
         *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(
             acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
     }
   }
 }
-
 
 // ================================================= f32: 3xTF32 on wgmma
 // Every tile holds f32 (TF32) values in 128-byte rows under the 128-byte
@@ -718,195 +790,295 @@ flash_wgmma_tf32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
+// d (64 x 16, f32) (+)= A (64 x 8) B (8 x 16), both TF32 and K-major in
+// shared memory; accumulate unless scale_d == 0.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n"
+      "}\n"
+      : FA_ACC4(0), FA_ACC4(4)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 8) B (8 x 64), both TF32 and K-major in
+// shared memory; accumulate unless scale_d == 0.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FA_REGS32
+      ", %32, %33, p, 1, 1;\n"
+      "}\n"
+      : FA_ACC16(0), FA_ACC16(16)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// f32 tiles, each row 128 bytes of TF32 under the 128-byte swizzle: the
+// big and the small copy of Q (64 rows x NP panels of 32 columns); per K
+// stage, per panel, the tile's BN big rows, then its BN small ones; the
+// big and the small V^T (128 rows of 32 keys: 32 / BN tiles, one a slot);
+// 9 mbarriers and 1 KiB of alignment slack.
+template <int NP, int BN>
+struct WideF32 {
+  static constexpr int kSlots = 32 / BN;  // V^T tiles held at once
+  static constexpr int kQPanel = kF32Bm * 128;
+  static constexpr int kQBytes = NP * kQPanel;
+  static constexpr int kKPanel = 2 * BN * 128;
+  static constexpr int kKBytes = NP * kKPanel;
+  static constexpr int kVBytes = kVPanel * 128;
+  static constexpr int kBarOffset = 2 * kQBytes + 2 * kKBytes + 2 * kVBytes;
+  static constexpr size_t kSmem = kBarOffset + 9 * 8 + 1024;
+  // a splitting thread's share of a tile: K float4 chunks, V float4 chunks
+  static constexpr int kKUnits = BN * 8 * NP / 128;
+  static constexpr int kVUnits = BN * 32 / 128;
+  static_assert(kSmem <= 232448,
+                "the wide f32 block exceeds the shared memory of an SM");
+  static_assert(kKUnits * 128 == BN * 8 * NP && kSlots * BN == 32,
+                "tiles the splitting warpgroup cannot cover evenly");
+};
+
+template <int NP, int BN>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_wgmma_wide_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      int S, int H, int KH, int D, int Dv, int causal,
+                      int window, float sl2) {
+  using L = WideF32<NP, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qb = base, qsm = base + L::kQBytes;
+  const uint32_t k_s = base + 2 * L::kQBytes;  // + s * kKBytes: stage s
+  const uint32_t vb = k_s + 2 * L::kKBytes, vsm = vb + L::kVBytes;
+  // K full 0-1, K empty 0-1, V full 0-1, V empty 0-1, Q
+  const uint32_t bar = base + L::kBarOffset;
+  const uint32_t kfull0 = bar, kempty0 = bar + 16, vfull0 = bar + 32,
+                 vempty0 = bar + 48, qfull = bar + 64;
+
+  const int nq = (S + kF32Bm - 1) / kF32Bm;
+  const BlockPos bp = block_pos(nq, H, KH);
+  const int v0 = kVPanel * static_cast<int>(blockIdx.y);  // V column
+  const int q0 = bp.iq * kF32Bm;
+  const int q_last = min(q0 + kF32Bm, S) - 1;
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_last = causal ? q_last : S - 1;
+  const int t_first = k_first / BN;
+  const int ntiles = k_last / BN - t_first + 1;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 8; ++b) mbar_init(bar + 8 * b, 128);
+    mbar_init(qfull, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- splitting warpgroup ---------------------------------------------
+    const int st = threadIdx.x - 128;
+    const int dq = D >> 2;  // float4 chunks of a Q row
+    for (int i = st; i < kF32Bm * dq; i += 128) {
+      const int r = i / dq, c4 = i - r * dq;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (q0 + r < S)
+        x = *reinterpret_cast<const float4*>(
+            q + ((static_cast<size_t>(bp.b) * S + q0 + r) * H + bp.h) * D +
+            4 * c4);
+      const uint32_t off = (c4 >> 3) * L::kQPanel + sw128(r, c4 & 7);
+      st_split4(qb + off, qsm + off, x);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_arrive(qfull);
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i & 1, slot = i % L::kSlots;
+      const int k0 = (t_first + i) * BN;
+      // K: a warp takes 32 chunks of one key row; V: 32 / BN chunks of BN
+      // keys
+      float4 kr[L::kKUnits], vr[L::kVUnits];
+#pragma unroll
+      for (int u = 0; u < L::kKUnits; ++u) {
+        const int e = st + 128 * u, rk = e / (8 * NP), ck = e % (8 * NP);
+        kr[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (4 * ck < D && k0 + rk < S)
+          kr[u] = *reinterpret_cast<const float4*>(
+              k + ((static_cast<size_t>(bp.b) * S + k0 + rk) * KH + bp.kvh) *
+                      D +
+              4 * ck);
+      }
+#pragma unroll
+      for (int u = 0; u < L::kVUnits; ++u) {
+        const int e = st + 128 * u, rv = e % BN, col = v0 + 4 * (e / BN);
+        vr[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (col < Dv && k0 + rv < S)
+          vr[u] = *reinterpret_cast<const float4*>(
+              v + ((static_cast<size_t>(bp.b) * S + k0 + rv) * KH + bp.kvh) *
+                      Dv +
+              col);
+      }
+      mbar_wait(kempty0 + 8 * s, ((i >> 1) & 1) ^ 1);
+      const uint32_t kb = k_s + s * L::kKBytes;
+#pragma unroll
+      for (int u = 0; u < L::kKUnits; ++u) {
+        const int e = st + 128 * u, rk = e / (8 * NP), ck = e % (8 * NP);
+        if (4 * ck < D) {
+          const uint32_t off = (ck >> 3) * L::kKPanel + sw128(rk, ck & 7);
+          st_split4(kb + off, kb + off + BN * 128, kr[u]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(kfull0 + 8 * s);
+      // V^T: this slot's BN keys of each row, within 8 keys even keys
+      // first (the order of P's registers)
+      mbar_wait(vempty0 + 8 * slot, ((i / L::kSlots) & 1) ^ 1);
+#pragma unroll
+      for (int u = 0; u < L::kVUnits; ++u) {
+        const int e = st + 128 * u, rv = e % BN, cv = e / BN;
+        const int p =
+            BN * slot + ((rv & ~7) | ((rv & 1) << 2) | ((rv & 7) >> 1));
+        const float vals[4] = {vr[u].x, vr[u].y, vr[u].z, vr[u].w};
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          uint32_t big, small;
+          split_tf32(vals[e4], big, small);
+          const uint32_t at = sw128(4 * cv + e4, p >> 2) + 4 * (p & 3);
+          st_shared1(vb + at, big);
+          st_shared1(vsm + at, small);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(vfull0 + 8 * slot);
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: 64 query rows ----------------------------------
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int qa = q0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // and qa + 8
+  const int nkk = D >> 3;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  float m[2] = {-inf_f(), -inf_f()}, l[2] = {0.0f, 0.0f};
+  const uint64_t qbd = sw128_desc(qb, 16, 1024);
+  const uint64_t qsd = sw128_desc(qsm, 16, 1024);
+  const uint64_t vbd = sw128_desc(vb, 16, 1024);
+  const uint64_t vsd = sw128_desc(vsm, 16, 1024);
+
+  mbar_wait(qfull, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i & 1, slot = i % L::kSlots;
+    const int k0 = (t_first + i) * BN;
+    mbar_wait(kfull0 + 8 * s, (i >> 1) & 1);
+
+    // sp: big.big in its first BN columns, big.small in the next BN (Q's
+    // big copy read once for both); sq: small.big
+    float sp[BN], sq[BN / 2];
+    const uint64_t kd = sw128_desc(k_s + s * L::kKBytes, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk) {
+      if (kk < nkk) {
+        const uint32_t oq = (kk >> 2) * L::kQPanel + (kk & 3) * 32;
+        const uint32_t ok = (kk >> 2) * L::kKPanel + (kk & 3) * 32;
+        wgmma_tf32_ss(sp, desc_at(qbd, oq), desc_at(kd, ok), kk > 0);
+        wgmma_tf32_ss(sq, desc_at(qsd, oq), desc_at(kd, ok), kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sp);
+    fence_regs(sq);
+    mbar_arrive(kempty0 + 8 * s);
+
+    // sp[4 n + e] is row qa + 8 (e >> 1), key k0 + 8 n + 2 tq + (e & 1)
+    float x[2][BN / 4];
+    const bool edge = crosses_mask(k0, BN, q0, kF32Bm, S, causal, window);
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 4 * n + e;
+        float val = ((sp[r + BN / 2] + sq[r]) + sp[r]) * sl2;
+        if (edge && !live(qa + 8 * (e >> 1), k0 + 8 * n + 2 * tq + (e & 1), S,
+                          causal, window))
+          val = -inf_f();
+        x[e >> 1][2 * n + (e & 1)] = val;
+      }
+    float alpha[2];
+    softmax_step(x, m, l, alpha);
+
+    // P's A fragments: keys 2 tq and 2 tq + 1 of each 8 play k = tq and
+    // tq + 4, the order in which V^T holds them
+    uint32_t pb[BN / 8][4], ps[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      split_tf32(x[0][2 * j], pb[j][0], ps[j][0]);
+      split_tf32(x[1][2 * j], pb[j][1], ps[j][1]);
+      split_tf32(x[0][2 * j + 1], pb[j][2], ps[j][2]);
+      split_tf32(x[1][2 * j + 1], pb[j][3], ps[j][3]);
+    }
+    // this tile's keys sit 4 BN slot bytes into V^T's rows
+    mbar_wait(vfull0 + 8 * slot, (i / L::kSlots) & 1);
+    float pt[64];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const uint32_t ov = 4 * BN * slot + 32 * j;
+      wgmma_tf32_rs(pt, ps[j], desc_at(vbd, ov), j > 0);
+      wgmma_tf32_rs(pt, pb[j], desc_at(vsd, ov), 1);
+      wgmma_tf32_rs(pt, pb[j], desc_at(vbd, ov), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(pt);
+    mbar_arrive(vempty0 + 8 * slot);
+#pragma unroll
+    for (int r = 0; r < 64; ++r)
+      acc[r] = fmaf(acc[r], alpha[(r >> 1) & 1], pt[r]);
+  }
+
+  const float inv[2] = {inv_rowsum(l[0]), inv_rowsum(l[1])};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qa + 8 * r;
+    if (qpos >= S) continue;
+    float* row = o + ((static_cast<size_t>(bp.b) * S + qpos) * H + bp.h) * Dv;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = v0 + 8 * j + 2 * tq;
+      if (col < Dv)
+        *reinterpret_cast<float2*>(row + col) = make_float2(
+            acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
 #undef FA_ACC4
 #undef FA_ACC16
 #undef FA_ACC64
 #undef FA_REGS64
+#undef FA_REGS32
 #undef FA_REGS16
 
-// ============================================ wide head dimensions: SIMT f32
-// flash_wide_kernel<T> takes what the two entries above cannot: D from 136
-// to 256 (DeepSeek-V2's MLA prefill has query and key heads of 192).  The
-// same function, masks, dead-block loop bounds, block order and base-2
-// online softmax as the wgmma entries; the TPU kernel it serves is the same
-// (flash_attention/kernel.py:94, whose BlockSpecs take any D).
-//
-// Simple on purpose: 256 threads own 64 query rows, four threads a row.
-// Q (64 x D), one K tile and one V tile (32 keys x D) are converted to f32
-// into shared memory (rows of D + 4 floats, so the 8 rows and 4 keys a warp
-// reads at once sit in distinct banks).  For each key tile a thread forms
-// 8 of its row's 32 scores on the CUDA cores in f32, the quad runs the
-// online-softmax step (softmax_step), P goes through shared memory at f32,
-// and each thread adds P V into D / 4 columns of its row (pairs 8 j + 2 t,
-// 8 j + 2 t + 1) held in registers.  Inputs in bf16 are raised to f32 on
-// load, so the bf16 entry keeps P at f32 too, and rounds only the output.
-//
-// What bounds it: the f32 CUDA cores (67 TFLOP/s on an H100) at best; in
-// practice the shared-memory reads feeding them (about one load per two
-// FMAs in P V), no tensor cores and no copy overlap.  MLA's prefill shape
-// (B = 2, S = 2048, H = 16, D = 192, causal) needs 51.6 GFLOP: 0.77 ms at
-// the f32 units' peak.  The card's bound for the function is lower: its
-// 43.0 GFLOP (V at 128) on the tensor cores, 0.26 ms as three TF32 passes
-// in f32 and 0.043 ms in bf16.  A wgmma design for D up to 256 is later
-// work.
-constexpr int kWideBm = 64;       // query rows per block
-constexpr int kWideBn = 32;       // keys per K / V tile
-constexpr int kWideThreads = 256;  // four threads a query row
-constexpr int kWideMaxDim = 256;
-constexpr int kWidePad = 4;       // floats after each row of Q, K and V
-constexpr int kWidePStride = kWideBn + 4;  // floats per row of P
-
-__host__ __device__ constexpr size_t wide_smem(int D) {
-  return 4ull * ((kWideBm + 2 * kWideBn) * (D + kWidePad) +
-                 kWideBm * kWidePStride);
-}
-static_assert(wide_smem(kWideMaxDim) <= 232448,
-              "the wide entry's block exceeds the shared memory of an SM");
-
-// Eight elements of a row at src (16-byte aligned) into f32 at dst.
-__device__ __forceinline__ void load8(const float* src, float* dst) {
-  reinterpret_cast<float4*>(dst)[0] = reinterpret_cast<const float4*>(src)[0];
-  reinterpret_cast<float4*>(dst)[1] = reinterpret_cast<const float4*>(src)[1];
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-}
-__device__ __forceinline__ void store2(float* dst, float a, float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-
-// rows x D of a (B, S, heads, D) tensor, rows from `row0`, into shared
-// memory at `dst` (row stride D + kWidePad); rows past S are zero.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
-                                           float* dst, int rows, int row0,
-                                           int b, int head, int S, int heads,
-                                           int D) {
-  const int per_row = D / 8;
-  for (int i = threadIdx.x; i < rows * per_row; i += kWideThreads) {
-    const int r = i / per_row, c = 8 * (i - r * per_row);
-    float* out = dst + r * (D + kWidePad) + c;
-    if (row0 + r < S) {
-      load8(src + ((static_cast<size_t>(b) * S + row0 + r) * heads + head) *
-                      D + c,
-            out);
-    } else {
-      reinterpret_cast<float4*>(out)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-      reinterpret_cast<float4*>(out)[1] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWideThreads)
-flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                  int KH, int D, int causal, int window, float sl2) {
-  extern __shared__ float4 smem_wide[];
-  const int ld = D + kWidePad;
-  float* qs = reinterpret_cast<float*>(smem_wide);
-  float* ks = qs + kWideBm * ld;
-  float* vs = ks + kWideBn * ld;
-  float* ps = vs + kWideBn * ld;
-
-  const int nq = (S + kWideBm - 1) / kWideBm;
-  const BlockPos bp = block_pos(nq, H, KH);
-  const int q0 = bp.iq * kWideBm;
-  const int q_last = min(q0 + kWideBm, S) - 1;
-  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_last = causal ? q_last : S - 1;
-  const int t_first = k_first / kWideBn;
-  const int ntiles = k_last / kWideBn - t_first + 1;
-
-  const int r = threadIdx.x >> 2, t = threadIdx.x & 3;
-  const int qpos = q0 + r;
-  stage_rows(q, qs, kWideBm, q0, bp.b, bp.h, S, H, D);
-
-  float acc[kWideMaxDim / 8][2];
-#pragma unroll
-  for (int j = 0; j < kWideMaxDim / 8; ++j) acc[j][0] = acc[j][1] = 0.0f;
-  float m[1] = {-inf_f()}, l[1] = {0.0f};
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = (t_first + it) * kWideBn;
-    __syncthreads();  // the previous tile's K, V and P are read
-    stage_rows(k, ks, kWideBn, k0, bp.b, bp.kvh, S, KH, D);
-    stage_rows(v, vs, kWideBn, k0, bp.b, bp.kvh, S, KH, D);
-    __syncthreads();
-
-    // scores of keys t + 4 i, i < 8, against this thread's row
-    float x[1][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x[0][i] = 0.0f;
-    const float* qrow = qs + r * ld;
-    for (int d = 0; d < D; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(qrow + d);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(ks + (t + 4 * i) * ld + d);
-        x[0][i] = fmaf(qv.x, kv.x, x[0][i]);
-        x[0][i] = fmaf(qv.y, kv.y, x[0][i]);
-        x[0][i] = fmaf(qv.z, kv.z, x[0][i]);
-        x[0][i] = fmaf(qv.w, kv.w, x[0][i]);
-      }
-    }
-    const bool edge =
-        crosses_mask(k0, kWideBn, q0, kWideBm, S, causal, window);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      x[0][i] *= sl2;
-      if (edge && !live(qpos, k0 + t + 4 * i, S, causal, window))
-        x[0][i] = -inf_f();
-    }
-    float alpha[1];
-    softmax_step(x, m, l, alpha);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) ps[r * kWidePStride + t + 4 * i] = x[0][i];
-#pragma unroll
-    for (int j = 0; j < kWideMaxDim / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-    }
-    __syncthreads();
-
-    const float* prow = ps + r * kWidePStride;
-    for (int kk = 0; kk < kWideBn; ++kk) {
-      const float p = prow[kk];
-      const float* vrow = vs + kk * ld + 2 * t;
-#pragma unroll
-      for (int j = 0; j < kWideMaxDim / 8; ++j) {
-        if (8 * j < D) {
-          const float2 vv = *reinterpret_cast<const float2*>(vrow + 8 * j);
-          acc[j][0] = fmaf(p, vv.x, acc[j][0]);
-          acc[j][1] = fmaf(p, vv.y, acc[j][1]);
-        }
-      }
-    }
-  }
-
-  const float inv = inv_rowsum(l[0]);
-  if (qpos >= S) return;
-  T* row = o + ((static_cast<size_t>(bp.b) * S + qpos) * H + bp.h) * D;
-#pragma unroll
-  for (int j = 0; j < kWideMaxDim / 8; ++j)
-    if (8 * j < D) store2(row + 8 * j + 2 * t, acc[j][0] * inv,
-                          acc[j][1] * inv);
-}
+#undef FA_ACC4
+#undef FA_ACC16
+#undef FA_ACC64
+#undef FA_REGS64
+#undef FA_REGS32
+#undef FA_REGS16
 
 // ================================================================= host side
-bool valid_shape(int batch, int S, int H, int KH, int D, int window,
-                 int rows, int max_dim = kFaMaxDim) {
+// D and Dv multiples of 8, 0 < Dv <= D <= max_dim.
+bool valid_shape(int batch, int S, int H, int KH, int D, int Dv, int window,
+                 int rows, int max_dim) {
   if (batch <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH || D <= 0 ||
-      D % 8 || D > max_dim || window < 0)
+      D % 8 || D > max_dim || Dv <= 0 || Dv % 8 || Dv > D || window < 0)
     return false;
   const long long blocks =
       static_cast<long long>((S + rows - 1) / rows) * H * batch;
@@ -941,17 +1113,17 @@ EncodeTiled encode_tiled() {
 }
 
 // A (B, S, heads, D) bf16 tensor as 4-d map (D, heads, S, B) with a box of
-// 64 columns x 1 head x 128 rows x 1 batch under the 128-byte swizzle;
+// 64 columns x 1 head x `rows` rows x 1 batch under the 128-byte swizzle;
 // reads past D or S fill with zeros.
 bool bf16_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch,
-              int S, int heads, int D) {
+              int S, int heads, int D, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t row = 2ull * D;
   const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {64, 1, kBn, 1};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -959,34 +1131,52 @@ bool bf16_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                const __nv_bfloat16* v, __nv_bfloat16* o, int batch, int S,
-                int H, int KH, int D, int causal, int window, float scale,
-                cudaStream_t stream) {
-  static_assert(kBm == kBn, "Q and K/V tiles share one box shape");
-  if (!valid_shape(batch, S, H, KH, D, window, kBm))
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int NP, int BN>
+int launch_bf16_tiles(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                      const __nv_bfloat16* v, __nv_bfloat16* o, int batch,
+                      int S, int H, int KH, int D, int Dv, int causal,
+                      int window, float scale, cudaStream_t stream) {
+  using L = Bf16Tiles<NP, BN>;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap qm, km, vm;
-  if (!bf16_map(enc, &qm, q, batch, S, H, D) ||
-      !bf16_map(enc, &km, k, batch, S, KH, D) ||
-      !bf16_map(enc, &vm, v, batch, S, KH, D))
+  if (!bf16_map(enc, &qm, q, batch, S, H, D, kBm) ||
+      !bf16_map(enc, &km, k, batch, S, KH, D, BN) ||
+      !bf16_map(enc, &vm, v, batch, S, KH, Dv, BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kBf16Smem));
+      flash_wgmma_bf16<NP, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (S + kBm - 1) / kBm * H * batch;
-  flash_wgmma_bf16<<<blocks, kBf16Threads, kBf16Smem, stream>>>(
-      qm, km, vm, o, S, H, KH, D, causal, window, scale * kLog2e);
+  const dim3 grid((S + kBm - 1) / kBm * H * batch,
+                  (Dv + kVPanel - 1) / kVPanel);
+  flash_wgmma_bf16<NP, BN><<<grid, kBf16Threads, L::kSmem, stream>>>(
+      qm, km, vm, o, S, H, KH, D, Dv, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tiles D takes: two 64-column panels or three take 128-key tiles,
+// four only 64.
+int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                const __nv_bfloat16* v, __nv_bfloat16* o, int batch, int S,
+                int H, int KH, int D, int Dv, int causal, int window,
+                float scale, int max_dim, cudaStream_t stream) {
+  if (!valid_shape(batch, S, H, KH, D, Dv, window, kBm, max_dim))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 128)
+    return launch_bf16_tiles<2, 128>(q, k, v, o, batch, S, H, KH, D, Dv,
+                                     causal, window, scale, stream);
+  if (D <= 192)
+    return launch_bf16_tiles<3, 128>(q, k, v, o, batch, S, H, KH, D, Dv,
+                                     causal, window, scale, stream);
+  return launch_bf16_tiles<4, 64>(q, k, v, o, batch, S, H, KH, D, Dv, causal,
+                                  window, scale, stream);
 }
 
 int launch_f32(const float* q, const float* k, const float* v, float* o,
                int batch, int S, int H, int KH, int D, int causal, int window,
                float scale, cudaStream_t stream) {
-  if (!valid_shape(batch, S, H, KH, D, window, kF32Bm))
+  if (!valid_shape(batch, S, H, KH, D, D, window, kF32Bm, kFaMaxDim))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -998,32 +1188,48 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_wide(const T* q, const T* k, const T* v, T* o, int batch, int S,
-                int H, int KH, int D, int causal, int window, float scale,
-                cudaStream_t stream) {
-  if (!valid_shape(batch, S, H, KH, D, window, kWideBm, kWideMaxDim))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = wide_smem(D);
+template <int NP, int BN>
+int launch_wide_f32_tiles(const float* q, const float* k, const float* v,
+                          float* o, int batch, int S, int H, int KH, int D,
+                          int Dv, int causal, int window, float scale,
+                          cudaStream_t stream) {
+  using L = WideF32<NP, BN>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_wgmma_wide_tf32<NP, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (S + kWideBm - 1) / kWideBm * H * batch;
-  flash_wide_kernel<T><<<blocks, kWideThreads, smem, stream>>>(
-      q, k, v, o, S, H, KH, D, causal, window, scale * kLog2e);
+  const dim3 grid((S + kF32Bm - 1) / kF32Bm * H * batch,
+                  (Dv + kVPanel - 1) / kVPanel);
+  flash_wgmma_wide_tf32<NP, BN><<<grid, kF32Threads, L::kSmem, stream>>>(
+      q, k, v, o, S, H, KH, D, Dv, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Six 32-column panels leave room for 32-key tiles; eight only for 16.
+int launch_wide_f32(const float* q, const float* k, const float* v, float* o,
+                    int batch, int S, int H, int KH, int D, int Dv,
+                    int causal, int window, float scale,
+                    cudaStream_t stream) {
+  if (!valid_shape(batch, S, H, KH, D, Dv, window, kF32Bm, kWideMaxDim))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return D <= 192 ? launch_wide_f32_tiles<6, 32>(q, k, v, o, batch, S, H, KH,
+                                                 D, Dv, causal, window, scale,
+                                                 stream)
+                  : launch_wide_f32_tiles<8, 16>(q, k, v, o, batch, S, H, KH,
+                                                 D, Dv, causal, window, scale,
+                                                 stream);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// o (B, S, H, D) = attention(q, k, v).  q and o (B, S, H, D), k and v
-// (B, S, KH, D) in the entry's type, contiguous, 16-byte aligned, on the
-// stream's device; H % KH == 0, D a multiple of 8 up to 128.  causal != 0
-// masks keys after the query; window > 0 masks keys `window` or more
-// positions before it.  Returns cudaGetLastError() after the launch (0 on
-// success), or the error that kept it from launching.
+// o (B, S, H, D) = attention(q, k, v).  q, k, v and o (B, S, H or KH, D)
+// in the entry's type, contiguous, 16-byte aligned, on the stream's
+// device; H % KH == 0, D a multiple of 8 up to 128.  causal != 0 masks
+// keys after the query; window > 0 masks keys `window` or more positions
+// before it.  Returns cudaGetLastError() after the launch (0 on success),
+// or the error that kept it from launching.
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int batch,
                                    int seqlen, int heads, int kv_heads,
@@ -1041,18 +1247,22 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     int window, float scale,
                                     cudaStream_t stream) {
   return repro_torch::launch_bf16(q, k, v, o, batch, seqlen, heads, kv_heads,
-                                  headdim, causal, window, scale, stream);
+                                  headdim, headdim, causal, window, scale,
+                                  repro_torch::kFaMaxDim, stream);
 }
 
-// The same function for D a multiple of 8 up to 256, on the CUDA cores in
-// f32 (flash_wide_kernel); the wrapper sends it D above 128 only.
+// The same function for D a multiple of 8 up to 256 and V of its own
+// width: v (B, S, KH, vdim) and o (B, S, H, vdim), vdim a multiple of 8 up
+// to D; the wrapper sends it D above 128 only.
 extern "C" int flash_attention_wide_f32(const float* q, const float* k,
                                         const float* v, float* o, int batch,
                                         int seqlen, int heads, int kv_heads,
-                                        int headdim, int causal, int window,
-                                        float scale, cudaStream_t stream) {
-  return repro_torch::launch_wide(q, k, v, o, batch, seqlen, heads, kv_heads,
-                                  headdim, causal, window, scale, stream);
+                                        int headdim, int vdim, int causal,
+                                        int window, float scale,
+                                        cudaStream_t stream) {
+  return repro_torch::launch_wide_f32(q, k, v, o, batch, seqlen, heads,
+                                      kv_heads, headdim, vdim, causal, window,
+                                      scale, stream);
 }
 
 extern "C" int flash_attention_wide_bf16(const __nv_bfloat16* q,
@@ -1060,8 +1270,10 @@ extern "C" int flash_attention_wide_bf16(const __nv_bfloat16* q,
                                          const __nv_bfloat16* v,
                                          __nv_bfloat16* o, int batch,
                                          int seqlen, int heads, int kv_heads,
-                                         int headdim, int causal, int window,
-                                         float scale, cudaStream_t stream) {
-  return repro_torch::launch_wide(q, k, v, o, batch, seqlen, heads, kv_heads,
-                                  headdim, causal, window, scale, stream);
+                                         int headdim, int vdim, int causal,
+                                         int window, float scale,
+                                         cudaStream_t stream) {
+  return repro_torch::launch_bf16(q, k, v, o, batch, seqlen, heads, kv_heads,
+                                  headdim, vdim, causal, window, scale,
+                                  repro_torch::kWideMaxDim, stream);
 }

@@ -84,8 +84,8 @@ _SIGNATURES = {
     "ssd_scan_smem_bytes": [_I] * 4,
     "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _P],
     "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _P],
-    "flash_attention_wide_f32": [_P] * 4 + [_I] * 7 + [_F, _P],
-    "flash_attention_wide_bf16": [_P] * 4 + [_I] * 7 + [_F, _P],
+    "flash_attention_wide_f32": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "flash_attention_wide_bf16": [_P] * 4 + [_I] * 8 + [_F, _P],
 }
 _LIB = None
 

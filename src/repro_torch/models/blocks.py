@@ -21,8 +21,8 @@ reference does.
 
 **MLA** (DeepSeek-V2) prefills through per-head K and V materialised from
 the latent, query and key heads ``qk_nope_dim + qk_rope_dim`` wide (192 at
-full size) and V ``v_head_dim`` wide (``layers.attention`` pads V for the
-flash kernel); decode is absorbed into the latent space and stays plain
+full size) and V ``v_head_dim`` wide (the flash kernel's wrapper takes
+V at that width); decode is absorbed into the latent space and stays plain
 PyTorch, its einsums in f32, as the reference's jnp is.
 """
 
@@ -253,8 +253,8 @@ def mla_apply(p, x, cfg, *, q_chunk: int = 1024, plain: bool = False):
     """Training / prefill MLA: per-head K (``k_nope`` and the shared
     ``k_rope``) and V materialised from the latent, attention at the scale
     1/sqrt(nope + rope).  V (``v_head_dim`` wide) is narrower than Q and K;
-    on the kernel path ``layers.attention`` zero-pads it to their width and
-    keeps its first columns, which gives MLA's output exactly."""
+    ``layers.attention`` hands it to the flash kernel's wrapper at its
+    own width."""
     return _mla_attend(p, x, cfg, q_chunk, plain)[0]
 
 

@@ -109,11 +109,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     causality there.
 
     V may be narrower than Q and K (MLA: 128 against 192), as the
-    reference's layer allows.  The plain version takes it as it is; the
-    kernel path zero-pads V to the query width and keeps the first columns
-    of the output.  Each output column is a weighted sum of its own V
-    column, so the padded columns change nothing in the others and come
-    out exactly 0.
+    reference's layer allows; the plain version and the flash kernel's
+    wrapper both take it at its own width.
 
     Raises:
         ValueError: ``S > q_chunk`` and ``S % q_chunk != 0`` (the reference
@@ -126,12 +123,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     if plain:
         return attention_plain(q, k, v, causal=causal, window=window,
                                scale=scale, q_chunk=q_chunk)
-    dv = v.shape[-1]
-    if dv < q.shape[-1]:
-        v = F.pad(v, (0, q.shape[-1] - dv))
-    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=causal, window=window, scale=scale)
-    return o if o.shape[-1] == dv else o[..., :dv]
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, window=window, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,

@@ -12,11 +12,14 @@ the sequence) and three head dimensions of the CUDA wrapper's wide entry
 
 Kernel numerics: the CUDA kernel cannot run here, so plain-PyTorch
 emulations of its two arithmetics (``flash_emulated``: the online softmax
-over the kernel's key tiles in base 2, with bf16 P before P V over 128-key
-tiles in the bf16 entry, and each f32 product carried as three TF32
-products over 32-key tiles, each tile's P V a partial added in f32, in the
-f32 entry) are held to the same references and tolerances, at small shapes
-with D = 120, GQA and a window.  These helpers live here, not in the
+over the kernel's key tiles in base 2, V at its own width, with bf16 P
+before P V in the bf16 entries, and each f32 product carried as three TF32
+products, each tile's P V a partial added in f32, in the f32 entries; the
+key tiles are each entry's, ``KEY_TILE``) are held to the same references
+and tolerances, at small shapes with D = 120, GQA and a window, and at the
+wide entries' D = 136, 192 and 256 with V of 128 and of D.  The reference's
+Pallas kernel takes V as wide as Q and K: it gets V zero-padded to D, and
+its first Dv columns are compared.  These helpers live here, not in the
 package.
 
 Layer: the port's ``layers.attention`` and ``decode_attention`` against
@@ -45,17 +48,26 @@ from test_kernels import ATTN_SWEEP
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 H2O_CASE = (1, 256, 8, 2, 120, True, 64)  # D=120, GQA 4:1, window < S
-# head dimensions the CUDA wrapper sends to its wide entry (136 to 256):
+# head dimensions the CUDA wrapper sends to its wide entries (136 to 256):
 # MLA's 192, and both ends with GQA, a window and no mask
 WIDE_CASES = [(1, 128, 4, 2, 136, True, 48), (1, 128, 2, 2, 192, True, 0),
               (1, 64, 4, 1, 256, False, 0)]
 
 
-def qkv(b, s, h, kh, d, seed=0):
+def qkv(b, s, h, kh, d, seed=0, dv=None):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, s, h, d)).astype(np.float32),
             rng.standard_normal((b, s, kh, d)).astype(np.float32),
-            rng.standard_normal((b, s, kh, d)).astype(np.float32))
+            rng.standard_normal((b, s, kh, dv or d)).astype(np.float32))
+
+
+def references(jq, jk, jv, *, causal, window):
+    """The reference's Pallas kernel (on V zero-padded to Q's width, its
+    first Dv columns) and its dense oracle."""
+    d, dv = jq.shape[-1], jv.shape[-1]
+    padded = jnp.pad(jv, ((0, 0),) * 3 + ((0, d - dv),))
+    return (jax_flash(jq, jk, padded, causal=causal, window=window)[..., :dv],
+            attention_ref(jq, jk, jv, causal=causal, window=window))
 
 
 def both(arrays, dtype):
@@ -117,6 +129,29 @@ def test_live_pairs_counts_the_unmasked_pairs():
     assert live_pairs(7168, causal=True, window=4096) == 20_973_568
 
 
+@pytest.mark.parametrize("b,s,h,kh,d,dv,causal,window",
+                         [(1, 128, 2, 2, 192, 128, True, 0),
+                          (1, 96, 4, 2, 136, 64, True, 40),
+                          (1, 64, 4, 1, 256, 136, False, 0),
+                          (1, 96, 4, 2, 24, 16, True, 0),
+                          (1, 80, 4, 2, 120, 60, True, 30),
+                          (1, 64, 2, 2, 192, 60, True, 0)],
+                         ids=["mla", "d136_v64_window", "d256_v136",
+                              "reduced_mla", "d120_v60_window", "d192_v60"])
+def test_kernel_function_takes_v_at_its_own_width(b, s, h, kh, d, dv, causal,
+                                                  window):
+    """V narrower than Q and K, of any width up to theirs (the wrapper
+    pads it to the width its entry takes on the card): an output of V's
+    width, equal to the reference on V zero-padded to Q's width."""
+    (jq, jk, jv), (q, k, v) = both(qkv(b, s, h, kh, d, seed=dv, dv=dv),
+                                   "float32")
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert tuple(got.shape) == (b, s, h, dv)
+    for want in references(jq, jk, jv, causal=causal, window=window):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=TOL["float32"], atol=TOL["float32"])
+
+
 def test_kernel_wrapper_refuses_other_devices():
     q = torch.zeros((1, 8, 2, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -139,6 +174,24 @@ def test_wrapper_block_shape_follows_the_kernel_source():
     assert fa.smem_bytes(torch.float32) == consts["kF32Smem"]
 
 
+def test_runtime_signatures_follow_the_c_entries():
+    """``runtime``'s ctypes argtypes for each flash entry name the
+    parameters of its ``extern "C"`` declaration in the source, in order
+    (the wide entries take V's width after the head dimension)."""
+    import ctypes
+    from repro_torch.kernels import runtime
+    src = (runtime.CSRC / "flash_attention.cu").read_text()
+    kinds = {"float": ctypes.c_float, "int": ctypes.c_int,
+             "cudaStream_t": ctypes.c_void_p}
+    for entry in (*fa._ENTRY.values(), *fa._WIDE_ENTRY.values()):
+        params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src)[1]
+        want = [ctypes.c_void_p if "*" in p else kinds[p.split()[0]]
+                for p in params.split(",")]
+        assert runtime._SIGNATURES[entry] == want, entry
+        names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+        assert ("vdim" in names) == (entry in fa._WIDE_ENTRY.values())
+
+
 # ------------------------------------------------- the kernel's numerics
 def tf32_rna(x):
     """f32 -> TF32 (10-bit mantissa), nearest with ties away from zero, by
@@ -156,15 +209,28 @@ def mm_3xtf32(a, b):
     return (as_ @ bb + ab @ bs) + ab @ bb
 
 
+# keys per tile of each kernel: (numerics, the widest D of its tiles) ->
+# keys.  bf16: flash_wgmma_bf16<2, 128> (D up to 128) and <3, 128> take
+# 128, <4, 64> (D above 192) 64; f32: flash_wgmma_tf32 (D up to 128) and
+# flash_wgmma_wide_tf32<6, 32> take 32, <8, 16> 16.
+KEY_TILE = {("bf16", 192): 128, ("bf16", 256): 64,
+            ("tf32x3", 192): 32, ("tf32x3", 256): 16}
+
+
+def key_tile(numerics, d):
+    return KEY_TILE[numerics, 192 if d <= 192 else 256]
+
+
 def flash_emulated(q, k, v, *, causal, window, tile, numerics):
     """The kernel's arithmetic in plain PyTorch: an online softmax over
     ``tile``-key tiles, scores in base 2 (scale times log2 e, rounded to
     f32 as the kernel's launcher rounds it), a row with nothing live yet on
-    base 0.  Each tile's P V is a partial of its own, added to the rescaled
+    base 0.  V may be narrower than Q and K; the output has its width.
+    Each tile's P V is a partial of its own, added to the rescaled
     accumulator in f32.  ``numerics="bf16"``: products of the bf16 inputs
-    summed in f32 and P rounded to bf16 before P V (``flash_wgmma_bf16``,
-    128-key tiles); ``"tf32x3"``: both products as three TF32 products
-    (``flash_wgmma_tf32``, 32-key tiles)."""
+    summed in f32 and P rounded to bf16 before P V (the bf16 entries);
+    ``"tf32x3"``: both products as three TF32 products (the f32 entries).
+    ``key_tile`` gives each entry's tile."""
     b, s, h, d = q.shape
     g = h // k.shape[2]
     mm = mm_3xtf32 if numerics == "tf32x3" else torch.matmul
@@ -174,7 +240,7 @@ def flash_emulated(q, k, v, *, causal, window, tile, numerics):
     sl2 = float(np.float32(1.0 / math.sqrt(d)) * np.float32(math.log2(math.e)))
     m = torch.full((b, h, s), -torch.inf)
     l = torch.zeros((b, h, s))
-    acc = torch.zeros((b, h, s, d))
+    acc = torch.zeros((b, h, s, v.shape[-1]))
     qpos = torch.arange(s)[:, None]
     for k0 in range(0, s, tile):
         k1 = min(k0 + tile, s)
@@ -201,28 +267,34 @@ def flash_emulated(q, k, v, *, causal, window, tile, numerics):
 
 
 EMU_CASES = {
-    # (B, S, H, KH, D, causal, window): D = 120 with GQA 4:1 and a window
-    # below S, ragged S with a window no multiple of the tiles, MQA
+    # (B, S, H, KH, D, causal, window, Dv): D = 120 with GQA 4:1 and a
+    # window below S, ragged S with a window no multiple of the tiles, MQA
     # bidirectional
-    "h2o_head": H2O_CASE,
-    "ragged_window_d120": (2, 200, 8, 2, 120, True, 100),
-    "mqa_bidirectional": (1, 160, 4, 1, 32, False, 0),
+    "h2o_head": H2O_CASE + (120,),
+    "ragged_window_d120": (2, 200, 8, 2, 120, True, 100, 120),
+    "mqa_bidirectional": (1, 160, 4, 1, 32, False, 0, 32),
+    # the wide entries: D = 136 (GQA, a window), MLA's 192 with V of 128
+    # and of 192, 256 (64- and 16-key tiles) with V of 128 and of 256
+    "wide_d136_gqa_window": (1, 144, 4, 2, 136, True, 50, 136),
+    "wide_mla_d192_v128": (1, 160, 2, 2, 192, True, 0, 128),
+    "wide_d192_v192_bidirectional": (1, 96, 2, 1, 192, False, 0, 192),
+    "wide_d256_v128": (1, 160, 2, 2, 256, True, 0, 128),
+    "wide_d256_v256_mqa_window": (1, 96, 4, 1, 256, True, 40, 256),
 }
 
 
 @pytest.mark.parametrize("case", sorted(EMU_CASES))
 def test_bf16_tensor_core_numerics_match_reference(case):
-    """bf16 P before P V over 128-key tiles (the ``flash_wgmma_bf16``
-    entry) stays inside the bf16 tolerance of the reference's Pallas kernel
-    and its dense oracle."""
-    b, s, h, kh, d, causal, window = EMU_CASES[case]
-    (jq, jk, jv), (q, k, v) = both(qkv(b, s, h, kh, d, seed=s + 1),
+    """bf16 P before P V over the key tiles of each ``flash_wgmma_bf16``
+    instantiation stays inside the bf16
+    tolerance of the reference's Pallas kernel and its dense oracle."""
+    b, s, h, kh, d, causal, window, dv = EMU_CASES[case]
+    (jq, jk, jv), (q, k, v) = both(qkv(b, s, h, kh, d, seed=s + 1, dv=dv),
                                    "bfloat16")
-    got = flash_emulated(q, k, v, causal=causal, window=window, tile=128,
-                         numerics="bf16")
-    assert got.dtype == torch.bfloat16
-    for want in (jax_flash(jq, jk, jv, causal=causal, window=window),
-                 attention_ref(jq, jk, jv, causal=causal, window=window)):
+    got = flash_emulated(q, k, v, causal=causal, window=window,
+                         tile=key_tile("bf16", d), numerics="bf16")
+    assert got.dtype == torch.bfloat16 and got.shape[-1] == dv
+    for want in references(jq, jk, jv, causal=causal, window=window):
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32),
                                    rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
@@ -230,16 +302,16 @@ def test_bf16_tensor_core_numerics_match_reference(case):
 
 @pytest.mark.parametrize("case", sorted(EMU_CASES))
 def test_3xtf32_numerics_match_reference(case):
-    """Three TF32 products per f32 product over 32-key tiles (the
-    ``flash_wgmma_tf32`` entry) keep the f32 tolerance of the reference's
-    Pallas kernel and its dense oracle."""
-    b, s, h, kh, d, causal, window = EMU_CASES[case]
-    (jq, jk, jv), (q, k, v) = both(qkv(b, s, h, kh, d, seed=s + 2),
+    """Three TF32 products per f32 product over the key tiles of each f32
+    kernel (``flash_wgmma_tf32``, ``flash_wgmma_wide_tf32``) keep the f32
+    tolerance of the reference's Pallas kernel and its dense oracle."""
+    b, s, h, kh, d, causal, window, dv = EMU_CASES[case]
+    (jq, jk, jv), (q, k, v) = both(qkv(b, s, h, kh, d, seed=s + 2, dv=dv),
                                    "float32")
-    got = flash_emulated(q, k, v, causal=causal, window=window, tile=32,
-                         numerics="tf32x3")
-    for want in (jax_flash(jq, jk, jv, causal=causal, window=window),
-                 attention_ref(jq, jk, jv, causal=causal, window=window)):
+    got = flash_emulated(q, k, v, causal=causal, window=window,
+                         tile=key_tile("tf32x3", d), numerics="tf32x3")
+    assert got.shape[-1] == dv
+    for want in references(jq, jk, jv, causal=causal, window=window):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=TOL["float32"], atol=TOL["float32"])
 

@@ -10,9 +10,10 @@ contraction); the window-vet kernel's cuts equal the plain version's on
 every row, its other lanes agree to 1e-5, and a row's lanes are the same
 alone and padded to 4096.  SSD and flash attention take the reference
 suite's tolerances (tests/test_kernels.py): SSD 2e-4 in f32 and 5e-2 in
-bf16, attention 2e-5 in f32 and 2e-2 in bf16, the wide entry (D 136-256)
-too, and MLA's V zero-padded for it bit for bit the padded call's first
-columns, the padded ones exactly 0; model prefill logits 1e-4, the
+bf16, attention 2e-5 in f32 and 2e-2 in bf16, the wide entries (D
+136-256, V at its own width) too, and MLA's V at 128 bit for bit the first
+columns of the same call on V zero-padded to 192, the padded ones exactly
+0; model prefill logits 1e-4, the
 reduced MLA and hybrid models' caches too, MLA's routing under the
 routing contract.
 Gradients through the kernels' autograd routes: each input gradient within
@@ -346,10 +347,10 @@ def test_flash_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-# the wide entry (D from 136 to 256, CUDA cores, P at f32): MLA's 192 at
-# full width, the entry's edges 136 and 256, MHA and GQA, causal, windowed
-# (a window that is no multiple of the 32-key tile) and bidirectional, a
-# ragged S, both types
+# the wide entries (D from 136 to 256, wgmma; V as wide as D here, so D
+# above 128 takes two V panels): MLA's 192 at full width, the entries'
+# edges 136 and 256, MHA and GQA, causal, windowed (a window that is no
+# multiple of the key tiles) and bidirectional, a ragged S, both types
 WIDE_FLASH_CASES = {
     "mla_d192_causal_f32": ((2, 512, 16, 16, 192), True, 0, torch.float32,
                             2e-5),
@@ -388,6 +389,102 @@ def test_wide_flash_entry_matches_plain(cuda, case):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# V at its own width on the wide entries: ((B, S, H, KH, D), Dv, causal,
+# window, dtype, tolerance).  MLA's 128 of 192; Dv = 8; one panel of 64
+# columns; two panels with the second one nearly empty (136 of 256, 200
+# of 200)
+WIDE_VDIM_CASES = {
+    "mla_v128_f32": ((2, 512, 16, 16, 192), 128, True, 0, torch.float32,
+                     2e-5),
+    "mla_v128_bf16": ((2, 512, 16, 16, 192), 128, True, 0, torch.bfloat16,
+                      2e-2),
+    "d136_v64_window_f32": ((1, 300, 8, 2, 136), 64, True, 70,
+                            torch.float32, 2e-5),
+    "d256_v8_mqa_ragged_bf16": ((2, 97, 4, 1, 256), 8, True, 0,
+                                torch.bfloat16, 2e-2),
+    "two_panels_d256_v136_bidirectional_f32": ((1, 200, 4, 4, 256), 136,
+                                               False, 0, torch.float32, 2e-5),
+    "two_panels_d256_v136_bidirectional_bf16": ((1, 200, 4, 4, 256), 136,
+                                                False, 0, torch.bfloat16,
+                                                2e-2),
+    "two_panels_d200_v200_f32": ((2, 300, 4, 2, 200), 200, True, 0,
+                                 torch.float32, 2e-5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_VDIM_CASES))
+def test_wide_flash_entry_takes_v_at_its_own_width(cuda, case):
+    """The wide entries on V narrower than Q and K, or wider than one
+    128-column panel, against the plain version: one wide launch, an
+    output of V's width."""
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.flash_attention import ops as fa
+    shape, dv, causal, window, dtype, tol = WIDE_VDIM_CASES[case]
+    b, s, h, kh, d = shape
+    q, k, _ = flash_inputs(shape, dtype, cuda)
+    v = torch.randn((b, s, kh, dv), generator=torch.Generator().manual_seed(1)
+                    ).to(cuda, dtype)
+    wide = fa.WIDE_LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.WIDE_LAUNCHES == wide + 1
+    assert got.shape == (b, s, h, dv) and got.dtype == dtype
+    want = attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_refuses_a_v_width_it_cannot_take(cuda, dtype):
+    """Both entries take V from 1 column to as wide as Q and K, no wider
+    and not empty."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    for d in (128, 192):
+        q, k, v = flash_inputs((1, 64, 4, 2, d), dtype, cuda)
+        for bad in (v[..., :0], torch.cat([v, v[..., :8]], -1)):
+            with pytest.raises(ValueError, match="V's width"):
+                fa.flash_attention(q, k, bad.contiguous())
+
+
+# V narrower than Q and K where the entry does not take it as it is:
+# ((B, S, H, KH, D), Dv, causal, window, dtype, tolerance).  The narrow
+# entries take V only at D (the reduced MLA config's 16 of 24; 64 of 128),
+# the wide ones a multiple of 8 (60 and 100)
+PADDED_V_CASES = {
+    "reduced_mla_d24_v16_f32": ((2, 96, 4, 4, 24), 16, True, 0,
+                                torch.float32, 2e-5),
+    "d128_v64_window_bf16": ((1, 300, 8, 2, 128), 64, True, 70,
+                             torch.bfloat16, 2e-2),
+    "d120_v60_gqa_f32": ((2, 200, 8, 2, 120), 60, True, 0, torch.float32,
+                         2e-5),
+    "d192_v60_bf16": ((2, 256, 4, 4, 192), 60, True, 0, torch.bfloat16,
+                      2e-2),
+    "d136_v100_window_f32": ((1, 300, 8, 2, 136), 100, True, 70,
+                             torch.float32, 2e-5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PADDED_V_CASES))
+def test_flash_wrapper_pads_v_to_the_width_its_entry_takes(cuda, case):
+    """The wrapper zero-pads V to D (narrow entries) or to a multiple of 8
+    (wide entries) and keeps the output's first Dv columns: one launch, an
+    output of V's width, the plain attention over that V."""
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.flash_attention import ops as fa
+    shape, dv, causal, window, dtype, tol = PADDED_V_CASES[case]
+    b, s, h, kh, d = shape
+    q, k, _ = flash_inputs(shape, dtype, cuda)
+    v = torch.randn((b, s, kh, dv), generator=torch.Generator().manual_seed(2)
+                    ).to(cuda, dtype)
+    before, wide = fa.LAUNCHES, fa.WIDE_LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert (fa.LAUNCHES, fa.WIDE_LAUNCHES) == (before + 1,
+                                               wide + int(d > 128))
+    assert got.shape == (b, s, h, dv) and got.is_contiguous()
+    want = attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_narrow_entries_do_not_count_as_wide(cuda):
     from repro_torch.kernels.flash_attention import ops as fa
     q, k, v = flash_inputs((1, 64, 4, 2, 128), torch.float32, cuda)
@@ -398,9 +495,11 @@ def test_narrow_entries_do_not_count_as_wide(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mla_v_padding_through_the_wide_entry(cuda, dtype):
-    """MLA's prefill shape at a short S: Q and K of 192, V of 128 padded to
-    192 for the kernel.  The padded columns come out exactly 0 and the
-    first 128 are the plain attention over the unpadded V; the autograd
+    """MLA's prefill shape at a short S: Q and K of 192, V of 128.
+    ``layers.attention`` hands V to the wide entry at 128: its output is the
+    plain attention over that V and, bit for bit, the first 128 columns of
+    the same call on V zero-padded to 192 (whose first V panel is formed
+    alike, and whose padded columns come out exactly 0); the autograd
     route gives the plain gradients."""
     from repro_torch.kernels.flash_attention import attention_plain
     from repro_torch.kernels.flash_attention import ops as fa

@@ -8,10 +8,11 @@ seeds.
 
 Tolerances, f32 on the CPU, each library summing in its own order:
 ``mla_apply``, ``mla_prefill`` (its output and its ``ckv``/``krope``
-caches) and ``mla_decode`` to 1e-4; the V-padding route of
-``layers.attention`` (V zero-padded to the query width for the flash
-kernel) to 1e-6 of the unpadded plain attention, the padded columns
-exactly 0; ``loss_fn`` to 1e-5 relative and each gradient leaf to 1e-4 of
+caches) and ``mla_decode`` to 1e-4; the V-width route of
+``layers.attention`` (V handed to the flash wrapper at its own width above
+Q's width 128, padded to it below) to 1e-6 of the plain attention and of the first columns of the same call on V
+zero-padded to the query width, whose padded columns come out exactly 0;
+``loss_fn`` to 1e-5 relative and each gradient leaf to 1e-4 of
 its largest under remat none, full and dots; the model's logits and caches
 to 1e-4 over a prefill and 8 greedy decode steps whose tokens must be
 equal; ``train()``'s losses over 8 steps within rtol 1e-4.
@@ -127,13 +128,15 @@ def test_mla_decode_matches_the_reference(mla):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dims", [(24, 16), (192, 128)],
-                         ids=["reduced", "full_width"])
+@pytest.mark.parametrize("dims", [(24, 16), (192, 128), (256, 136)],
+                         ids=["reduced", "full_width", "two_v_panels"])
 def test_v_padding_route_equals_the_unpadded_plain_attention(dims, causal):
-    """``layers.attention`` off the plain path zero-pads V to the query
-    width for the kernel and keeps the first ``dv`` columns: the result is
-    the plain attention over the unpadded V, and the padded columns of the
-    kernel's output are exactly 0."""
+    """``layers.attention`` off the plain path hands V to the flash
+    wrapper at its own width ``dv`` (the wrapper pads it to the width its
+    entry takes on the card): the result has V's width, is the plain
+    attention over that V, and equals the first ``dv`` columns of the
+    wrapper on V zero-padded to the query width, whose padded columns are
+    exactly 0."""
     d, dv = dims
     rng = np.random.default_rng(d)
     q, k = (torch.from_numpy(rng.standard_normal((2, 64, 4, d))
@@ -149,6 +152,7 @@ def test_v_padding_route_equals_the_unpadded_plain_attention(dims, causal):
                                 causal=causal, scale=scale)
     assert not padded[..., dv:].any()
     close(padded[..., :dv], want, 1e-6)
+    close(got, padded[..., :dv], 1e-6)
 
 
 def test_init_params_and_cache_have_the_reference_layout(mla):
