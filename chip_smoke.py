@@ -7,7 +7,7 @@ once more with ``-Xptxas -v``: their kernels' registers and spills, none
 allowed in the flash, SSD and window-vet kernels, and the tensor-core
 instructions of the flash and SSD kernels from ``cuobjdump -sass`` (HGMMA
 required in flash, HMMA in SSD) print on the ``compiled`` line) and drives
-the port's main paths on one GPU, in thirteen phases:
+the port's main paths on one GPU, in fourteen phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with CUDA-event times, bounds and,
@@ -192,7 +192,24 @@ the port's main paths on one GPU, in thirteen phases:
    card and on the CPU from the same weights (losses within 1e-4); and
    ``sched.autotune.tune`` on full mamba2-130m (batch 8, seq_len 64,
    ``n_micro`` x ``q_chunk`` in (1, 2) x (32, 64), 12 steps a candidate):
-   four candidates, each with its vet.
+   four candidates, each with its vet;
+14. ``sharded`` — the sharding layer on a one-rank NCCL group (a
+   ``FileStore`` in a temporary directory) and a (1, 1) ("data", "model")
+   mesh of the card, destroyed before the phase returns: deepseek-moe-16b
+   at full width on 2 of its 28 layers (as ``train`` cuts it), batch 2 x
+   2048, through ``jit_prefill_step``, 8 ``jit_decode_step``s and 2
+   ``jit_train_step``s, each against ``make_*_step`` without a mesh on the
+   same weights: flash launches equal, the same routing, logits and
+   caches within ``LOGIT_TOL``, losses within 1e-5 and every parameter and
+   moment within ``LOGIT_TOL`` of its largest, each reported as a share of
+   the tolerance and whether bit for bit; full mamba2-130m in the
+   split-projection layout prefilled 4 x 512 on the mesh against the fused
+   layout on the mapped weights (SSD launches equal, logits within
+   ``LOGIT_TOL``); ``reshard_state`` mesh -> none -> mesh bit for bit.
+   Printed, not held: ms with and without the mesh (DTensor's host cost;
+   prefills timed in turns), each training run's peak bytes above what it
+   began with, and the collectives recorded (on one rank, only the
+   explicit all-reduces of the sequence-sharded decode).
 
 Every engine result is held against the ``torch`` backend (the plain path)
 on the card under the near-tie contract: where the change-point agrees,
@@ -239,7 +256,7 @@ RTOL = 1e-5  # vet/ei/oc/pr where the cut agrees
 GAP = 1e-4  # relative SSE gap allowed between two near-tie cuts
 PHASES = ("kernels", "job", "analysis", "fleet_fused", "fleet_gather",
           "serve", "serve_attn", "serve_moe", "serve_hybrid", "serve_mla",
-          "frontends", "transport", "train")
+          "frontends", "transport", "train", "sharded")
 SSD_RTOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py TestSSD
 # tests/test_kernels.py TestFlashAttention
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1725,7 +1742,7 @@ def layerwise_check(cfg, params, batch_in, s_max: int) -> dict:
     def rel(got, want):
         return float((got - want).abs().max() / want.abs().max())
 
-    def mamba_twin(lp, x, c, *, plain=False):
+    def mamba_twin(lp, x, c, ctx=None, *, plain=False):  # off a mesh
         want = mamba(lp, x, c, plain=True)
         worst["mamba"] = max(worst["mamba"], rel(mamba(lp, x, c), want))
         worst["mamba_plain_chunk32"] = max(
@@ -1734,7 +1751,8 @@ def layerwise_check(cfg, params, batch_in, s_max: int) -> dict:
         calls["mamba"] += 1
         return want
 
-    def attn_twin(lp, x, c, cache, *, q_chunk=1024, plain=False):
+    def attn_twin(lp, x, c, cache, ctx=None, *, q_chunk=1024,
+                  plain=False):  # off a mesh
         got, _ = B.block_apply(lp, x, c, q_chunk=q_chunk)
         with attention_products_3xtf32():
             got3, _ = B.block_apply(lp, x, c, q_chunk=q_chunk, plain=True)
@@ -1784,7 +1802,7 @@ def drift_probe(cfg, params, batch_in, s_max: int, every: int = 8) -> dict:
     def rel(got, want):
         return float((got - want).abs().max() / want.abs().max())
 
-    def mamba_hook(lp, x, c, *, plain=False):
+    def mamba_hook(lp, x, c, ctx=None, *, plain=False):  # off a mesh
         y = mamba(lp, x, c, plain=mode["ssd_plain"])
         if mode["name"] == "plain":
             plain_at.append(y)
@@ -1792,7 +1810,8 @@ def drift_probe(cfg, params, batch_in, s_max: int, every: int = 8) -> dict:
             now.append(rel(y, plain_at[len(now)]))
         return y
 
-    def attn_hook(lp, x, c, cache, *, q_chunk=1024, plain=False):
+    def attn_hook(lp, x, c, cache, ctx=None, *, q_chunk=1024,
+                  plain=False):  # off a mesh
         return attn(lp, x, c, cache, q_chunk=q_chunk,
                     plain=mode["flash_plain"])
 
@@ -3441,6 +3460,273 @@ def phase_train(card: str, device: str = "cuda") -> dict:
     return out
 
 
+
+# ------------------------------------------------------------------ sharded
+def tree_err(a, b) -> tuple:
+    """(largest |a - b| of any leaf relative to that leaf's largest |b|,
+    whether every leaf is equal bit for bit) over two trees of tensors."""
+    import torch
+    from repro_torch.distributed import whole
+    from repro_torch.tree import leaves
+    worst, same = 0.0, True
+    for x, y in zip(leaves(a), leaves(b)):
+        x, y = whole(x), whole(y)
+        same &= bool(torch.equal(x, y))
+        if y.is_floating_point():
+            scale = max(float(y.abs().max()), 1e-30)
+            worst = max(worst, float((x.float() - y.float()).abs().max())
+                        / scale)
+    return worst, same
+
+
+def sharded_moe_part(mesh, dev, layers: int = 2, batch: int = 2,
+                     seq_len: int = 2048, decode: int = 8,
+                     train_steps: int = 2, q_chunk: int = 1024) -> dict:
+    """deepseek-moe-16b at full width on ``layers`` of its 28 layers (as
+    the ``train`` phase cuts it): ``jit_prefill_step``, ``decode``
+    ``jit_decode_step``s and ``train_steps`` ``jit_train_step``s on the
+    mesh against ``make_*_step`` without one on the same weights."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (collective_bytes,
+                                         record_collectives, reshard_state,
+                                         whole)
+    from repro_torch.launch import steps as S
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models import layers as L
+    from repro_torch.optim.adamw import init_opt_state
+
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              num_layers=layers)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (batch, seq_len),
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1), device=dev)
+    b_in = {"tokens": prompts}
+    s_max = seq_len + decode
+    out = {"arch": cfg.name, "layers": layers,
+           "cut": f"num_layers 28 -> {layers}", "batch": batch,
+           "seq_len": seq_len}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    # prefill, its routing recorded, without and with the mesh
+    plain_prefill = S.make_prefill_step(cfg, q_chunk=q_chunk)
+    cache0 = init_cache(cfg, batch, s_max, device=dev)
+    mesh_prefill = S.jit_prefill_step(cfg, mesh, params, cache0, b_in,
+                                      q_chunk=q_chunk)
+    runs = {}
+    for name, fn, cache in (
+            ("plain", plain_prefill, init_cache(cfg, batch, s_max,
+                                                 device=dev)),
+            ("mesh", mesh_prefill, cache0)):
+        with L.recording(L.RoutingLog()) as log:
+            ((logits, c), counts), ms = timed(lambda: counted(
+                lambda: fn(params, cache, b_in)))
+        runs[name] = (whole(logits), c, log, ms, counts)
+    (l1, c1, log1, ms1, n1), (l2, c2, log2, ms2, n2) = (runs["plain"],
+                                                        runs["mesh"])
+    require(n1["flash_attention"] == layers and n2 == n1,
+            f"sharded: prefill launches {n2} on the mesh, {n1} without")
+    require(L.same_routing(log1, log2), "sharded: the mesh prefill routes "
+                                        "otherwise")
+    scale = float(l1.abs().max())
+    lerr = float((l2 - l1).abs().max()) / scale
+    cerr, csame = tree_err(c2, c1)
+    require(lerr <= LOGIT_TOL and cerr <= LOGIT_TOL,
+            f"sharded: prefill logits {lerr:.3g}, caches {cerr:.3g} of the "
+            f"largest")
+    # warm: each timed in turns (mesh, plain, plain, mesh, ...), medians;
+    # then the mesh's once more under the collective recorder
+    warm = {"plain": [], "mesh": []}
+    for name in ("mesh", "plain", "plain", "mesh") * 2:
+        fn = mesh_prefill if name == "mesh" else plain_prefill
+        warm[name].append(timed(lambda: fn(
+            params, init_cache(cfg, batch, s_max, device=dev), b_in))[1])
+    with record_collectives(mesh) as coll:
+        mesh_prefill(params, init_cache(cfg, batch, s_max, device=dev), b_in)
+    out["prefill"] = {
+        "logits_share_of_tol": lerr / LOGIT_TOL,
+        "cache_share_of_tol": cerr / LOGIT_TOL,
+        "bit_for_bit": bool(torch.equal(l1, l2)) and csame,
+        "same_routing": True, "launches": n2,
+        "ms_first": {"plain": ms1, "mesh": ms2},
+        "ms": {k: float(np.median(v)) for k, v in warm.items()},
+        "collectives": collective_bytes(coll)["counts"]}
+
+    # greedy decode from the two prefills; the mesh step takes the
+    # parameters placed once, as a caller keeps them
+    plain_dec = S.make_decode_step(cfg)
+    mesh_dec = S.jit_decode_step(cfg, mesh, params, cache0, batch)
+    placed = reshard_state(cfg, mesh, params)
+    t1 = t2 = torch.argmax(l1, -1)[:, None]
+    worst, same, ms = 0.0, True, {"plain": 0.0, "mesh": 0.0}
+    for i in range(decode):
+        (d1, c1), a = timed(lambda: plain_dec(params, c1, t1, seq_len + i))
+        (d2, c2), b = timed(lambda: mesh_dec(placed, c2, t2, seq_len + i))
+        d2 = whole(d2)
+        if i:  # the first step pays the mesh's first-call costs
+            ms["plain"] += a / (decode - 1)
+            ms["mesh"] += b / (decode - 1)
+        worst = max(worst, float((d2 - d1).abs().max())
+                    / float(d1.abs().max()))
+        same &= bool(torch.equal(d1, d2))
+        t1, t2 = torch.argmax(d1, -1)[:, None], torch.argmax(d2, -1)[:, None]
+        require(torch.equal(t1, t2), f"sharded: greedy token {i} differs")
+    cerr, csame = tree_err(c2, c1)
+    require(worst <= LOGIT_TOL and cerr <= LOGIT_TOL,
+            f"sharded: decode logits {worst:.3g}, caches {cerr:.3g}")
+    with record_collectives(mesh) as dcoll:  # the last position once more
+        mesh_dec(placed, c2, t2, s_max - 1)
+    # the last step again in turns, medians: unsharded, on the mesh, and on
+    # the mesh with plain parameters placed again on every call
+    calls = {"plain": lambda: plain_dec(params, c1, t1, s_max - 1),
+             "mesh": lambda: mesh_dec(placed, c2, t2, s_max - 1),
+             "mesh_placing_params": lambda: mesh_dec(params, c2, t2,
+                                                     s_max - 1)}
+    turns = {k: [] for k in calls}
+    for name in (list(calls) + list(calls)[::-1]) * 2:
+        turns[name].append(timed(calls[name])[1])
+    out["decode"] = {"steps": decode, "logits_share_of_tol": worst / LOGIT_TOL,
+                     "cache_share_of_tol": cerr / LOGIT_TOL,
+                     "bit_for_bit": same and csame, "ms_per_step": ms,
+                     "ms_last_step": {k: float(np.median(v))
+                                      for k, v in turns.items()},
+                     "collectives": collective_bytes(dcoll)["counts"]}
+    del c1, c2, cache0, placed
+
+    # training steps, without and with the mesh
+    batch_t = train_batch(cfg, batch, seq_len, dev)
+    opt = init_opt_state(params)
+    plain_train = S.make_train_step(cfg, q_chunk=q_chunk)
+    mesh_train = S.jit_train_step(cfg, mesh, params, opt, batch_t,
+                                  q_chunk=q_chunk)
+    res = {}
+    for name, fn in (("plain", plain_train), ("mesh", mesh_train)):
+        p, o = params, opt
+        losses, times = [], []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        for i in range(train_steps):
+            (p, o, m), t = timed(lambda: fn(p, o, batch_t))
+            losses.append(float(m["loss"]))
+            times.append(t)
+        torch.cuda.synchronize()
+        # the peak above what was held when the run began (the other
+        # run's state included)
+        res[name] = (p, o, losses, times, read_counts(),
+                     torch.cuda.max_memory_allocated() - base)
+    (p1, o1, ls1, tm1, n1, pk1), (p2, o2, ls2, tm2, n2, pk2) = (
+        res["plain"], res["mesh"])
+    require(n1["flash_attention"] == 2 * layers * train_steps and n2 == n1,
+            f"sharded: train launches {n2} on the mesh, {n1} without")
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(ls2, ls1))
+    perr, psame = tree_err((p2, o2), (p1, o1))
+    require(lrel <= TRAIN_LOSS_RTOL and perr <= LOGIT_TOL,
+            f"sharded: train losses {lrel:.3g} apart, parameters and moments "
+            f"{perr:.3g} of their largest")
+    out["train"] = {"steps": train_steps, "losses": ls2,
+                    "loss_rel_err": lrel, "state_share_of_tol": perr / LOGIT_TOL,
+                    "bit_for_bit": psame and ls1 == ls2, "launches": n2,
+                    "ms_per_step": {"plain": tm1, "mesh": tm2},
+                    "peak_bytes_above_start": {"plain": int(pk1),
+                                               "mesh": int(pk2)}}
+
+    # reshard_state: mesh -> no mesh -> mesh, bit for bit
+    on = reshard_state(cfg, mesh, p2, o2)
+    off = reshard_state(cfg, None, *on)
+    back = reshard_state(cfg, mesh, *off)
+    require(tree_err(off, on)[1] and tree_err(back, on)[1]
+            and not hasattr(off[0]["embed"], "placements")
+            and hasattr(back[0]["embed"], "placements"),
+            "sharded: reshard_state is not bit for bit")
+    out["reshard_bit_for_bit"] = True
+    del on, off, back, p1, o1
+    with record_collectives(mesh) as tcoll:  # one more step, recorded
+        mesh_train(p2, o2, batch_t)
+    out["train"]["collectives"] = collective_bytes(tcoll)["counts"]
+    # the main path's launches: the mesh's prefill and train steps (the
+    # plain runs are the comparison)
+    out["launches"] = {k: out["prefill"]["launches"][k] + n2[k] for k in n2}
+    return out
+
+
+def sharded_split_part(mesh, dev, batch: int = 4,
+                       prompt_len: int = 512) -> dict:
+    """Full mamba2-130m in the split-projection layout, prefilled 4 x 512
+    (the ``serve`` phase's prompts) on the mesh, against the fused layout
+    on the mapped weights without a mesh: logits within ``LOGIT_TOL``, the
+    same SSD launches (one per layer)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import whole
+    from repro_torch.launch import steps as S
+    from repro_torch.models import init_cache, init_params, split_to_fused
+
+    split = dataclasses.replace(get_config("mamba2-130m"),
+                                ssm_split_proj=True)
+    fused_cfg = dataclasses.replace(split, ssm_split_proj=False)
+    params = init_params(split, torch.Generator(device=dev).manual_seed(0))
+    fused = split_to_fused(split, params)
+    prompts = torch.randint(0, split.vocab_size, (batch, prompt_len),
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1), device=dev)
+    b_in = {"tokens": prompts}
+    cache = init_cache(split, batch, prompt_len + 1, device=dev)
+    (l1, _), n1 = counted(lambda: S.make_prefill_step(fused_cfg)(
+        fused, init_cache(fused_cfg, batch, prompt_len + 1, device=dev),
+        b_in))
+    step = S.jit_prefill_step(split, mesh, params, cache, b_in)
+    (l2, _), n2 = counted(lambda: step(params, cache, b_in))
+    l2 = whole(l2)
+    require(n1["ssd"] == split.num_layers and n2 == n1,
+            f"sharded: split prefill SSD launches {n2}, fused {n1}")
+    err = float((l2 - l1).abs().max()) / float(l1.abs().max())
+    require(bool(torch.isfinite(l2).all()) and err <= LOGIT_TOL,
+            f"sharded: split-projection prefill off the fused by {err:.3g}")
+    return {"arch": split.name, "layout": "ssm_split_proj", "batch": batch,
+            "prompt_len": prompt_len, "logits_share_of_tol": err / LOGIT_TOL,
+            "bit_for_bit": bool(torch.equal(l1, l2)), "launches": n2}
+
+
+def phase_sharded(card: str, device: str = "cuda") -> dict:
+    """The sharding layer on a one-rank ("data", "model") mesh of the card:
+    the MoE model's prefill, decode and train steps and the
+    split-projection Mamba's prefill through the flash and SSD kernels on
+    the mesh, each against the same steps without one, and
+    ``reshard_state``; the group is destroyed before the phase returns."""
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import one_rank_mesh
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    out = {"phase": "sharded", "card": card, "torch": torch.__version__,
+           "mesh": {"shape": [1, 1], "axes": ["data", "model"],
+                    "backend": "nccl"}}
+    with tempfile.TemporaryDirectory(prefix="repro-mesh-") as tmp, \
+            one_rank_mesh(tmp, dev) as mesh:
+        for name, part in (("moe", lambda: sharded_moe_part(mesh, dev)),
+                           ("split", lambda: sharded_split_part(mesh, dev))):
+            t1 = time.perf_counter()
+            out[name] = part()
+            out[name]["seconds"] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+    out["launches"] = {k: out["moe"]["launches"][k]
+                       + out["split"]["launches"][k]
+                       for k in out["moe"]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3526,12 +3812,15 @@ def main(argv=None) -> int:
     if "train" in phases:
         results["train"] = phase_train(card)
         emit(results["train"])
+    if "sharded" in phases:
+        results["sharded"] = phase_sharded(card)
+        emit(results["sharded"])
 
     launches = {"changepoint": 0, "windowvet": 0, "ssd": 0,
                 "flash_attention": 0}
     for p in ("job", "analysis", "fleet_fused", "fleet_gather", "serve",
               "serve_attn", "serve_moe", "serve_hybrid", "serve_mla",
-              "frontends", "transport", "train"):
+              "frontends", "transport", "train", "sharded"):
         for k in launches:
             launches[k] += results.get(p, {}).get("launches", {}).get(k, 0)
     # the flash wrapper counts both entries; the table splits them

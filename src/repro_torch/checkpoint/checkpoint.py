@@ -17,6 +17,15 @@ written as LATEST.tmp and renamed.  A crash mid-write leaves a ``.tmp-``
 directory that ``restore`` ignores.  ``AsyncCheckpointer`` copies the state
 to host memory synchronously and writes it in a background thread.
 
+Mesh-shape-agnostic, as the reference's: a DTensor leaf is saved as its
+full logical array (``full_tensor``, a collective every rank of its mesh
+takes part in), written by rank 0 alone, and every rank waits for the
+write before ``save`` (or ``AsyncCheckpointer.wait``) returns.  ``restore``
+hands each leaf back as its ``tree_like`` leaf is: a plain tensor, or a
+DTensor of that leaf's mesh and placements (each rank cut its shard from
+the file), so a checkpoint taken on one mesh restores onto another or onto
+none.
+
 One departure: a bfloat16 leaf raises ``TypeError``.  numpy holds bf16 only
 through ``ml_dtypes``, which a machine with a card may lack; the training
 path keeps f32 parameters and moments and an int32 step (ROADMAP A.12).
@@ -33,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import is_dtensor, whole
 from ..tree import leaves_with_paths, tree_map, unflatten
 
 __all__ = ["AsyncCheckpointer", "cleanup_keep_n", "latest_step", "restore",
@@ -43,11 +53,27 @@ _BF16 = ("bfloat16 checkpoint leaves are not supported: numpy needs "
          "(ROADMAP A.12)")
 
 
-def _host(leaf) -> np.ndarray:
-    """A leaf as a host array of its own dtype (a copy for tensors)."""
+def _on_mesh(state) -> bool:
+    """Whether ``state`` holds a DTensor (a multi-rank save)."""
+    return any(is_dtensor(leaf) for _, leaf in leaves_with_paths(state))
+
+
+def _writer() -> bool:
+    """Whether this rank writes a multi-rank save: rank 0."""
+    return torch.distributed.get_rank() == 0
+
+
+def _host(leaf, keep: bool = True):
+    """A leaf as a host array of its own dtype (a copy for tensors; a
+    DTensor's full logical value), or None where ``keep`` is false: a rank
+    that does not write still joins each DTensor's gather, one leaf at a
+    time, and drops its result, so only the writer holds the state."""
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        raise TypeError(_BF16)
+    leaf = whole(leaf)
+    if not keep:
+        return None
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise TypeError(_BF16)
         return leaf.detach().to("cpu", copy=True).numpy()
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":
@@ -56,12 +82,25 @@ def _host(leaf) -> np.ndarray:
 
 
 def save(root: str, step: int, state, *, keep_n: int = 3) -> str:
-    """Blocking atomic save of a tree of tensors or arrays.
+    """Blocking atomic save of a tree of tensors or arrays (DTensors: on
+    every rank of their mesh; rank 0 writes).
 
     Raises:
         TypeError: a bfloat16 leaf.
     """
-    named = [(name, _host(leaf)) for name, leaf in leaves_with_paths(state)]
+    mesh = _on_mesh(state)
+    keep = not mesh or _writer()
+    named = [(name, _host(leaf, keep))
+             for name, leaf in leaves_with_paths(state)]
+    final = os.path.join(root, f"step_{step:09d}")
+    if keep:
+        _write(root, step, named, keep_n)
+    if mesh:
+        torch.distributed.barrier()
+    return final
+
+
+def _write(root: str, step: int, named, keep_n: int) -> None:
     os.makedirs(root, exist_ok=True)
     final = os.path.join(root, f"step_{step:09d}")
     tmp = os.path.join(root, f".tmp-{step:09d}")
@@ -91,7 +130,6 @@ def save(root: str, step: int, state, *, keep_n: int = 3) -> str:
         os.fsync(f.fileno())
     os.rename(latest_tmp, os.path.join(root, "LATEST"))
     cleanup_keep_n(root, keep_n)
-    return final
 
 
 def _steps(root: str) -> list:
@@ -115,7 +153,8 @@ def latest_step(root: str) -> Optional[int]:
 
 def restore(root: str, tree_like, step: Optional[int] = None):
     """Restore into the structure of ``tree_like``, a tree of tensors: each
-    leaf comes back on its ``tree_like`` leaf's device, in its dtype.
+    leaf comes back on its ``tree_like`` leaf's device, in its dtype (a
+    DTensor leaf as a DTensor of its mesh and placements).
 
     Returns (state, step).
 
@@ -145,8 +184,13 @@ def restore(root: str, tree_like, step: Optional[int] = None):
             raise ValueError(
                 f"leaf {entry['name']}: shape {arr.shape} != "
                 f"{tuple(want.shape)}")
-        out.append(torch.from_numpy(arr).to(device=want.device,
-                                            dtype=want.dtype))
+        got = torch.from_numpy(arr).to(device=want.device, dtype=want.dtype)
+        if is_dtensor(want):
+            from torch.distributed.tensor import distribute_tensor
+
+            got = distribute_tensor(got, want.device_mesh, want.placements,
+                                    src_data_rank=None)
+        out.append(got)
     return unflatten(tree_like, out), step
 
 
@@ -167,10 +211,15 @@ class AsyncCheckpointer:
         self.keep_n = keep_n
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = False  # the last save was a multi-rank one
 
     def save(self, step: int, state) -> None:
         self.wait()
-        host_state = tree_map(_host, state)
+        self._mesh = _on_mesh(state)
+        keep = not self._mesh or _writer()
+        host_state = tree_map(lambda leaf: _host(leaf, keep), state)
+        if not keep:
+            return
 
         def run():
             try:
@@ -182,9 +231,14 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
+        """Join the write in flight (after a multi-rank save, every rank
+        waits for rank 0's) and raise its error, if any."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh:
+            self._mesh = False
+            torch.distributed.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -1,9 +1,10 @@
-"""Architecture configs: the 10 assigned archs and the registry (a copy of
-``repro.configs`` without the dry-run shape cells)."""
+"""Architecture configs: the 10 assigned archs, the shape cells and the
+registry (a copy of ``repro.configs``)."""
 
 import importlib
 
 from .base import ArchConfig, get_config, list_configs, register
+from .shapes import SHAPES, ShapeSpec, all_cells, cell_is_runnable, get_shape
 
 _MODULES = [
     "h2o_danube_3_4b",
@@ -46,7 +47,12 @@ ARCH_NAMES = [
 __all__ = [
     "ARCH_NAMES",
     "ArchConfig",
+    "SHAPES",
+    "ShapeSpec",
+    "all_cells",
+    "cell_is_runnable",
     "get_config",
+    "get_shape",
     "list_configs",
     "register",
 ]

@@ -3,9 +3,11 @@
 
 One ``ArchConfig`` per assigned architecture (exact published numbers) plus a
 ``reduced()`` view for CPU smoke tests (same structure, tiny dims).  The
-sharding knobs (``q_head_pad_multiple``, ``ssm_split_proj``,
-``weights_fsdp``) are kept so configs compare field for field with the
-reference's; the port's models do not shard yet.
+sharding knobs mean what they mean in the reference: ``q_head_pad_multiple``
+pads query heads to a multiple of the TP axis, ``ssm_split_proj`` selects
+the split-projection Mamba layout whose inner dims shard over ``"model"``,
+and ``weights_fsdp`` shards weights over the data axis
+(``distributed.sharding``).
 """
 
 from __future__ import annotations

@@ -119,7 +119,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         ValueError: a shape, device or layout the kernel does not take.
         TypeError: a dtype the kernel does not take.
         RuntimeError: the library does not build or the launch fails.
+        TypeError: a DTensor (``runtime.require_local``).
     """
+    runtime.require_local("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                scale=scale)

@@ -54,6 +54,7 @@ __all__ = [
     "load_library",
     "platform_default_hint",
     "require_device",
+    "require_local",
     "resolve_device",
     "seed_platform_default",
 ]
@@ -125,6 +126,23 @@ def require_device(device: torch.device) -> torch.device:
             f"device {device} requested but no CUDA device is available; "
             f"pass device='cpu' or set {ENV_VAR}=cpu to run on the CPU")
     return device
+
+
+def require_local(name: str, *tensors) -> None:
+    """Raise when a kernel wrapper is handed a DTensor.
+
+    A kernel reads raw pointers of one device's memory, so it takes each
+    rank's local shard (``models.layers`` calls it through ``local_map``);
+    it neither unwraps a DTensor nor swaps in its plain version for one.
+
+    Raises:
+        TypeError: one of ``tensors`` is a DTensor.
+    """
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name} takes local tensors, got a DTensor; call "
+                        f"it on each rank's shard (local_map)")
 
 
 def plain_vjp(plain_fn, inputs, needs_grad, grad_out, label: str):

@@ -103,7 +103,9 @@ def ssd_scan(x, dt, a_neg, b, c, d, *, chunk: int = 64) -> torch.Tensor:
             device or layout the kernel does not take.
         TypeError: a dtype the kernel does not take.
         RuntimeError: the library does not build or the launch fails.
+        TypeError: a DTensor (``runtime.require_local``).
     """
+    runtime.require_local("ssd_scan", x, dt, a_neg, b, c, d)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a_neg, b, c, d, chunk=chunk)
     inputs = (x, dt, a_neg, b, c, d)

@@ -31,6 +31,14 @@ under the default ``remat="full"`` once more in the backward pass's
 recompute; their gradients are the plain versions'
 (``kernels.runtime.plain_vjp``).
 
+``mesh`` (a ``DeviceMesh``, ``launch.mesh.make_mesh``) trains on a mesh:
+the weights and moments are placed by the sharding rules
+(``distributed.elastic.reshard_state``) and each step is
+``launch.steps.jit_train_step``'s, which places each batch over the DP
+axes; a resumed run restores the checkpoint's full arrays onto the mesh
+(``checkpoint.restore`` into the placed state, then ``reshard_state``),
+whatever mesh wrote them.
+
 CLI: ``python -m repro_torch.launch.train --arch mamba2-130m --steps 100``
 (on the card; ``REPRO_TORCH_DEVICE=cpu`` and ``--reduced`` to run on the
 CPU).
@@ -47,6 +55,7 @@ import torch
 from ..checkpoint.checkpoint import AsyncCheckpointer, latest_step, restore
 from ..configs import get_config
 from ..data.pipeline import SyntheticTokenPipeline
+from ..distributed.elastic import reshard_state
 from ..engine import VetEngine, default_engine
 from ..kernels.runtime import require_device, resolve_device
 from ..models import init_params
@@ -54,7 +63,7 @@ from ..optim.adamw import AdamWConfig, init_opt_state
 from ..profiling import PhaseTimer, RecordProfiler
 from ..sched.straggler import VetController
 from ..tree import tree_map
-from .steps import make_train_step
+from .steps import jit_train_step, make_train_step
 
 __all__ = ["SimulatedFailure", "TrainResult", "main", "train"]
 
@@ -105,10 +114,11 @@ def train(
 
     ``params`` (the port's layout, on any device) replaces the seeded
     initial weights; a resumed run overwrites it from the checkpoint.
+    ``mesh`` places weights, moments and batches on it (module docstring);
+    every rank of the mesh calls ``train`` alike.
 
     Raises:
         SimulatedFailure: at ``fail_at_step``, after that step's update.
-        NotImplementedError: ``mesh`` is not ``None`` (ROADMAP A.13).
         RuntimeError: the resolved device is CUDA and no card is present.
     """
     cfg = get_config(cfg_or_name) if isinstance(cfg_or_name, str) else cfg_or_name
@@ -120,21 +130,31 @@ def train(
     )
     opt_cfg = AdamWConfig(lr=lr, total_steps=max(steps, 2),
                           warmup_steps=min(20, steps // 5 + 1))
-    step_fn = make_train_step(cfg, mesh, opt_cfg=opt_cfg, q_chunk=q_chunk,
-                              n_micro=n_micro)
+    step_kw = dict(opt_cfg=opt_cfg, q_chunk=q_chunk, n_micro=n_micro)
 
     if params is None:
         params = init_params(cfg, torch.Generator().manual_seed(seed),
                              dtype=dtype)
     params = tree_map(lambda t: t.to(device), params)
     opt = init_opt_state(params)
+    if mesh is None:
+        step_fn = make_train_step(cfg, None, **step_kw)
+    else:
+        b_shape = {k: torch.empty(v.shape, device="meta")
+                   for k, v in pipe.batch_at(0).items()}
+        step_fn = jit_train_step(cfg, mesh, params, opt, b_shape, **step_kw)
+        params, opt = reshard_state(cfg, mesh, params, opt)
 
     start_step, resumed_from = 0, None
     ckpt: Optional[AsyncCheckpointer] = None
     if ckpt_dir:
         ckpt = AsyncCheckpointer(ckpt_dir)
         if latest_step(ckpt_dir) is not None:
+            # the checkpoint's full arrays, each rank's shard cut as the
+            # leaf it replaces is placed, then the rules' placements
             (params, opt), start_step = restore(ckpt_dir, (params, opt))
+            if mesh is not None:
+                params, opt = reshard_state(cfg, mesh, params, opt)
             start_step += 1
             resumed_from = start_step - 1
             if verbose:

@@ -24,6 +24,15 @@ the latent, query and key heads ``qk_nope_dim + qk_rope_dim`` wide (192 at
 full size) and V ``v_head_dim`` wide (the flash kernel's wrapper takes
 V at that width); decode is absorbed into the latent space and stays plain
 PyTorch, its einsums in f32, as the reference's jnp is.
+
+**On a mesh** every block takes the sharding context ``ctx``
+(``layers.ShardCtx``): the attention of training and prefill pins q, k, v
+and its output to heads over ``"model"`` where the reference pins them and
+runs the flash kernel per rank (``layers.attention``), the MoE runs
+expert-parallel, and a DTensor cache, sequence-sharded over ``"model"`` by
+``distributed.sharding.cache_specs``, is written in place by each rank on
+the positions its own shard holds (``_write_seq``).  One-token decode
+attention over that cache is left to DTensor's rules.
 """
 
 from __future__ import annotations
@@ -32,7 +41,9 @@ import math
 
 import torch
 
+from ..distributed.sharding import is_dtensor
 from . import layers as L
+from .layers import NULL_CTX, ShardCtx
 
 __all__ = ["attn_apply", "attn_cache_shape", "attn_decode", "attn_init",
            "attn_prefill", "block_apply", "block_decode", "block_init",
@@ -97,23 +108,33 @@ def _window(cfg) -> int:
     return cfg.swa_window if cfg.attention == "swa" else 0
 
 
-def _attend(p, x, cfg, q_chunk, plain):
+def _attend(p, x, cfg, q_chunk, plain, ctx: ShardCtx = NULL_CTX,
+            hints: bool = False):
+    """(out, k, v) of full-sequence attention; ``hints`` pins q, k, v and
+    the output to heads over ``"model"``, where the reference's
+    ``attn_apply`` pins them."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
+    if hints:
+        q, k, v = (ctx.constrain(t, ctx.dp, None, ctx.tp_axis, None)
+                   for t in (q, k, v))
     o = L.attention(q, k, v, causal=cfg.causal, window=_window(cfg),
-                    q_chunk=q_chunk, plain=plain)
+                    q_chunk=q_chunk, plain=plain, ctx=ctx)
+    if hints:
+        o = ctx.constrain(o, ctx.dp, None, ctx.tp_axis, None)
     hm = _head_mask(cfg, o.dtype, o.device)
     if hm is not None:
         o = o * hm
     return o.reshape(b, s, -1) @ p["wo"], k, v
 
 
-def attn_apply(p, x, cfg, *, q_chunk: int = 1024, plain: bool = False):
+def attn_apply(p, x, cfg, ctx: ShardCtx = NULL_CTX, *, q_chunk: int = 1024,
+               plain: bool = False):
     """Full-sequence attention (train / prefill).  x: (B,S,D)."""
     if cfg.attention == "mla":
-        return mla_apply(p, x, cfg, q_chunk=q_chunk, plain=plain)
-    return _attend(p, x, cfg, q_chunk, plain)[0]
+        return mla_apply(p, x, cfg, ctx, q_chunk=q_chunk, plain=plain)
+    return _attend(p, x, cfg, q_chunk, plain, ctx, hints=True)[0]
 
 
 def _kv_quant(x):
@@ -134,27 +155,53 @@ def _kv_dequant(q, scale, dtype):
     return (q.float() * scale[..., None].float()).to(dtype)
 
 
+def _write_seq(dst, src, at: int) -> None:
+    """``src`` (B, S, ...) into ``dst[:, at:at + S]`` in place.
+
+    A DTensor cache is sequence-sharded over ``"model"`` (``cache_specs``):
+    each rank writes the positions its own shard holds, from ``src``
+    gathered over every axis but the cache's batch axes."""
+    s = src.shape[1]
+    if not is_dtensor(dst):
+        dst[:, at:at + s] = src
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = dst.device_mesh
+    want = tuple(pl if pl == Shard(0) else Replicate()
+                 for pl in dst.placements)
+    src_l = src.redistribute(mesh, want).to_local()
+    shape, off = compute_local_shape_and_global_offset(dst.shape, mesh,
+                                                       dst.placements)
+    lo, hi = off[1], off[1] + shape[1]
+    a, b = max(lo, at), min(hi, at + s)
+    if a < b:
+        dst.to_local()[:, a - lo:b - lo] = src_l[:, a - at:b - at]
+
+
 def _write_kv(cache, k, v, at: int) -> None:
     """K and V of positions [at, at + S) into ``cache`` in place, quantised
     when the cache is int8 (its scales stored in the cache's dtype)."""
-    s = k.shape[1]
     if "k_scale" in cache:
         for name, t in (("k", k), ("v", v)):
             payload, scale = _kv_quant(t)
-            cache[name][:, at:at + s] = payload
-            cache[f"{name}_scale"][:, at:at + s] = scale
+            _write_seq(cache[name], payload, at)
+            _write_seq(cache[f"{name}_scale"], scale, at)
     else:
-        cache["k"][:, at:at + s] = k
-        cache["v"][:, at:at + s] = v
+        _write_seq(cache["k"], k, at)
+        _write_seq(cache["v"], v, at)
 
 
-def attn_prefill(p, x, cfg, cache, *, q_chunk: int = 1024,
-                 plain: bool = False):
+def attn_prefill(p, x, cfg, cache, ctx: ShardCtx = NULL_CTX, *,
+                 q_chunk: int = 1024, plain: bool = False):
     """Full attention over the prompt, writing K/V of positions [0, S) into
     ``cache`` in place.  Returns (out (B,S,D), cache)."""
     if cfg.attention == "mla":
-        return mla_prefill(p, x, cfg, cache, q_chunk=q_chunk, plain=plain)
-    out, k, v = _attend(p, x, cfg, q_chunk, plain)
+        return mla_prefill(p, x, cfg, cache, ctx, q_chunk=q_chunk,
+                           plain=plain)
+    out, k, v = _attend(p, x, cfg, q_chunk, plain, ctx)
     _write_kv(cache, k, v, 0)
     return out, cache
 
@@ -232,41 +279,49 @@ def _mla_qkv(p, x, cfg, positions):
     return q_nope, q_rope, ckv, k_rope
 
 
-def _mla_attend(p, x, cfg, q_chunk, plain):
-    """MLA over the full sequence: (out (B,S,D), ckv, k_rope)."""
+def _mla_attend(p, x, cfg, q_chunk, plain, ctx: ShardCtx = NULL_CTX,
+                hints: bool = False):
+    """MLA over the full sequence: (out (B,S,D), ckv, k_rope); ``hints``
+    pins the heads over ``"model"`` where the reference's ``mla_apply``
+    pins them."""
     b, s, _ = x.shape
     h, nope, vdim = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
     positions = torch.arange(s, device=x.device)[None, :]
     q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, cfg, positions)
+    if hints:
+        q_nope = ctx.constrain(q_nope, ctx.dp, None, ctx.tp_axis, None)
     kv = (ckv @ p["wkv_b"]).reshape(b, s, h, nope + vdim)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, cfg.qk_rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
+    if hints:
+        k, v = (ctx.constrain(t, ctx.dp, None, ctx.tp_axis, None)
+                for t in (k, v))
     scale = 1.0 / math.sqrt(nope + cfg.qk_rope_dim)
     o = L.attention(q, k, v, causal=cfg.causal, q_chunk=q_chunk, scale=scale,
-                    plain=plain)
+                    plain=plain, ctx=ctx)
     return o.reshape(b, s, h * vdim) @ p["wo"], ckv, k_rope
 
 
-def mla_apply(p, x, cfg, *, q_chunk: int = 1024, plain: bool = False):
+def mla_apply(p, x, cfg, ctx: ShardCtx = NULL_CTX, *, q_chunk: int = 1024,
+              plain: bool = False):
     """Training / prefill MLA: per-head K (``k_nope`` and the shared
     ``k_rope``) and V materialised from the latent, attention at the scale
     1/sqrt(nope + rope).  V (``v_head_dim`` wide) is narrower than Q and K;
     ``layers.attention`` hands it to the flash kernel's wrapper at its
     own width."""
-    return _mla_attend(p, x, cfg, q_chunk, plain)[0]
+    return _mla_attend(p, x, cfg, q_chunk, plain, ctx, hints=True)[0]
 
 
-def mla_prefill(p, x, cfg, cache, *, q_chunk: int = 1024,
-                plain: bool = False):
+def mla_prefill(p, x, cfg, cache, ctx: ShardCtx = NULL_CTX, *,
+                q_chunk: int = 1024, plain: bool = False):
     """``mla_apply`` over the prompt, writing the latent ``ckv`` and
     ``krope`` of positions [0, S) into ``cache`` in place (the projections
     run once; the reference computes them twice, to the same values)."""
-    out, ckv, k_rope = _mla_attend(p, x, cfg, q_chunk, plain)
-    s = x.shape[1]
-    cache["ckv"][:, :s] = ckv
-    cache["krope"][:, :s] = k_rope
+    out, ckv, k_rope = _mla_attend(p, x, cfg, q_chunk, plain, ctx)
+    _write_seq(cache["ckv"], ckv, 0)
+    _write_seq(cache["krope"], k_rope, 0)
     return out, cache
 
 
@@ -282,19 +337,29 @@ def mla_decode(p, x, cfg, cache, pos: int):
     h = cfg.num_heads
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv(p, x, cfg, positions)
-    cache["ckv"][:, pos:pos + 1] = ckv_new
-    cache["krope"][:, pos:pos + 1] = krope_new
-    cc, kc = cache["ckv"].float(), cache["krope"].float()
+    _write_seq(cache["ckv"], ckv_new, pos)
+    _write_seq(cache["krope"], krope_new, pos)
     wkb = p["wkv_b"].reshape(lora, h, nope + vdim)
     w_uk, w_uv = wkb[..., :nope], wkb[..., nope:]
     q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope, w_uk)  # (B, 1, H, lora)
-    s_lat = torch.einsum("bqhl,bkl->bhqk", q_lat.float(), cc)
-    s_rope = torch.einsum("bqhr,bkr->bhqk", q_rope.float(), kc)
-    s = (s_lat + s_rope) * (1.0 / math.sqrt(nope + rope))
-    kpos = torch.arange(cc.shape[1], device=x.device)
-    s = s.masked_fill(~(kpos < pos + 1), -torch.inf)
-    prob = torch.softmax(s, dim=-1)
-    ctx_lat = torch.einsum("bhqk,bkl->bqhl", prob, cc)
+    scale = 1.0 / math.sqrt(nope + rope)
+
+    def scores(qs, cs):
+        s_lat = torch.einsum("bqhl,bkl->bhqk", qs[0].float(), cs[0].float())
+        s_rope = torch.einsum("bqhr,bkr->bhqk", qs[1].float(), cs[1].float())
+        return (s_lat + s_rope) * scale
+
+    def values(prob, cs):
+        return torch.einsum("bhqk,bkl->bqhl", prob, cs[0].float())
+
+    qs, cs = (q_lat, q_rope), (cache["ckv"], cache["krope"])
+    if is_dtensor(cache["ckv"]):
+        ctx_lat = L.seq_sharded_attention(qs, cs, pos + 1, 0, scores, values)
+    else:
+        s = scores(qs, cs)
+        kpos = torch.arange(s.shape[-1], device=x.device)
+        s = s.masked_fill(~(kpos < pos + 1), -torch.inf)
+        ctx_lat = values(torch.softmax(s, dim=-1), cs)
     o = torch.einsum("bqhl,lhv->bqhv", ctx_lat, w_uv.float()).to(x.dtype)
     return o.reshape(b, 1, h * vdim) @ p["wo"], cache
 
@@ -318,39 +383,51 @@ def block_init(gen: torch.Generator, cfg, dtype, *, moe: bool = False):
     return p
 
 
-def _feed_forward(p, h, cfg):
+def _gathered(h, ctx: ShardCtx):
+    """On a mesh, a block's input with its sequence whole (batch over dp):
+    the all-gather the reference leaves to GSPMD after the
+    sequence-parallel residual that ``models.forward`` keeps between
+    layers (and their remat checkpoints).  Gathering before the block's
+    first operation keeps every product, and its gradient, off a
+    sequence-sharded operand, which DTensor cannot flatten."""
+    return ctx.constrain(h, ctx.dp, None, None)
+
+
+def _feed_forward(p, h, cfg, ctx: ShardCtx = NULL_CTX):
     """(h + the feed-forward of norm(h), its aux loss): the MoE layer's, or
     0 for the gated MLP, as the reference gives them."""
     z = L.rms_norm(h, p["ln2"], cfg.norm_eps)
     if "moe" in p:
-        y, aux = L.moe_apply(p["moe"], z, cfg)
+        y, aux = L.moe_apply(p["moe"], z, cfg, ctx)
     else:
-        y = L.mlp_apply(p["mlp"], z)
+        y = L.mlp_apply(p["mlp"], z, ctx)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + y, aux
 
 
-def block_apply(p, x, cfg, *, q_chunk: int = 1024, plain: bool = False):
+def block_apply(p, x, cfg, ctx: ShardCtx = NULL_CTX, *, q_chunk: int = 1024,
+                plain: bool = False):
     """Pre-norm transformer block.  Returns (x, aux_loss)."""
+    x = _gathered(x, ctx)
     h = x + attn_apply(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
-                       q_chunk=q_chunk, plain=plain)
-    return _feed_forward(p, h, cfg)
+                       ctx, q_chunk=q_chunk, plain=plain)
+    return _feed_forward(p, h, cfg, ctx)
 
 
-def block_prefill(p, x, cfg, cache, *, q_chunk: int = 1024,
-                  plain: bool = False):
+def block_prefill(p, x, cfg, cache, ctx: ShardCtx = NULL_CTX, *,
+                  q_chunk: int = 1024, plain: bool = False):
     """The block over a prompt, K/V written into ``cache``; the MoE aux
     loss is dropped, as the reference drops it."""
     a, cache = attn_prefill(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
-                            cfg, cache, q_chunk=q_chunk, plain=plain)
-    return _feed_forward(p, x + a, cfg)[0], cache
+                            cfg, cache, ctx, q_chunk=q_chunk, plain=plain)
+    return _feed_forward(p, x + a, cfg, ctx)[0], cache
 
 
-def block_decode(p, x, cfg, cache, pos: int):
+def block_decode(p, x, cfg, cache, pos: int, ctx: ShardCtx = NULL_CTX):
     """One decode step of the block; the MoE aux loss is dropped."""
     a, cache = attn_decode(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                            cfg, cache, pos)
-    return _feed_forward(p, x + a, cfg)[0], cache
+    return _feed_forward(p, x + a, cfg, ctx)[0], cache
 
 
 # ================================================================ Mamba block
@@ -361,9 +438,11 @@ def mamba_block_init(gen: torch.Generator, cfg, dtype):
             "mixer": L.mamba_init(gen, cfg, dtype)}
 
 
-def mamba_block_apply(p, x, cfg, *, plain: bool = False):
+def mamba_block_apply(p, x, cfg, ctx: ShardCtx = NULL_CTX, *,
+                      plain: bool = False):
+    x = _gathered(x, ctx)
     return x + L.mamba_apply(p["mixer"], L.rms_norm(x, p["ln"], cfg.norm_eps),
-                             cfg, plain=plain)
+                             cfg, plain=plain, ctx=ctx)
 
 
 def mamba_block_decode(p, x, cfg, state):

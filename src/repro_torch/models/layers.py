@@ -13,9 +13,9 @@ the plain version on every device (the on-card reference).
 one-token steps have no kernel in the reference either.
 
 The MoE feed-forward (``moe_init``, ``moe_local``, ``moe_apply``) is the
-reference's token-choice routing with per-expert capacity, on one device:
-the experts are batched products over the stacked weights, as in the
-reference, and no kernel is involved.  Both of its selections take the
+reference's token-choice routing with per-expert capacity: the experts
+are batched products over the stacked weights, as in the reference, and no
+kernel is involved.  Both of its selections take the
 reference's ``lax.top_k`` order (the larger value first, the lower index
 first among equal values) through a stable descending sort, and each
 token sums its experts' contributions in increasing expert index, the
@@ -25,8 +25,23 @@ default), a log made with ``force=`` replays another run's routing
 (``RoutingLog``), and ``same_routing`` and ``routing_flips`` compare two
 logs (a flip between two f32 orders must be a near-tie).
 
-The reference's split-projection layout (``ssm_split_proj``) is a TPU
-sharding layout; the port does not shard yet (ROADMAP A.13).
+**On a mesh** (``ctx = ShardCtx(mesh=...)``, ``launch.steps.make_ctx``) the
+layers take DTensors placed by ``distributed.sharding`` and leave what the
+reference leaves to GSPMD to DTensor's own rules; ``ctx.constrain`` is the
+reference's sharding hint, a ``redistribute``.  What the reference writes
+as ``shard_map``, and the two kernels, run through ``local_map`` on each
+rank's local shard: the MoE experts over ``"model"`` and tokens over the
+DP axes (its output all-reduced over ``"model"``, its load fractions
+averaged over every axis before the aux product), the flash kernel on the
+rank's query heads (with the KV heads of its own head range when KV is
+replicated) and the SSD kernel on the rank's SSM heads.  The reference
+shards the SSD's chunk dimension as a hint; the port shards the kernel by
+heads instead, which gives the same numbers since every head is
+independent.  A kernel wrapper handed a DTensor raises
+(``kernels.runtime.require_local``).  The split-projection Mamba layout
+(``ssm_split_proj``: ``wz/wx/wb/wc/wdt`` and split convolutions) computes
+what the fused ``in_proj`` does with its inner and head dims sharded over
+``"model"``; ``models.convert`` maps one layout onto the other.
 """
 
 from __future__ import annotations
@@ -34,22 +49,112 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import Spec, is_dtensor, mesh_map, placements
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_plain
 from ..kernels.ssd.ops import ssd
 from ..kernels.ssd.ref import ssd_scan_plain
 
-__all__ = ["Routing", "RoutingLog", "apply_rope", "attention",
-           "causal_conv1d", "decode_attention", "dense_init", "embed_init",
-           "mamba_apply", "mamba_decode_step", "mamba_init", "mlp_apply",
+__all__ = ["NULL_CTX", "Routing", "RoutingLog", "ShardCtx", "apply_rope",
+           "attention", "causal_conv1d", "decode_attention", "dense_init",
+           "embed_init", "mamba_apply",
+           "mamba_decode_step", "mamba_init", "mesh_scope", "mlp_apply",
            "mlp_init", "moe_apply", "moe_capacity", "moe_init", "moe_local",
            "recording", "rms_norm", "rope_freqs", "routing_flips",
-           "same_routing"]
+           "same_routing", "seq_sharded_attention"]
+
+
+# ----------------------------------------------------------------- shard hooks
+
+
+class ShardCtx(NamedTuple):
+    """Sharding context threaded through model code.
+
+    mesh=None => one device; otherwise a ``DeviceMesh`` whose ``dp_axes``
+    and ``tp_axis`` are logical mesh axis names, used by the ``local_map``
+    regions (MoE, kernels) and by ``constrain`` hints.
+    """
+
+    mesh: Optional[object] = None
+    dp_axes: tuple = ("data",)
+    tp_axis: str = "model"
+
+    @property
+    def dp(self):
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
+
+    def size(self, axes) -> int:
+        """Devices along one axis name or a tuple of names."""
+        names = axes if isinstance(axes, tuple) else (axes,)
+        return math.prod(self.mesh.size(self.mesh.mesh_dim_names.index(a))
+                         for a in names)
+
+    def constrain(self, x, *spec_entries):
+        """``x`` redistributed to the spec when a mesh is present, else
+        ``x``.
+
+        Uneven sharding is allowed for intermediates, but axes larger than
+        the dim itself (e.g. batch=1 over dp=16) are dropped, as the
+        reference drops them.
+        """
+        if self.mesh is None:
+            return x
+        clean = [None if e is not None and dim < self.size(e) else e
+                 for dim, e in zip(x.shape, spec_entries)]
+        return x.redistribute(self.mesh, placements(Spec(*clean), self.mesh))
+
+    def mesh_placements(self, shard=None, partial=()) -> tuple:
+        """``placements`` of the spec that puts each key of ``shard`` (an
+        axis name, or a tuple of names, major first) on its tensor dim,
+        with ``Partial()`` on each still-replicated axis in ``partial``."""
+        from torch.distributed.tensor import Partial, Replicate
+
+        shard = shard or {}
+        entries = [None] * (max(shard.values(), default=-1) + 1)
+        for axes, d in shard.items():
+            entries[d] = axes
+        return tuple(
+            Partial() if isinstance(pl, Replicate) and a in partial else pl
+            for a, pl in zip(self.mesh.mesh_dim_names,
+                             placements(Spec(*entries), self.mesh)))
+
+    def batch_axes(self, b: int):
+        """The DP axes a batch of ``b`` shards over ((): replicated), as
+        ``batch_specs`` decides."""
+        return self.dp if b % self.size(self.dp_axes) == 0 else ()
+
+
+NULL_CTX = ShardCtx()
+
+
+# Open ``mesh_scope`` blocks (the outermost one enters DTensor's implicit
+# replication).
+_SCOPES = 0
+
+
+@contextlib.contextmanager
+def mesh_scope(ctx: ShardCtx):
+    """On a mesh, let the model's own plain tensors (positions, masks,
+    constants: the same on every rank) meet DTensors as replicated ones
+    (DTensor's ``implicit_replication``); off a mesh, nothing.  Blocks
+    nest."""
+    global _SCOPES
+    if ctx.mesh is None or _SCOPES:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    _SCOPES += 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _SCOPES -= 1
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_shape, dtype):
@@ -92,7 +197,7 @@ def apply_rope(x, positions, theta: float):
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               q_chunk: int = 1024, scale: Optional[float] = None,
-              plain: bool = False):
+              plain: bool = False, ctx: ShardCtx = NULL_CTX):
     """Grouped attention, causal or sliding-window (the reference's
     query-chunked ``attention``).
 
@@ -112,6 +217,9 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     reference's layer allows; the plain version and the flash kernel's
     wrapper both take it at its own width.
 
+    On a mesh (``ctx.mesh``) q, k and v are DTensors and each rank runs the
+    same call on its local shard (``_attention_on_mesh``).
+
     Raises:
         ValueError: ``S > q_chunk`` and ``S % q_chunk != 0`` (the reference
             asserts the same).
@@ -120,6 +228,9 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     if s > q_chunk and s % q_chunk:
         raise ValueError(f"sequence length {s} is not a multiple of the "
                          f"attention query chunk {q_chunk}")
+    if ctx.mesh is not None:
+        return _attention_on_mesh(q, k, v, ctx, causal=causal, window=window,
+                                  q_chunk=q_chunk, scale=scale, plain=plain)
     if plain:
         return attention_plain(q, k, v, causal=causal, window=window,
                                scale=scale, q_chunk=q_chunk)
@@ -127,28 +238,124 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                            causal=causal, window=window, scale=scale)
 
 
+def _attention_on_mesh(q, k, v, ctx: ShardCtx, **kw):
+    """``attention`` through ``local_map``: the batch over the DP axes (when
+    it divides), the query heads over ``"model"`` (when they divide), and
+    each rank's kernel call on its local heads.  KV heads shard with the
+    query heads when they divide the axis too; otherwise KV stays
+    replicated and each rank takes the KV heads of its own query-head
+    range (global head // group), not the first ones."""
+    b, _, h, _ = q.shape
+    kh = k.shape[2]
+    tp, g = ctx.tp_axis, h // kh
+    tp_n = ctx.size(tp)
+    bax = ctx.batch_axes(b)
+    heads = h % tp_n == 0
+    kv_heads = heads and kh % tp_n == 0
+    q_pl = ctx.mesh_placements({bax: 0, **({tp: 2} if heads else {})})
+    kv_pl = q_pl if kv_heads else ctx.mesh_placements({bax: 0})
+    # replicated KV used by a rank's heads alone: its gradient is partial
+    kv_grad = q_pl if kv_heads else ctx.mesh_placements(
+        {bax: 0}, partial=(tp,) if heads else ())
+    rank = ctx.mesh.get_local_rank(tp) if heads and not kv_heads else 0
+
+    def body(ql, kl, vl):
+        if heads and not kv_heads:
+            hl = ql.shape[2]
+            first = rank * hl
+            if hl % g == 0:  # whole groups: a contiguous KV range
+                sl = slice(first // g, first // g + hl // g)
+                kl, vl = kl[:, :, sl], vl[:, :, sl]
+            else:  # one KV head per local query head
+                idx = torch.arange(first, first + hl, device=kl.device) // g
+                kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return attention(ql, kl, vl, **kw)
+
+    return mesh_map(ctx.mesh, body, (q, k, v), (q_pl, kv_pl, kv_pl), (q_pl,),
+                    (q_pl, kv_grad, kv_grad))
+
+
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
                      scale: Optional[float] = None):
     """One-token attention against a cache.
 
     q: (B, 1, H, Dh); caches: (B, S_max, KH, Dh); ``pos``: tokens written
-    so far, the current one (at index pos - 1) included.
+    so far, the current one (at index pos - 1) included.  A DTensor cache
+    (sequence-sharded on a mesh) goes through ``seq_sharded_attention``.
     """
     b, _, h, dh = q.shape
     kh = k_cache.shape[2]
     g = h // kh
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    qg = q.reshape(b, 1, kh, g, dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_cache.float())
-    s = s * scale
+
+    def scores(ql, kl):
+        qg = ql.reshape(ql.shape[0], 1, kh, g, dh)
+        return torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                            kl.float()) * scale
+
+    def values(p, vl):
+        return torch.einsum("bhgqk,bkhd->bqhgd", p.to(vl.dtype), vl)
+
+    if is_dtensor(k_cache):
+        o = seq_sharded_attention((q,), (k_cache, v_cache), pos, window,
+                                  lambda qs, cs: scores(qs[0], cs[0]),
+                                  lambda p, cs: values(p, cs[1]))
+        return o.reshape(b, 1, h, dh)
+    s = scores(q, k_cache)
     kpos = torch.arange(k_cache.shape[1], device=q.device)
     valid = kpos < pos
     if window > 0:
         valid &= kpos >= pos - window
     s = s.masked_fill(~valid, -torch.inf)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v_cache.dtype), v_cache)
-    return o.reshape(b, 1, h, dh)
+    return values(p, v_cache).reshape(b, 1, h, dh)
+
+
+def seq_sharded_attention(qs, caches, pos: int, window: int, scores,
+                          values):
+    """One-token attention over DTensor caches sequence-sharded on their
+    mesh (``cache_specs``: dim 1 over ``"model"``), flash-decoding style,
+    through ``local_map``: each rank scores the keys its shard holds
+    (``scores(local qs, local caches)`` -> f32 (..., S_local), masked here
+    to the positions below ``pos`` and within ``window``), the softmax's
+    max and sum are all-reduced over the sequence axes, and each rank's
+    ``values(p, local caches)`` (its share of the output) is summed over
+    them.  The queries are taken whole (every head) with the caches' batch
+    placement; the output has that batch placement.  No gradient: decode
+    runs under ``no_grad``."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    cache = caches[0]
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    seq_dims = [i for i, x in enumerate(pl) if x == Shard(1)]
+    q_pl = tuple(Shard(0) if x == Shard(0) else Replicate() for x in pl)
+    shape, off = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+
+    def body(*local):
+        ql, cl = local[:len(qs)], local[len(qs):]
+        s = scores(ql, cl)
+        kpos = off[1] + torch.arange(shape[1], device=s.device)
+        valid = kpos < pos
+        if window > 0:
+            valid &= kpos >= pos - window
+        s = s.masked_fill(~valid, -torch.inf)
+        m = s.amax(dim=-1, keepdim=True)
+        for i in seq_dims:
+            m = funcol.all_reduce(m, "max", (mesh, i))
+        p = torch.exp(s - m)
+        total = p.sum(dim=-1, keepdim=True)
+        for i in seq_dims:
+            total = funcol.all_reduce(total, "sum", (mesh, i))
+        o = values(p / total, cl)
+        for i in seq_dims:
+            o = funcol.all_reduce(o, "sum", (mesh, i))
+        return o
+
+    return mesh_map(mesh, body, (*qs, *caches),
+                    (q_pl,) * len(qs) + (pl,) * len(caches), (q_pl,))
 
 
 def mlp_init(gen: torch.Generator, d: int, ff: int, dtype):
@@ -157,9 +364,13 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, dtype):
             "down": dense_init(gen, ff, (d,), dtype)}
 
 
-def mlp_apply(p, x):
-    """Gated MLP: ``(silu(x gate) * (x up)) down``."""
-    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+def mlp_apply(p, x, ctx: ShardCtx = NULL_CTX):
+    """Gated MLP: ``(silu(x gate) * (x up)) down``.  On a mesh the hidden
+    is pinned to (dp, None, tp), as the reference pins it."""
+    h = F.silu(x @ p["gate"]) * (x @ p["up"])
+    if ctx.mesh is not None and h.ndim == 3:
+        h = ctx.constrain(h, ctx.dp, None, ctx.tp_axis)
+    return h @ p["down"]
 
 
 # ------------------------------------------------------------------------ MoE
@@ -339,15 +550,19 @@ def _top(values, k: int, forced: Optional[torch.Tensor]):
     return v[..., :k], i[..., :k]
 
 
-def _slots(expert_idx, top_idx, t: int):
+def _slots(expert_idx, top_idx, t: int, first: int = 0):
     """(T, k) flat slots of each token's chosen experts in increasing expert
-    index, -1 where the token is not among the expert's gathered ones."""
+    index, -1 where the token is not among the expert's gathered ones or
+    the expert is not among the local ones, ``expert_idx``'s rows (global
+    experts ``first``, ``first + 1``, ...)."""
     e, c = expert_idx.shape
     pos = torch.full((e, t), -1, dtype=torch.long, device=expert_idx.device)
     pos.scatter_(1, expert_idx, torch.arange(c, device=pos.device).repeat(e, 1))
-    chosen = torch.sort(top_idx, dim=1).values
-    at = pos[chosen, torch.arange(t, device=pos.device)[:, None]]
-    return torch.where(at >= 0, chosen * c + at, -1)
+    chosen = torch.sort(top_idx, dim=1).values - first
+    local = (chosen >= 0) & (chosen < e)
+    at = pos[chosen.clamp(0, e - 1),
+             torch.arange(t, device=pos.device)[:, None]]
+    return torch.where(local & (at >= 0), chosen * c + at, -1)
 
 
 def moe_capacity(cfg, tokens: int) -> int:
@@ -358,22 +573,36 @@ def moe_capacity(cfg, tokens: int) -> int:
     return min(cap, tokens)
 
 
-def moe_local(p, x2d, *, top_k: int, capacity: int):
-    """Token-choice MoE over all experts of one device.
+def moe_local(p, x2d, *, top_k: int, capacity: int, first: int = 0):
+    """Token-choice MoE over the experts of one device.
 
-    x2d: (T, D).  Each token takes its ``top_k`` experts by router
+    x2d: (T, D); ``p["wg"]``/``"wu"``/``"wd"`` hold the local experts
+    (global experts ``first`` to ``first + E_loc - 1``: all of them off a
+    mesh), ``p["router"]`` (D, E) every expert's column.  Each token takes
+    its ``top_k`` experts by router
     probability, their weights renormalised to sum to 1; each expert
     gathers the ``capacity`` tokens of largest weight (tokens that did not
     choose it have weight 0), runs its gated MLP on them and scales by the
     weight; each token sums its contributions in f32, in increasing expert
     index, and the sum is cast to x2d's dtype.  A token the expert's
-    capacity left out gets nothing from it.
+    capacity left out gets nothing from it; a token's expert on another
+    rank adds its part there.
 
     Returns (y (T, D), aux): the Switch-style load-balance loss
-    ``E * sum(mean(combine > 0) * mean(probs))`` over the experts.
+    ``E * sum(mean(combine > 0) * mean(probs))`` over the experts (this
+    call's tokens; ``moe_apply`` averages the fractions over a mesh).
     """
+    y, frac_tokens, frac_probs = _moe_local(p, x2d, top_k=top_k,
+                                            capacity=capacity, first=first)
+    return y, frac_probs.shape[0] * torch.sum(frac_tokens * frac_probs)
+
+
+def _moe_local(p, x2d, *, top_k: int, capacity: int, first: int):
+    """``moe_local``'s output and its load fractions (mean(combine > 0),
+    mean(probs)), each (E,)."""
     t, d = x2d.shape
     e = p["router"].shape[1]
+    e_loc = p["wg"].shape[0]
     log = ROUTING
     forced = None if log is None else log.forced()
     probs = torch.softmax(x2d.float() @ p["router"], dim=-1)
@@ -382,40 +611,45 @@ def moe_local(p, x2d, *, top_k: int, capacity: int):
     top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
     combine = torch.zeros((t, e), dtype=torch.float32,
                           device=x2d.device).scatter(1, top_idx, top_vals)
-    vals, idx = _top(combine.T, capacity,
-                     None if forced is None else forced.expert_idx)  # (E, C)
-    xs = x2d[idx]  # (E, C, D)
+    vals, idx = _top(combine.T[first:first + e_loc], capacity,
+                     None if forced is None else forced.expert_idx)
+    xs = x2d[idx]  # (E_loc, C, D)
     h = F.silu(torch.bmm(xs, p["wg"])) * torch.bmm(xs, p["wu"])
     ys = torch.bmm(h, p["wd"]).float() * vals[..., None]
-    slot = _slots(idx, top_idx, t)
+    slot = _slots(idx, top_idx, t, first)
     flat = ys.reshape(-1, d)
     out = torch.zeros((t, d), dtype=torch.float32, device=x2d.device)
     for j in range(top_k):
         s = slot[:, j]
         out = out + torch.where((s >= 0)[:, None], flat[s.clamp(min=0)], 0.0)
-    frac_tokens = torch.mean((combine > 0).float(), dim=0)
-    frac_probs = torch.mean(probs, dim=0)
-    aux = e * torch.sum(frac_tokens * frac_probs)
     if log is not None:
         log.calls.append(Routing(probs.detach(), top_idx, combine.detach(),
                                  idx, slot))
-    return out.to(x2d.dtype), aux
+    return (out.to(x2d.dtype), torch.mean((combine > 0).float(), dim=0),
+            torch.mean(probs, dim=0))
 
 
-def moe_apply(p, x, cfg, *, mesh=None):
+def moe_apply(p, x, cfg, ctx: ShardCtx = NULL_CTX):
     """x: (B, S, D) -> (y, aux): the routed experts over the call's B * S
     tokens at the reference's capacity (``moe_capacity``), plus the shared
     expert.
 
+    On a mesh, the reference's expert-parallel ``shard_map`` through
+    ``local_map``: tokens stay sharded over the DP axes and experts over
+    ``"model"``; each rank routes its ``tokens // dp_size`` tokens at that
+    count's capacity over every expert and runs its own experts (from
+    global expert ``rank * E_loc``) on them; the output is all-reduced over
+    ``"model"``; the load fractions are averaged over every mesh axis
+    before the aux product.  Under ``recording`` each rank logs its own
+    shard's routing.
+
     Raises:
-        NotImplementedError: ``mesh`` is not ``None``: the reference's
-            expert-parallel ``shard_map`` branch waits for ROADMAP A.13.
+        ValueError: on a mesh, a batch the DP axes or experts the model
+            axis do not divide (``shard_map`` refuses them too).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE over a mesh is not ported yet (ROADMAP "
-            "A.13)")
     b, s, d = x.shape
+    if ctx.mesh is not None:
+        return _moe_on_mesh(p, x, cfg, ctx)
     y, aux = moe_local(p, x.reshape(-1, d), top_k=cfg.moe_top_k,
                        capacity=moe_capacity(cfg, b * s))
     y = y.reshape(x.shape)
@@ -424,30 +658,91 @@ def moe_apply(p, x, cfg, *, mesh=None):
     return y, aux
 
 
-def _require_fused(cfg) -> None:
-    if getattr(cfg, "ssm_split_proj", False):
-        raise NotImplementedError(
-            "ssm_split_proj is a TPU sharding layout; the port keeps the "
-            "fused in_proj until it shards (ROADMAP A.13)")
+def _moe_on_mesh(p, x, cfg, ctx: ShardCtx):
+    b, s, d = x.shape
+    tp, dp = ctx.tp_axis, ctx.dp
+    dp_n, tp_n = ctx.size(ctx.dp_axes), ctx.size(tp)
+    e = cfg.n_routed_experts
+    if b % dp_n or e % tp_n:
+        raise ValueError(f"the expert-parallel MoE needs the batch {b} over "
+                         f"{dp_n} DP ranks and {e} experts over {tp_n} model "
+                         f"ranks to divide")
+    t_local = b * s // dp_n
+    cap = moe_capacity(cfg, t_local)
+    first = ctx.mesh.get_local_rank(tp) * (e // tp_n)
+    every = tuple(ctx.mesh.mesh_dim_names)
+
+    def body(xl, router, wg, wu, wd):
+        y, ft, fp = _moe_local({"router": router, "wg": wg, "wu": wu,
+                                "wd": wd}, xl.reshape(-1, d),
+                               top_k=cfg.moe_top_k, capacity=cap,
+                               first=first)
+        # one row of fractions per rank: (ranks, E) over the whole mesh
+        return y.reshape(xl.shape), ft[None], fp[None]
+
+    x_pl = ctx.mesh_placements({dp: 0})
+    w_pl = ctx.mesh_placements({tp: 0})
+    rows = ctx.mesh_placements({every: 0})
+    y, ft, fp = mesh_map(
+        ctx.mesh, body, (x, p["router"], p["wg"], p["wu"], p["wd"]),
+        (x_pl, ctx.mesh_placements(), w_pl, w_pl, w_pl),
+        (ctx.mesh_placements({dp: 0}, partial=(tp,)), rows, rows),
+        (ctx.mesh_placements({dp: 0}, partial=(tp,)),
+         ctx.mesh_placements(partial=every),
+         *[ctx.mesh_placements({tp: 0}, partial=ctx.dp_axes)] * 3))
+    y = y.redistribute(ctx.mesh, x_pl)  # the all-reduce over "model"
+    frac_tokens, frac_probs = ft.mean(dim=0), fp.mean(dim=0)
+    aux = e * torch.sum(frac_tokens.redistribute(ctx.mesh,
+                                                 ctx.mesh_placements())
+                        * frac_probs.redistribute(ctx.mesh,
+                                                  ctx.mesh_placements()))
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(p["shared"], x, ctx)
+    return y, aux
 
 
 def mamba_init(gen: torch.Generator, cfg, dtype):
-    """One Mamba2 mixer's parameters, in the reference's layout."""
-    _require_fused(cfg)
+    """One Mamba2 mixer's parameters, in the reference's layout: the fused
+    ``in_proj`` and ``conv_w``/``conv_b``, or under ``cfg.ssm_split_proj``
+    the split projections ``wz``, ``wx``, ``wb``, ``wc``, ``wdt`` and the
+    convolutions of x (``conv_wx``, ``conv_bx``) and of B and C
+    (``conv_wbc``, ``conv_bbc``), whose inner and head dims shard over
+    ``"model"``."""
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    conv_dim = di + 2 * n
     dev = gen.device
-    conv_w = torch.randn((cfg.ssm_conv, conv_dim), generator=gen,
-                         dtype=torch.float32, device=dev)
-    return {
+
+    def conv(width):
+        w = torch.randn((cfg.ssm_conv, width), generator=gen,
+                        dtype=torch.float32, device=dev)
+        return (w * (1.0 / math.sqrt(cfg.ssm_conv))).to(dtype)
+
+    common = {
         "A_log": torch.log(torch.linspace(1.0, 16.0, h, device=dev)),
         "D": torch.ones(h, device=dev),
         "dt_bias": torch.zeros(h, device=dev),
         "norm": torch.ones(di, dtype=dtype, device=dev),
+    }
+    if getattr(cfg, "ssm_split_proj", False):
+        return {
+            "wz": dense_init(gen, d, (di,), dtype),
+            "wx": dense_init(gen, d, (di,), dtype),
+            "wb": dense_init(gen, d, (n,), dtype),
+            "wc": dense_init(gen, d, (n,), dtype),
+            "wdt": dense_init(gen, d, (h,), dtype),
+            "conv_wx": conv(di),
+            "conv_bx": torch.zeros(di, dtype=dtype, device=dev),
+            "conv_wbc": conv(2 * n),
+            "conv_bbc": torch.zeros(2 * n, dtype=dtype, device=dev),
+            **common,
+            "out_proj": dense_init(gen, di, (d,), dtype),
+        }
+    conv_w = conv(di + 2 * n)
+    return {
+        **common,
         "out_proj": dense_init(gen, di, (d,), dtype),
         "in_proj": dense_init(gen, d, (2 * di + 2 * n + h,), dtype),
-        "conv_w": (conv_w * (1.0 / math.sqrt(cfg.ssm_conv))).to(dtype),
-        "conv_b": torch.zeros(conv_dim, dtype=dtype, device=dev),
+        "conv_w": conv_w,
+        "conv_b": torch.zeros(di + 2 * n, dtype=dtype, device=dev),
     }
 
 
@@ -461,35 +756,89 @@ def causal_conv1d(x, w, b):
     return (out + b.float()).to(x.dtype)
 
 
-def _split(t, cfg):
+def _project(p, x, cfg):
+    """(z, xin, b_in, c_in, dt) of the mixer's input projection, from the
+    fused ``in_proj`` or the split projections."""
+    if "wz" in p:
+        return (x @ p["wz"], x @ p["wx"], x @ p["wb"], x @ p["wc"],
+                x @ p["wdt"])
     di, n = cfg.d_inner, cfg.ssm_state
-    return torch.split(t, [di, di, n, n, cfg.ssm_heads], dim=-1)
+    return torch.split(x @ p["in_proj"], [di, di, n, n, cfg.ssm_heads],
+                       dim=-1)
 
 
-def mamba_apply(p, x, cfg, *, plain: bool = False):
+def _conv_weights(p):
+    """The depthwise conv over (x, B, C) as one (K, conv_dim) weight and
+    its bias: the split layout's concatenated in the fused order."""
+    if "wz" in p:
+        return (torch.cat([p["conv_wx"], p["conv_wbc"]], dim=-1),
+                torch.cat([p["conv_bx"], p["conv_bbc"]], dim=-1))
+    return p["conv_w"], p["conv_b"]
+
+
+def mamba_apply(p, x, cfg, *, plain: bool = False,
+                ctx: ShardCtx = NULL_CTX):
     """Full-sequence Mamba2 mixer.  x: (B,T,D) -> (B,T,D).
+
+    The split layout convolves x and (B, C) apart (each channel is its
+    own), so x's channels stay sharded over ``"model"``; on a mesh the SSD
+    runs through ``local_map`` on each rank's heads.
 
     Raises:
         ValueError: ``T % cfg.ssm_chunk != 0`` (the SSD scan's chunking).
     """
-    _require_fused(cfg)
     bsz, t, _ = x.shape
     di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    z, xin, b_in, c_in, dt = _split(x @ p["in_proj"], cfg)
-    xbc = causal_conv1d(torch.cat([xin, b_in, c_in], dim=-1), p["conv_w"],
-                        p["conv_b"])
-    xin, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
+    z, xin, b_in, c_in, dt = _project(p, x, cfg)
+    if "wz" in p:
+        xin = causal_conv1d(xin, p["conv_wx"], p["conv_bx"])
+        bc = causal_conv1d(torch.cat([b_in, c_in], dim=-1), p["conv_wbc"],
+                           p["conv_bbc"])
+        b_in, c_in = torch.split(bc, [n, n], dim=-1)
+    else:
+        xbc = causal_conv1d(torch.cat([xin, b_in, c_in], dim=-1),
+                            p["conv_w"], p["conv_b"])
+        xin, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
     xin = F.silu(xin)
     b_in, c_in = F.silu(b_in), F.silu(c_in)
     dt = F.softplus(dt.float() + p["dt_bias"])
     xh = xin.reshape(bsz, t, h, hp)
-    if plain:
-        y = ssd_scan_plain(xh, dt, -torch.exp(p["A_log"].float()), b_in, c_in,
-                           p["D"], chunk=cfg.ssm_chunk)
+    args = (xh, dt, p["A_log"], b_in, c_in, p["D"])
+    if ctx.mesh is not None:
+        y = _ssd_on_mesh(args, cfg, ctx, plain)
     else:
-        y = ssd(xh, dt, p["A_log"], b_in, c_in, p["D"], chunk=cfg.ssm_chunk)
+        y = _ssd(*args, cfg.ssm_chunk, plain)
     y = rms_norm(y.reshape(bsz, t, di) * F.silu(z), p["norm"])
     return y @ p["out_proj"]
+
+
+def _ssd(xh, dt, a_log, b_in, c_in, d_skip, chunk: int, plain: bool):
+    if plain:
+        return ssd_scan_plain(xh, dt, -torch.exp(a_log.float()), b_in, c_in,
+                              d_skip, chunk=chunk)
+    return ssd(xh, dt, a_log, b_in, c_in, d_skip, chunk=chunk)
+
+
+def _ssd_on_mesh(args, cfg, ctx: ShardCtx, plain: bool):
+    """The SSD through ``local_map``: batch over the DP axes (when it
+    divides), heads over ``"model"`` (when they divide), B and C whole on
+    every rank of the model axis."""
+    xh = args[0]
+    tp = ctx.tp_axis
+    bax = ctx.batch_axes(xh.shape[0])
+    heads = {tp: 2} if cfg.ssm_heads % ctx.size(tp) == 0 else {}
+    x_pl = ctx.mesh_placements({bax: 0, **heads})
+    bc_pl = ctx.mesh_placements({bax: 0})
+    hv_pl = ctx.mesh_placements({tp: 0} if heads else {})
+    # a gradient is partial over the axes its tensor is whole on while the
+    # ranks there compute on their own part of the batch or heads
+    bc_grad = ctx.mesh_placements({bax: 0}, partial=(tp,) if heads else ())
+    hv_grad = ctx.mesh_placements({tp: 0} if heads else {},
+                                  partial=ctx.dp_axes if bax else ())
+    return mesh_map(
+        ctx.mesh, lambda *a: _ssd(*a, cfg.ssm_chunk, plain), args,
+        (x_pl, x_pl, hv_pl, bc_pl, bc_pl, hv_pl), (x_pl,),
+        (x_pl, x_pl, hv_grad, bc_grad, bc_grad, hv_grad))
 
 
 def mamba_decode_step(p, x, cfg, state):
@@ -498,14 +847,14 @@ def mamba_decode_step(p, x, cfg, state):
     x: (B,1,D); state: {"h": (B,H,P,N) f32, "conv": (B,K-1,conv_dim)}.
     Returns (y (B,1,D), new_state).
     """
-    _require_fused(cfg)
     bsz = x.shape[0]
     di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    z, xin, b_in, c_in, dt = _split(x[:, 0] @ p["in_proj"], cfg)
+    z, xin, b_in, c_in, dt = _project(p, x[:, 0], cfg)
+    conv_w, conv_b = _conv_weights(p)
     xbc = torch.cat([xin, b_in, c_in], dim=-1)  # (B, conv_dim)
     conv_hist = torch.cat([state["conv"], xbc[:, None]], dim=1)  # (B,K,cd)
-    acc = torch.einsum("bkc,kc->bc", conv_hist.float(), p["conv_w"].float()) \
-        + p["conv_b"].float()
+    acc = torch.einsum("bkc,kc->bc", conv_hist.float(), conv_w.float()) \
+        + conv_b.float()
     xin, b_in, c_in = torch.split(acc.to(x.dtype), [di, n, n], dim=-1)
     xin = F.silu(xin)
     b_in, c_in = F.silu(b_in), F.silu(c_in)

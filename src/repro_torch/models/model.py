@@ -57,8 +57,10 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..distributed.sharding import is_dtensor, mesh_map
 from . import blocks as B
 from . import layers as L
+from .layers import NULL_CTX, ShardCtx, mesh_scope
 
 __all__ = ["decode_step", "embed_inputs", "forward", "init_cache",
            "init_params", "loss_fn", "prefill", "segments_of"]
@@ -134,13 +136,33 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> Params:
     return p
 
 
+def lookup(embed, tokens) -> torch.Tensor:
+    """``embed[tokens]``.  A DTensor table is looked up through
+    ``local_map``: the table gathered whole on every rank, each rank's own
+    tokens (their batch placement), the table's gradient partial over the
+    axes the tokens are sharded on.  DTensor's own index rules do not
+    carry the lookup's gradient on every PyTorch version."""
+    if not is_dtensor(embed):
+        return embed[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = embed.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    if not is_dtensor(tokens):  # the same tokens on every rank
+        tokens = DTensor.from_local(tokens, mesh, rep, run_check=False)
+    tok = tuple(tokens.placements)
+    grad = tuple(Partial() if x == Shard(0) else Replicate() for x in tok)
+    return mesh_map(mesh, lambda e, t: e[t], (embed, tokens), (rep, tok),
+                    (tok,), (grad, tok))
+
+
 def embed_inputs(cfg, params: Params, batch) -> torch.Tensor:
     """Token embedding, or the frontend stub's: an audio model's batch is
     its frame embeddings; a VLM's patch embeddings, cast to the token
     embeddings' dtype, come before its text tokens."""
     if cfg.frontend == "audio_frames":
         return batch["embeddings"]
-    tok = params["embed"][batch["tokens"]]
+    tok = lookup(params["embed"], batch["tokens"])
     if cfg.frontend == "vision_patches":
         return torch.cat([batch["embeddings"].to(tok.dtype), tok], dim=1)
     return tok
@@ -172,22 +194,25 @@ def _shared_at(cfg, li: int):
     return li // every, (li // every) % cfg.n_shared_attn_blocks
 
 
-def _zamba_body(lp, shared, li, x, *, cfg, q_chunk, plain):
+def _zamba_body(lp, shared, li, x, *, cfg, q_chunk, plain, ctx):
     """Hybrid layer ``li``: its shared-attention application, if any, then
     its Mamba block."""
     at = _shared_at(cfg, li)
     if at is not None:
-        x, _ = B.block_apply(shared[at[1]], x, cfg, q_chunk=q_chunk,
+        x, _ = B.block_apply(shared[at[1]], x, cfg, ctx, q_chunk=q_chunk,
                              plain=plain)
-    return B.mamba_block_apply(lp, x, cfg, plain=plain)
+    return B.mamba_block_apply(lp, x, cfg, ctx, plain=plain)
 
 
-def _logits(cfg, params, x):
-    """Final norm and the (tied or own) head; the padded tail unmasked."""
+def _logits(cfg, params, x, ctx: ShardCtx = NULL_CTX):
+    """Final norm and the (tied or own) head; the padded tail unmasked;
+    on a mesh pinned to (dp, None, tp), as the reference pins them."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["head"]
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["head"]
+    return ctx.constrain(logits, ctx.dp, None, ctx.tp_axis)
 
 
 def _head(cfg, params, x):
@@ -227,47 +252,58 @@ def _unstack(tree, count: int):
     return torch.unbind(tree, 0)
 
 
-def forward(cfg, params: Params, batch, *, remat: str = "full",
-            q_chunk: int = 1024, plain: bool = False):
+def forward(cfg, params: Params, batch, ctx: ShardCtx = NULL_CTX, *,
+            remat: str = "full", q_chunk: int = 1024, plain: bool = False):
     """Full-sequence forward pass; returns (logits (B, S, Vp), aux loss).
 
     The logits are unmasked over the padded vocabulary tail, as the
     reference's are; ``loss_fn`` masks them.  ``remat`` is the per-layer
     checkpoint policy (module docstring); ``plain=True`` runs the
     attention's and the SSD scan's plain versions on every device, as in
-    ``prefill``.
+    ``prefill``.  On a mesh (``ctx``; parameters and batch DTensors placed
+    by ``distributed.sharding``) the residual stream is pinned where the
+    reference pins it: batch over dp after the embedding and each segment,
+    and (dp, tp, None) before each layer, its sequence-parallel layout.
 
     Raises:
         ValueError: an unknown ``remat``; a sequence length the SSD chunk
             or the attention's query chunk does not divide.
     """
+    with mesh_scope(ctx):
+        return _forward(cfg, params, batch, ctx, remat, q_chunk, plain)
+
+
+def _forward(cfg, params, batch, ctx, remat, q_chunk, plain):
     x = embed_inputs(cfg, params, batch)
+    x = ctx.constrain(x, ctx.dp, None, None)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, count) in enumerate(segments_of(cfg)):
         if kind == "zamba":
             shared = _unstack(params["shared_attn"],
                               cfg.n_shared_attn_blocks)
         for li, lp in enumerate(_unstack(params[f"seg{i}"], count)):
+            x = ctx.constrain(x, ctx.dp, ctx.tp_axis, None)
             if kind in ("dense", "moe"):
-                body = functools.partial(B.block_apply, lp, cfg=cfg,
+                body = functools.partial(B.block_apply, lp, cfg=cfg, ctx=ctx,
                                          q_chunk=q_chunk, plain=plain)
                 x, aux = _remat(body, remat)(x)
                 aux_total = aux_total + aux
             elif kind == "zamba":
                 body = functools.partial(_zamba_body, lp, shared, li,
                                          cfg=cfg, q_chunk=q_chunk,
-                                         plain=plain)
+                                         plain=plain, ctx=ctx)
                 x = _remat(body, remat)(x)
             else:
                 body = functools.partial(B.mamba_block_apply, lp, cfg=cfg,
-                                         plain=plain)
+                                         ctx=ctx, plain=plain)
                 x = _remat(body, remat)(x)
-    return _logits(cfg, params, x), aux_total
+        x = ctx.constrain(x, ctx.dp, None, None)
+    return _logits(cfg, params, x, ctx), aux_total
 
 
-def loss_fn(cfg, params: Params, batch, *, remat: str = "full",
-            q_chunk: int = 1024, aux_weight: float = 0.01,
-            plain: bool = False):
+def loss_fn(cfg, params: Params, batch, ctx: ShardCtx = NULL_CTX, *,
+            remat: str = "full", q_chunk: int = 1024,
+            aux_weight: float = 0.01, plain: bool = False):
     """Next-token (or frame-label) cross entropy, as the reference computes
     it: f32 logits, the padded vocabulary tail masked to the lowest f32,
     ``logsumexp`` in f32, labels below 0 ignored; a VLM's loss over its
@@ -277,16 +313,49 @@ def loss_fn(cfg, params: Params, batch, *, remat: str = "full",
 
     Returns (loss, {"ce": ce, "aux": aux}).
     """
-    logits, aux = forward(cfg, params, batch, remat=remat, q_chunk=q_chunk,
-                          plain=plain)
-    labels = batch["labels"]  # (B, S_out) integer, -1 => ignore
-    if logits.shape[1] != labels.shape[1]:  # vlm: the text tail only
-        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    with mesh_scope(ctx):
+        return _loss(cfg, params, batch, ctx, remat, q_chunk, aux_weight,
+                     plain)
+
+
+def _ce_parts(cfg, logits, labels):
+    """(the summed cross entropy of the labelled positions, their count):
+    f32 logits, the padded tail masked, ``logsumexp`` in f32, the label's
+    logit gathered."""
     lf = _mask_pad_logits(cfg, logits.float())
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
-    ce = torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum((lse - ll) * mask), torch.sum(mask)
+
+
+def _ce_on_mesh(cfg, logits, labels, ctx):
+    """``_ce_parts`` through ``local_map``: each rank's rows with the whole
+    vocabulary (gathered over ``"model"``), the two sums partial over the
+    DP axes the rows are sharded on."""
+    from torch.distributed.tensor import DTensor
+
+    bax = ctx.batch_axes(labels.shape[0])
+    rows = ctx.mesh_placements({bax: 0})
+    sums = ctx.mesh_placements(partial=ctx.dp_axes if bax else ())
+    if not is_dtensor(labels):  # the same labels on every rank
+        labels = DTensor.from_local(labels, ctx.mesh, ctx.mesh_placements(),
+                                    run_check=False)
+    return mesh_map(ctx.mesh, functools.partial(_ce_parts, cfg),
+                    (logits, labels), (rows, rows), (sums, sums))
+
+
+def _loss(cfg, params, batch, ctx, remat, q_chunk, aux_weight, plain):
+    logits, aux = forward(cfg, params, batch, ctx, remat=remat,
+                          q_chunk=q_chunk, plain=plain)
+    labels = batch["labels"]  # (B, S_out) integer, -1 => ignore
+    if logits.shape[1] != labels.shape[1]:  # vlm: the text tail only
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    if ctx.mesh is None:
+        total, count = _ce_parts(cfg, logits, labels)
+    else:
+        total, count = _ce_on_mesh(cfg, logits, labels, ctx)
+    ce = total / torch.clamp(count, min=1.0)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -315,8 +384,8 @@ def init_cache(cfg, batch: int, s_max: int, dtype=torch.float32,
     return cache
 
 
-def prefill(cfg, params: Params, cache, batch, *, q_chunk: int = 1024,
-            plain: bool = False):
+def prefill(cfg, params: Params, cache, batch, ctx: ShardCtx = NULL_CTX, *,
+            q_chunk: int = 1024, plain: bool = False):
     """Run a full prompt; returns (last-token logits (B, V), cache).
 
     Attention segments write K/V of every prompt position into ``cache`` in
@@ -325,50 +394,69 @@ def prefill(cfg, params: Params, cache, batch, *, q_chunk: int = 1024,
     ``plain=True`` runs the attention's and the SSD scan's plain versions on
     every device (the on-card reference for the kernel path).  A VLM's
     prompt is its patch embeddings and then its tokens, so its decode
-    starts at position ``frontend_seq`` plus the text tokens.
+    starts at position ``frontend_seq`` plus the text tokens.  On a mesh
+    the residual stream is pinned to batch over dp before each layer, as
+    the reference pins it, and each rank writes its own shard of a
+    sequence-sharded cache.
     """
+    with mesh_scope(ctx):
+        return _prefill(cfg, params, cache, batch, ctx, q_chunk, plain)
+
+
+def _prefill(cfg, params, cache, batch, ctx, q_chunk, plain):
     x = embed_inputs(cfg, params, batch)
+    x = ctx.constrain(x, ctx.dp, None, None)
     for i, (kind, count) in enumerate(segments_of(cfg)):
         stacked = params[f"seg{i}"]
         for li in range(count):
             lp = _layer(stacked, li)
+            x = ctx.constrain(x, ctx.dp, None, None)
             if kind in ("dense", "moe"):
                 x, _ = B.block_prefill(lp, x, cfg,
-                                       _layer(cache[f"seg{i}"], li),
+                                       _layer(cache[f"seg{i}"], li), ctx,
                                        q_chunk=q_chunk, plain=plain)
                 continue
             at = _shared_at(cfg, li) if kind == "zamba" else None
             if at is not None:
                 x, _ = B.block_prefill(
                     _layer(params["shared_attn"], at[1]), x, cfg,
-                    _layer(cache["shared_attn"], at[0]), q_chunk=q_chunk,
-                    plain=plain)
-            x = B.mamba_block_apply(lp, x, cfg, plain=plain)
+                    _layer(cache["shared_attn"], at[0]), ctx,
+                    q_chunk=q_chunk, plain=plain)
+            x = B.mamba_block_apply(lp, x, cfg, ctx, plain=plain)
     return _head(cfg, params, x[:, -1:])[:, 0], dict(cache)
 
 
-def decode_step(cfg, params: Params, cache, tokens, pos: int):
+def decode_step(cfg, params: Params, cache, tokens, pos: int,
+                ctx: ShardCtx = NULL_CTX):
     """One decode step.  tokens: (B, 1) integer; ``pos`` is the index of the
     token being generated (unused by SSM layers, as in the reference).
 
     Returns (logits (B, V), cache).  The cache is written in place:
     attention K/V at ``pos`` (a hybrid's per shared-attention
-    application), Mamba states in full; the same tensors come back.
+    application), Mamba states in full; the same tensors come back.  On a
+    mesh the new Mamba states take their cache's placements first.
     """
-    x = params["embed"][tokens]
+    with mesh_scope(ctx):
+        return _decode_step(cfg, params, cache, tokens, pos, ctx)
+
+
+def _decode_step(cfg, params, cache, tokens, pos, ctx):
+    x = lookup(params["embed"], tokens)
     for i, (kind, count) in enumerate(segments_of(cfg)):
         stacked, seg_cache = params[f"seg{i}"], cache[f"seg{i}"]
         for li in range(count):
             lp, lc = _layer(stacked, li), _layer(seg_cache, li)
             if kind in ("dense", "moe"):
-                x, _ = B.block_decode(lp, x, cfg, lc, pos)
+                x, _ = B.block_decode(lp, x, cfg, lc, pos, ctx)
                 continue
             at = _shared_at(cfg, li) if kind == "zamba" else None
             if at is not None:
                 x, _ = B.block_decode(_layer(params["shared_attn"], at[1]), x,
                                       cfg, _layer(cache["shared_attn"], at[0]),
-                                      pos)
+                                      pos, ctx)
             x, st = B.mamba_block_decode(lp, x, cfg, lc)
             for k, t in st.items():
+                if is_dtensor(t):
+                    t = t.redistribute(lc[k].device_mesh, lc[k].placements)
                 lc[k].copy_(t)
     return _head(cfg, params, x)[:, 0], dict(cache)

@@ -8,6 +8,13 @@ the step as a tensor and works in f32, the bias corrections are
 reference's is: ``adamw_update`` returns new parameter and moment trees and
 leaves its arguments alone, under ``torch.no_grad()``.  Moments are kept
 in ``moment_dtype`` (f32 unless asked), the math in f32.
+
+On a mesh the trees hold DTensors: parameters and gradients placed by
+``distributed.sharding.param_specs``, moments by ``opt_state_specs``
+(ZeRO: sharded further over "data").  The same code runs under DTensor's
+rules, which meet the two placements leaf by leaf, and ``global_norm`` is
+the norm of the whole gradient (each leaf's sum of squares reduced over
+its shards), not a rank's share.
 """
 
 from __future__ import annotations

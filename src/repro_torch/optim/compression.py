@@ -3,8 +3,10 @@
 
     q = quantize(g + e);  all_reduce(q);  e' = (g + e) - dequantize(q)
 
-The codec and the error-feedback state only; the reduction happens outside
-(the port does not shard yet, ROADMAP A.13).  The same f32 operations as
+The codec and the error-feedback state only, as in the reference: the
+reduction happens outside, in whatever collective the caller issues on its
+mesh (the port's training step reduces its gradients through DTensor's
+redistributions and does not compress them, as the reference's does not).  The same f32 operations as
 the reference, and ``torch.round`` rounds half to even as ``jnp.round``
 does, so payloads, scales and residuals equal the reference's bit for bit.
 """

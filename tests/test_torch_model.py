@@ -281,12 +281,49 @@ def test_every_config_runs_reduced_on_the_cpu(name):
 
 
 def test_the_split_projection_layout_raises():
-    # ssm_split_proj is a TPU sharding layout (A.13); every family and the
-    # int8 KV cache run (tests/test_torch_mla.py, test_torch_hybrid.py,
-    # test_torch_kv_int8.py)
+    # (named when the port refused ssm_split_proj; it now runs) the split
+    # layout from the reference's weights matches the reference's
+    # split-projection forward and decode, computes what the fused layout
+    # computes on the mapped weights, and still refuses a prompt off the
+    # SSD chunk, as the reference does
+    from repro_torch.models import forward, split_to_fused
+
     split = dataclasses.replace(get_config("mamba2-130m").reduced(),
                                 ssm_split_proj=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        L.mamba_init(torch.Generator(), split, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        init_params(split, torch.Generator())
+    jsplit = dataclasses.replace(
+        ref_configs.get_config("mamba2-130m").reduced(), ssm_split_proj=True)
+    jparams = ref_models.init_params(jsplit, jax.random.PRNGKey(3),
+                                     dtype=jnp.float32)
+    assert "wz" in jparams["seg0"]["mixer"]
+    params = params_from_numpy(split, jax.tree.map(np.asarray, jparams),
+                               "cpu")
+    own = init_params(split, torch.Generator().manual_seed(0))
+    assert sorted(own["seg0"]["mixer"]) == sorted(jparams["seg0"]["mixer"])
+    tokens = np.random.default_rng(5).integers(
+        0, split.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    want, _ = ref_models.forward(jsplit, jparams,
+                                 {"tokens": jnp.asarray(tokens)},
+                                 remat="none")
+    batch = {"tokens": torch.from_numpy(tokens).long()}
+    got, _ = forward(split, params, batch, remat="none")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    fused_cfg = dataclasses.replace(split, ssm_split_proj=False)
+    fused = split_to_fused(split, params)
+    same, _ = forward(fused_cfg, fused, batch, remat="none")
+    torch.testing.assert_close(same, got, rtol=1e-6, atol=1e-6)
+    jcache = ref_models.init_cache(jsplit, BATCH, PROMPT + 1,
+                                   dtype=jnp.float32)
+    jl, _ = ref_models.decode_step(jsplit, jparams, jcache,
+                                   jnp.asarray(tokens[:, :1]),
+                                   jnp.asarray(0))
+    cache = init_cache(split, BATCH, PROMPT + 1)
+    fcache = init_cache(fused_cfg, BATCH, PROMPT + 1)
+    tl, _ = decode_step(split, params, cache, batch["tokens"][:, :1], 0)
+    fl, _ = decode_step(fused_cfg, fused, fcache, batch["tokens"][:, :1], 0)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                               atol=TOL)
+    torch.testing.assert_close(fl, tl, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="chunk"):
+        forward(split, params, {"tokens": batch["tokens"][:, :12]},
+                remat="none")

@@ -151,8 +151,10 @@ def test_moe_apply_with_the_shared_expert_matches_the_reference(moe):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MOE_TOL,
                                atol=MOE_TOL)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=MOE_TOL)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        L.moe_apply(tl, torch.from_numpy(x), cfg, mesh=object())
+    # the context off a mesh is the one-device path (the expert-parallel
+    # branch on a mesh: tests/test_torch_mesh.py)
+    again, aux2 = L.moe_apply(tl, torch.from_numpy(x), cfg, L.NULL_CTX)
+    assert torch.equal(again, got) and torch.equal(aux2, aux)
 
 
 def test_forced_routing_of_another_shape_is_refused(moe):

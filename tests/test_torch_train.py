@@ -45,7 +45,7 @@ from repro_torch.kernels.ssd import ops as sd
 from repro_torch.kernels.ssd.ref import ssd_scan_plain
 from repro_torch.launch import steps
 from repro_torch.launch.train import SimulatedFailure, parse_args, train
-from repro_torch.models import (forward, init_cache, loss_fn,
+from repro_torch.models import (forward, init_cache, init_params, loss_fn,
                                 params_from_numpy)
 from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.sched import tune
@@ -191,12 +191,44 @@ def test_prefill_and_decode_steps_match_the_port_model(models):
     torch.testing.assert_close(d1, d2, rtol=1e-5, atol=1e-5)
 
 
-def test_meshes_wait_for_a13():
-    cfg = get_config("mamba2-130m").reduced()
-    for make in (steps.make_train_step, steps.make_prefill_step,
-                 steps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="A.13"):
-            make(cfg, mesh=object())
+def test_meshes_wait_for_a13(tmp_path):
+    # (named when meshes were refused; they now run) the three step
+    # factories on a one-rank ("data", "model") mesh of this process give
+    # the unsharded steps' numbers, and hand back DTensors; one layer of
+    # the reduced mamba2-130m (tests/test_torch_mesh.py runs four ranks)
+    from repro_torch.launch.mesh import one_rank_mesh
+
+    cfg = dataclasses.replace(get_config("mamba2-130m").reduced(),
+                              num_layers=1)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+             for k in ("tokens", "labels")}
+    opt = init_opt_state(params)
+    with one_rank_mesh(tmp_path, "cpu") as mesh:
+        kw = dict(q_chunk=16, remat="none")
+        p1, o1, m1 = steps.make_train_step(cfg, **kw)(params, opt, batch)
+        p2, o2, m2 = steps.jit_train_step(cfg, mesh, params, opt, batch,
+                                          **kw)(params, opt, batch)
+        assert hasattr(p2["embed"], "placements")
+        torch.testing.assert_close(m2["loss"], m1["loss"], rtol=0, atol=0)
+        for a, b in zip(leaves((p1, o1)), leaves((p2, o2))):
+            torch.testing.assert_close(b.full_tensor(), a, rtol=1e-6,
+                                       atol=1e-6)
+        prompt = {"tokens": batch["tokens"]}
+        cache = init_cache(cfg, 2, 17)
+        l1, c1 = steps.make_prefill_step(cfg, q_chunk=16)(
+            params, init_cache(cfg, 2, 17), prompt)
+        l2, c2 = steps.jit_prefill_step(cfg, mesh, params, cache, prompt,
+                                        q_chunk=16)(params, cache, prompt)
+        torch.testing.assert_close(l2.full_tensor(), l1, rtol=1e-6,
+                                   atol=1e-6)
+        nxt = torch.argmax(l1, -1)[:, None]
+        d1, _ = steps.make_decode_step(cfg)(params, c1, nxt, 16)
+        d2, _ = steps.jit_decode_step(cfg, mesh, params, cache, 2)(
+            params, c2, nxt, 16)
+        torch.testing.assert_close(d2.full_tensor(), d1, rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_train_matches_the_reference_from_its_weights(models):
