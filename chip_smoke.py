@@ -7,7 +7,7 @@ once more with ``-Xptxas -v``: their kernels' registers and spills, none
 allowed in the flash, SSD and window-vet kernels, and the tensor-core
 instructions of the flash and SSD kernels from ``cuobjdump -sass`` (HGMMA
 required in flash, HMMA in SSD) print on the ``compiled`` line) and drives
-the port's main paths on one GPU, in fourteen phases:
+the port's main paths on one GPU, in fifteen phases:
 
 1. ``kernels``  — each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it, with CUDA-event times, bounds and,
@@ -209,7 +209,21 @@ the port's main paths on one GPU, in fourteen phases:
    Printed, not held: ms with and without the mesh (DTensor's host cost;
    prefills timed in turns), each training run's peak bytes above what it
    began with, and the collectives recorded (on one rank, only the
-   explicit all-reduces of the sequence-sharded decode).
+   explicit all-reduces of the sequence-sharded decode);
+15. ``dryrun`` — ``repro_torch.launch.dryrun`` checked against the card:
+   the ``sharded`` phase's three steps (2-layer deepseek-moe-16b's train
+   step and prefill, the split-projection mamba2-130m's prefill, f32) are
+   traced on fake tensors on a fake (1, 1) CUDA mesh of one rank, and
+   their predicted peak bytes and kernel calls must be within 10% of
+   ``max_memory_allocated`` and equal to the launch counters of the same
+   steps run for real on a one-rank NCCL mesh (each case's inputs drawn
+   and placed before the peak is reset; the fake group is destroyed
+   before the NCCL group is made).  Then ``run_cell`` sizes production
+   cells on the card's host (``DRYRUN_CELLS``: mamba2-130m train_4k and
+   qwen3-14b decode_32k on one pod, qwen3-14b decode_32k on two), each
+   ``ok`` or ``skipped``; then ``examples/port_serve_decode.py`` and
+   ``port_train_100m.py`` run once at small arguments, their launches
+   the phase's.  The card's ``total_memory`` is printed once.
 
 Every engine result is held against the ``torch`` backend (the plain path)
 on the card under the near-tie contract: where the change-point agrees,
@@ -256,7 +270,7 @@ RTOL = 1e-5  # vet/ei/oc/pr where the cut agrees
 GAP = 1e-4  # relative SSE gap allowed between two near-tie cuts
 PHASES = ("kernels", "job", "analysis", "fleet_fused", "fleet_gather",
           "serve", "serve_attn", "serve_moe", "serve_hybrid", "serve_mla",
-          "frontends", "transport", "train", "sharded")
+          "frontends", "transport", "train", "sharded", "dryrun")
 SSD_RTOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py TestSSD
 # tests/test_kernels.py TestFlashAttention
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -3727,6 +3741,208 @@ def phase_sharded(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ------------------------------------------------------------------- dryrun
+DRYRUN_TOL = 0.10  # predicted peak bytes against max_memory_allocated
+# production cells the dryrun phase sizes on the card's host
+DRYRUN_CELLS = (("mamba2-130m", "train_4k", "single"),
+                ("qwen3-14b", "decode_32k", "single"),
+                ("qwen3-14b", "decode_32k", "multi"))
+
+
+def _meta_tree(tree):
+    import torch
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), tree)
+
+
+def calibration_cases(dev, layers: int = 2, batch: int = 2,
+                      seq_len: int = 2048, decode: int = 8,
+                      q_chunk: int = 1024) -> list:
+    """The ``sharded`` phase's three mesh steps: 2-layer full-width
+    deepseek-moe-16b's train step and prefill (batch 2 x 2048, f32), full
+    mamba2-130m's split-projection prefill (4 x 512).  Each (name, kind,
+    cfg, a function drawing its real arguments on the card, step
+    keywords)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.optim.adamw import init_opt_state
+
+    moe = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              num_layers=layers)
+    split = dataclasses.replace(get_config("mamba2-130m"),
+                                ssm_split_proj=True)
+
+    def draw(cfg):
+        return init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+
+    def prompts(cfg, b, s):
+        return {"tokens": torch.randint(
+            0, cfg.vocab_size, (b, s), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))}
+
+    def moe_train():
+        params = draw(moe)
+        return (params, init_opt_state(params),
+                train_batch(moe, batch, seq_len, dev))
+
+    return [
+        ("moe_train", "train", moe, moe_train, {"q_chunk": q_chunk}),
+        ("moe_prefill", "prefill", moe, lambda: (
+            draw(moe), init_cache(moe, batch, seq_len + decode, device=dev),
+            prompts(moe, batch, seq_len)), {"q_chunk": q_chunk}),
+        ("split_prefill", "prefill", split, lambda: (
+            draw(split), init_cache(split, 4, 513, device=dev),
+            prompts(split, 4, 512)), {}),
+    ]
+
+
+def dryrun_calibration(dev) -> list:
+    """Each calibration case's predicted peak bytes and kernel calls (the
+    dry-run's trace on a fake (1, 1) CUDA mesh of one rank) beside the
+    real step's ``max_memory_allocated`` and launches on a one-rank NCCL
+    mesh, its inputs drawn and placed before the peak is reset, nothing
+    else of the case resident.  The fake group is destroyed before the
+    NCCL group is made."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.distributed.sharding import place
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, one_rank_mesh
+
+    cases = calibration_cases(dev)
+    metas = []
+    for _, _, _, build, _ in cases:
+        args = build()
+        metas.append(_meta_tree(args))
+        del args
+    torch.cuda.empty_cache()
+    rows = []
+    with dryrun.fake_group(1):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        for (name, kind, cfg, _, kw), meta in zip(cases, metas):
+            t0 = time.perf_counter()
+            pred = dryrun.trace_step(kind, cfg, mesh, meta, **kw)
+            rows.append({"case": name, "arch": cfg.name,
+                         "predicted_peak_bytes": pred["peak_bytes"],
+                         "predicted_input_bytes": pred["input_bytes"],
+                         "predicted_kernel_calls": pred["kernel_calls"],
+                         "trace_s": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory(prefix="repro-mesh-") as tmp, \
+            one_rank_mesh(tmp, dev) as mesh:
+        for row, (name, kind, cfg, build, kw), meta in zip(rows, cases,
+                                                           metas):
+            step, specs = dryrun.mesh_step(kind, cfg, mesh, meta, **kw)
+            args = build()
+            placed = [place(a, sp, mesh) for a, sp in zip(args, specs)]
+            del args
+            gc.collect()  # the earlier cases' graphs hold no memory now
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, counts = counted(lambda: step(*placed))
+            peak = torch.cuda.max_memory_allocated()
+            wide = wide_count()
+            del out, placed
+            gc.collect()
+            torch.cuda.empty_cache()
+            calls = row["predicted_kernel_calls"]
+            launches = {"flash_attention": counts["flash_attention"],
+                        "flash_attention_wide": wide, "ssd": counts["ssd"]}
+            predicted = {
+                "flash_attention": calls.get("flash_attention", 0)
+                + calls.get("flash_attention_wide", 0),
+                "flash_attention_wide": calls.get("flash_attention_wide", 0),
+                "ssd": calls.get("ssd", 0)}
+            row.update({
+                "max_memory_allocated": int(peak),
+                "allocated_before": int(base),
+                "ratio": row["predicted_peak_bytes"] / peak,
+                "launches": launches, "predicted_launches": predicted})
+            print(f"dryrun: {json.dumps(row)}", flush=True)
+    for row in rows:
+        require(abs(row["ratio"] - 1.0) <= DRYRUN_TOL,
+                f"dryrun: {row['case']} predicted "
+                f"{row['predicted_peak_bytes']} bytes, measured "
+                f"{row['max_memory_allocated']} (ratio {row['ratio']:.4f})")
+        require(row["predicted_launches"] == row["launches"],
+                f"dryrun: {row['case']} predicted kernel calls "
+                f"{row['predicted_launches']}, launched {row['launches']}")
+    return rows
+
+
+def phase_dryrun(card: str, device: str = "cuda") -> dict:
+    """The dry-run checked against the card: the calibration steps'
+    predicted peaks and kernel calls against the card's, then
+    ``launch.dryrun.run_cell`` on production cells (a host-side trace on
+    a fake group of 256 or 512 ranks), then the port's serve and train
+    examples at small arguments."""
+    import torch
+    from repro_torch.launch import dryrun
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out = {"phase": "dryrun", "card": card, "torch": torch.__version__,
+           "total_memory": int(total), "budget": dryrun.HBM_LIMIT}
+    print(f"dryrun: total_memory {total} bytes on {card}", flush=True)
+    out["calibration"] = dryrun_calibration(dev)
+    out["calibration_s"] = time.perf_counter() - t0
+    cells = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        t1 = time.perf_counter()
+        try:
+            res = dryrun.run_cell(arch, shape, mesh)
+        except Exception as exc:  # reported with the others, then failed
+            res = {"arch": arch, "shape": shape, "mesh": mesh,
+                   "status": "error", "error": f"{type(exc).__name__}: "
+                   f"{str(exc)[-400:]}"}
+        cells.append({k: res.get(k) for k in (
+            "arch", "shape", "mesh", "status", "n_micro", "moment_dtype",
+            "peak_bytes", "fits_hbm", "dominant", "roofline_bound_s",
+            "t_compute_s", "t_memory_s", "t_collective_s", "kernel_calls",
+            "mandatory_bytes_per_chip", "error")}
+            | {"seconds": time.perf_counter() - t1})
+        print(f"dryrun: {json.dumps(cells[-1])}", flush=True)
+    for c in cells:
+        require(c["status"] in ("ok", "skipped"),
+                f"dryrun: {c['arch']} {c['shape']} {c['mesh']}: {c}")
+    out["cells"] = cells
+    out["cells_s"] = sum(c["seconds"] for c in cells)
+    out["examples"] = examples_part()
+    out["launches"] = out["examples"].pop("launches")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def examples_part() -> dict:
+    """``examples/port_serve_decode.py`` and ``port_train_100m.py`` once on
+    the card at small arguments, each held to its own checks."""
+    import importlib.util
+    import tempfile
+    res = {"launches": {}}
+    for name, argv in (
+            ("port_serve_decode", ["--gen-len", "64"]),
+            ("port_train_100m", ["--steps", "30", "--batch", "2",
+                                 "--seq-len", "128"])):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="repro-ex-") as tmp:
+            extra = ["--ckpt-dir", tmp] if name == "port_train_100m" else []
+            got, counts = counted(lambda: mod.main(argv + extra))
+        res[name] = {"seconds": time.perf_counter() - t0, **got,
+                     "launches": counts}
+        for k, v in counts.items():
+            res["launches"][k] = res["launches"].get(k, 0) + v
+        require(counts["ssd"] > 0, f"dryrun: {name} launched no SSD kernel")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3815,12 +4031,15 @@ def main(argv=None) -> int:
     if "sharded" in phases:
         results["sharded"] = phase_sharded(card)
         emit(results["sharded"])
+    if "dryrun" in phases:
+        results["dryrun"] = phase_dryrun(card)
+        emit(results["dryrun"])
 
     launches = {"changepoint": 0, "windowvet": 0, "ssd": 0,
                 "flash_attention": 0}
     for p in ("job", "analysis", "fleet_fused", "fleet_gather", "serve",
               "serve_attn", "serve_moe", "serve_hybrid", "serve_mla",
-              "frontends", "transport", "train", "sharded"):
+              "frontends", "transport", "train", "sharded", "dryrun"):
         for k in launches:
             launches[k] += results.get(p, {}).get("launches", {}).get(k, 0)
     # the flash wrapper counts both entries; the table splits them

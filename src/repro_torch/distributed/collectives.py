@@ -4,7 +4,9 @@
 The reference parses compiled HLO for its collectives; eager PyTorch has no
 HLO, so ``record_collectives`` records the collectives a block of code
 issues instead: a ``TorchDispatchMode`` over the ``_c10d_functional`` ops
-that DTensor's redistributions and ``local_map`` regions go through, each
+that DTensor's redistributions and ``local_map`` regions go through (an op
+on DTensors is handed on to DTensor, so the collectives DTensor issues
+inside it, where an operand must be redistributed, reach the mode too), each
 kept as ``(kind, shape, dtype, axis)``: the HLO kind (``all-reduce``,
 ``all-gather``, ``reduce-scatter``, ``all-to-all``; ``broadcast``, which
 HLO has no kind for, under its own name), the op's *output* shape on this
@@ -24,7 +26,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 __all__ = ["DTYPE_BYTES", "Collective", "collective_bytes",
-           "record_collectives"]
+           "collectives_of", "record_collectives"]
 
 DTYPE_BYTES = {
     "pred": 1, "s8": 1, "u8": 1, "f8e4m3fn": 1, "f8e5m2": 1,
@@ -101,29 +103,41 @@ def _axis_of(mesh, group_name: str):
     return tuple(names)
 
 
+def collectives_of(func, args, kwargs, result, mesh=None) -> list:
+    """The ``Collective``s of one dispatched op (none unless it is a
+    ``_c10d_functional`` collective), for a dispatch mode that has run it
+    (``record_collectives``'s, ``launch.dryrun``'s tracker)."""
+    if getattr(func, "namespace", None) != "_c10d_functional":
+        return []
+    kind = _KINDS.get(func._opname)
+    if kind is None:
+        return []
+    group = kwargs.get("group_name", args[-1])
+    outs = result if isinstance(result, (list, tuple)) else [result]
+    return [Collective(kind, tuple(t.shape), _HLO_DTYPE[t.dtype],
+                       _axis_of(mesh, group)) for t in outs]
+
+
 @contextlib.contextmanager
 def record_collectives(mesh=None):
     """Record the collectives issued inside the block into the yielded
     list of ``Collective`` (each with the axis of ``mesh`` its group
     spans, when a mesh is given)."""
+    from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
 
     out: List[Collective] = []
 
     class _Recorder(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                # let DTensor run first: the collectives it issues while it
+                # redistributes an operand, and the local ops below it,
+                # then dispatch with this mode still on the stack
+                return NotImplemented
             kwargs = kwargs or {}
             result = func(*args, **kwargs)
-            if func.namespace == "_c10d_functional":
-                kind = _KINDS.get(func._opname)
-                if kind is not None:
-                    group = kwargs.get("group_name", args[-1])
-                    outs = result if isinstance(result, (list, tuple)) \
-                        else [result]
-                    for t in outs:
-                        out.append(Collective(kind, tuple(t.shape),
-                                              _HLO_DTYPE[t.dtype],
-                                              _axis_of(mesh, group)))
+            out.extend(collectives_of(func, args, kwargs, result, mesh))
             return result
 
     with _Recorder():

@@ -40,6 +40,7 @@ __all__ = [
     "mesh_map",
     "place",
     "placements",
+    "shard_span",
     "whole",
 ]
 
@@ -275,6 +276,21 @@ def placements(spec, mesh) -> tuple:
         for i in idx:
             out[i] = Shard(d)
     return tuple(out)
+
+
+def shard_span(t, dim: int):
+    """[lo, hi): the indices of ``dim`` that this rank's shard of the
+    DTensor ``t`` holds: DTensor's chunking (chunks of the ceiling size,
+    the mesh dims in order) in plain integers, so it needs no tensor op
+    and runs on fake tensors too."""
+    coord = t.device_mesh.get_coordinate()
+    lo, size = 0, t.shape[dim]
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard(dim):
+            full = -(-size // t.device_mesh.size(i))
+            start = min(coord[i] * full, size)
+            lo, size = lo + start, min(full, size - start)
+    return lo, lo + size
 
 
 def is_dtensor(t) -> bool:

@@ -40,6 +40,13 @@ in the others.  ``LAUNCHES`` counts the launches of every entry;
 ``WIDE_LAUNCHES`` counts those of the wide entries alone, so a run can show
 which entry ran.
 
+**Shape-only route.**  On ``FakeTensor`` operands (a host-side trace of
+the card's step, ``launch.dryrun``) ``_launch`` makes every check but the
+pointer alignment, allocates what a launch allocates (the output, V's
+padding) and, in place of the launch, reports the call with its flops and
+bytes to ``runtime.shape_only``; it loads no library and moves neither
+counter.  A real tensor never takes it.
+
 **Gradients.**  On CUDA tensors of which one requires grad (with grad
 enabled), ``flash_attention`` runs through ``_FlashAttention``, a
 ``torch.autograd.Function``: its forward launches the kernel and saves only
@@ -54,6 +61,7 @@ does.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -61,7 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import runtime
-from .ref import attention_plain
+from .ref import attention_plain, live_pairs
 
 __all__ = ["LAUNCHES", "WIDE_LAUNCHES", "block_rows", "flash_attention",
            "smem_bytes"]
@@ -88,6 +96,11 @@ _MAX_DIM = 256  # the wide entries'
 _BLOCK = {torch.bfloat16: (128, 5 * 2 * 128 * 128 + 5 * 8 + 1024),
           torch.float32: (64, (2 * 4 * 64 + 2 * (2 * 4 * 32 + 2 * 128))
                           * 128 + 5 * 8 + 1024)}
+
+
+@functools.lru_cache(maxsize=None)
+def _live_pairs(s: int, causal: bool, window: int) -> int:
+    return live_pairs(s, causal=causal, window=window)
 
 
 def block_rows(dtype) -> int:
@@ -153,9 +166,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def _launch(q, k, v, causal, window, scale):
     """Check the operands and launch the kernel on CUDA tensors."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda tensors, got "
-                         f"{q.device}")
+    fake = runtime.is_fake(q, k, v)
+    runtime.require_card("flash_attention", q.device, fake)
     b, s, h, d = q.shape
     kh = k.shape[2]
     if kh <= 0 or h % kh:
@@ -184,7 +196,7 @@ def _launch(q, k, v, causal, window, scale):
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
+        if not fake and t.data_ptr() % 16:  # a fake tensor has no pointer
             raise ValueError(f"{name} must be 16-byte aligned")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     wide = d > _NARROW_DIM
@@ -194,15 +206,21 @@ def _launch(q, k, v, causal, window, scale):
     if width != dv:
         v = F.pad(v, (0, width - dv))
     o = q.new_empty((b, s, h, width))
-    entry = (_WIDE_ENTRY if wide else _ENTRY)[q.dtype]
-    fn = getattr(runtime.load_library(), entry)
-    dims = (b, s, h, kh, d, width) if wide else (b, s, h, kh, d)
-    with torch.cuda.device(q.device):
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  *dims, int(bool(causal)), int(window), float(scale),
-                  torch.cuda.current_stream().cuda_stream)
-    runtime.check(code, entry)
-    global LAUNCHES, WIDE_LAUNCHES
-    LAUNCHES += 1
-    WIDE_LAUNCHES += int(wide)
+    if fake:
+        pairs = b * h * _live_pairs(s, bool(causal), int(window))
+        runtime.shape_only("flash_attention_wide" if wide else
+                           "flash_attention", 2.0 * pairs * (d + width),
+                           sum(t.nbytes for t in (q, k, v, o)))
+    else:
+        entry = (_WIDE_ENTRY if wide else _ENTRY)[q.dtype]
+        fn = getattr(runtime.load_library(), entry)
+        dims = (b, s, h, kh, d, width) if wide else (b, s, h, kh, d)
+        with torch.cuda.device(q.device):
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      *dims, int(bool(causal)), int(window), float(scale),
+                      torch.cuda.current_stream().cuda_stream)
+        runtime.check(code, entry)
+        global LAUNCHES, WIDE_LAUNCHES
+        LAUNCHES += 1
+        WIDE_LAUNCHES += int(wide)
     return o if width == dv else o[..., :dv].contiguous()

@@ -32,6 +32,15 @@ the port's kernels have no backward kernel either.  ``plain_vjp`` is the
 backward their ``torch.autograd.Function`` routes share: it recomputes the
 kernel's plain version from the saved inputs and differentiates that, the
 reference's ``remat="full"`` in kernel form.
+
+**Shape-only calls.**  A host-side trace of the card's step
+(``launch.dryrun``) runs the model on ``FakeTensor``s, which hold no
+memory.  ``is_fake`` tells a wrapper so; the wrapper then makes its checks,
+allocates its outputs and calls ``shape_only`` with the kernel's name,
+operations and bytes in place of the launch; ``shape_only`` hands them
+to every callable in ``SHAPE_ONLY_HOOKS`` (the tracer's).  No library is
+loaded and no launch counter moves.  A fake operand may lie on the meta
+device in place of a card's (``require_card``).
 """
 
 from __future__ import annotations
@@ -48,15 +57,19 @@ import torch
 
 __all__ = [
     "ENV_VAR",
+    "SHAPE_ONLY_HOOKS",
     "check",
     "default_device",
+    "is_fake",
     "plain_vjp",
     "load_library",
     "platform_default_hint",
     "require_device",
+    "require_card",
     "require_local",
     "resolve_device",
     "seed_platform_default",
+    "shape_only",
 ]
 
 ENV_VAR = "REPRO_TORCH_DEVICE"
@@ -89,6 +102,8 @@ _SIGNATURES = {
     "flash_attention_wide_bf16": [_P] * 4 + [_I] * 8 + [_F, _P],
 }
 _LIB = None
+# callables (name, operations, bytes) that ``shape_only`` notifies
+SHAPE_ONLY_HOOKS: list = []
 
 
 def seed_platform_default(device: Optional[str]) -> None:
@@ -158,6 +173,33 @@ def plain_vjp(plain_fn, inputs, needs_grad, grad_out, label: str):
         wanted = [t for t in ins if t.requires_grad]
         got = iter(torch.autograd.grad(out, wanted, grad_out))
     return tuple(next(got) if need else None for need in needs_grad)
+
+
+def is_fake(*tensors) -> bool:
+    """Whether every one of ``tensors`` is a ``FakeTensor`` (shapes,
+    dtypes and a device, no memory)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return all(isinstance(t, FakeTensor) for t in tensors)
+
+
+def require_card(name: str, device: torch.device, fake: bool) -> None:
+    """Raise unless a kernel's operands lie on ``device`` where it runs: a
+    CUDA device, or, for fake operands, the meta device, which a host
+    trace without the card uses in its place.
+
+    Raises:
+        ValueError: another device.
+    """
+    if device.type != "cuda" and not (fake and device.type == "meta"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {device}")
+
+
+def shape_only(name: str, ops: float, nbytes: float) -> None:
+    """Report a kernel call that a wrapper made on fake tensors (in place
+    of the launch) to each of ``SHAPE_ONLY_HOOKS``."""
+    for hook in tuple(SHAPE_ONLY_HOOKS):
+        hook(name, ops, nbytes)
 
 
 def check(code: int, what: str) -> None:

@@ -12,7 +12,11 @@ tensor cores in TF32 at f32 accuracy (three products each; the source's
 note).
 ``ssd`` takes the model layer's conventions (``A_log``, ``D``) and
 precomputes ``-exp(A_log)`` as the reference's wrapper does.  ``LAUNCHES``
-counts the kernel's calls (each the prologue and the scan).
+counts the kernel's calls (each the prologue and the scan).  On
+``FakeTensor`` operands (``launch.dryrun``'s trace) ``_launch`` makes every
+check, allocates the output and reports the call to
+``runtime.shape_only`` in place of the launch, without the library or the
+counter.
 
 **Gradients.**  On CUDA tensors of which one requires grad (with grad
 enabled), ``ssd_scan`` runs through ``_SsdScan``, a
@@ -32,7 +36,7 @@ import torch
 from .. import runtime
 from .ref import ssd_scan_plain
 
-__all__ = ["LAUNCHES", "smem_bytes", "ssd", "ssd_scan"]
+__all__ = ["LAUNCHES", "smem_bytes", "ssd", "ssd_flops", "ssd_scan"]
 
 # Kernel calls issued by ``ssd_scan`` on CUDA tensors, one a call (the
 # prologue and the scan; a plain counter: callers zero it and read it back
@@ -134,8 +138,8 @@ class _SsdScan(torch.autograd.Function):
 
 def _launch(x, dt, a_neg, b, c, d, chunk):
     """Check the operands and launch the kernel on CUDA tensors."""
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cpu or cuda tensors, got {x.device}")
+    fake = runtime.is_fake(x, dt, a_neg, b, c, d)
+    runtime.require_card("ssd_scan", x.device, fake)
     bsz, t, h, p = x.shape
     n = b.shape[-1]
     if t % chunk:
@@ -158,6 +162,10 @@ def _launch(x, dt, a_neg, b, c, d, chunk):
     _check("c", c, x.dtype, (bsz, t, n), x.device)
     _check("d", d, torch.float32, (h,), x.device)
     y = torch.empty_like(x)
+    if fake:
+        runtime.shape_only("ssd", ssd_flops(bsz, t, h, p, n, chunk),
+                           sum(u.nbytes for u in (x, dt, a_neg, b, c, d, y)))
+        return y
     fn = getattr(runtime.load_library(), _ENTRY[x.dtype])
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(), b.data_ptr(),
@@ -167,6 +175,15 @@ def _launch(x, dt, a_neg, b, c, d, chunk):
     global LAUNCHES
     LAUNCHES += 1
     return y
+
+
+def ssd_flops(bsz: int, t: int, h: int, p: int, n: int, chunk: int) -> float:
+    """Operations of one chunked scan: C B^T once per (batch, chunk),
+    shared by the heads; per (batch, head, chunk) the intra-chunk scores
+    over the lower triangle, C h^T and the state update."""
+    nc = t // chunk
+    per_head = chunk * (chunk + 1) * p + 4.0 * chunk * p * n
+    return 2.0 * chunk * chunk * n * bsz * nc + per_head * bsz * h * nc
 
 
 def ssd(x, dt, a_log, b, c, d, *, chunk: int = 64) -> torch.Tensor:

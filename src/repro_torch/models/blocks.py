@@ -41,7 +41,7 @@ import math
 
 import torch
 
-from ..distributed.sharding import is_dtensor
+from ..distributed.sharding import is_dtensor, shard_span
 from . import layers as L
 from .layers import NULL_CTX, ShardCtx
 
@@ -88,14 +88,13 @@ def _head_mask(cfg, dtype, device):
 
 
 def _project_qkv(p, x, cfg, positions):
-    b, s, _ = x.shape
     h, kh, dh = cfg.num_heads_padded, cfg.num_kv_heads, cfg.head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, kh, dh)
-    v = v.reshape(b, s, kh, dh)
+    q = L.split_heads(q, h, dh)
+    k = L.split_heads(k, kh, dh)
+    v = L.split_heads(v, kh, dh)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -166,16 +165,12 @@ def _write_seq(dst, src, at: int) -> None:
         dst[:, at:at + s] = src
         return
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
 
     mesh = dst.device_mesh
     want = tuple(pl if pl == Shard(0) else Replicate()
                  for pl in dst.placements)
     src_l = src.redistribute(mesh, want).to_local()
-    shape, off = compute_local_shape_and_global_offset(dst.shape, mesh,
-                                                       dst.placements)
-    lo, hi = off[1], off[1] + shape[1]
+    lo, hi = shard_span(dst, 1)
     a, b = max(lo, at), min(hi, at + s)
     if a < b:
         dst.to_local()[:, a - lo:b - lo] = src_l[:, a - at:b - at]
@@ -266,9 +261,8 @@ def mla_init(gen: torch.Generator, cfg, dtype):
 def _mla_qkv(p, x, cfg, positions):
     """(q_nope (B,S,H,nope), q_rope (B,S,H,rope), the normed latent ckv
     (B,S,lora), k_rope (B,S,rope)), rope applied."""
-    b, s, _ = x.shape
     nope, rope, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, nope + rope)
+    q = L.split_heads(x @ p["wq"], cfg.num_heads, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
     kv_a = x @ p["wkv_a"]  # (B, S, lora + rope)
@@ -290,7 +284,7 @@ def _mla_attend(p, x, cfg, q_chunk, plain, ctx: ShardCtx = NULL_CTX,
     q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, cfg, positions)
     if hints:
         q_nope = ctx.constrain(q_nope, ctx.dp, None, ctx.tp_axis, None)
-    kv = (ckv @ p["wkv_b"]).reshape(b, s, h, nope + vdim)
+    kv = L.split_heads(ckv @ p["wkv_b"], h, nope + vdim)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, cfg.qk_rope_dim)], dim=-1)

@@ -48,13 +48,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import Spec, is_dtensor, mesh_map, placements
+from ..distributed.sharding import (Spec, is_dtensor, mesh_map, placements,
+                                    shard_span)
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_plain
 from ..kernels.ssd.ops import ssd
@@ -62,11 +64,11 @@ from ..kernels.ssd.ref import ssd_scan_plain
 
 __all__ = ["NULL_CTX", "Routing", "RoutingLog", "ShardCtx", "apply_rope",
            "attention", "causal_conv1d", "decode_attention", "dense_init",
-           "embed_init", "mamba_apply",
+           "embed_init", "grad_as_forward", "mamba_apply",
            "mamba_decode_step", "mamba_init", "mesh_scope", "mlp_apply",
            "mlp_init", "moe_apply", "moe_capacity", "moe_init", "moe_local",
            "recording", "rms_norm", "rope_freqs", "routing_flips",
-           "same_routing", "seq_sharded_attention"]
+           "same_routing", "seq_sharded_attention", "split_heads"]
 
 
 # ----------------------------------------------------------------- shard hooks
@@ -169,6 +171,26 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype):
     w = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (w * 0.02).to(dtype)
+
+
+def split_heads(t, n: int, dh: int):
+    """(..., n * dh) as (..., n, dh).  On a mesh whose shards of the last
+    dim would cut a head (qwen3-14b's 8 KV heads or mamba2-130m's 24 SSD
+    heads over a 16-wide "model" axis), that dim is gathered first:
+    DTensor cannot split a sharded dim unevenly, where the reference's
+    GSPMD regathers it."""
+    if is_dtensor(t):
+        last = t.ndim - 1
+        cuts = math.prod(t.device_mesh.size(i)
+                         for i, pl in enumerate(t.placements)
+                         if pl.is_shard(last))
+        if n % cuts:
+            from torch.distributed.tensor import Replicate
+
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if pl.is_shard(last) else pl
+                for pl in t.placements])
+    return t.reshape(*t.shape[:-1], n, dh)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
@@ -325,19 +347,17 @@ def seq_sharded_attention(qs, caches, pos: int, window: int, scores,
     runs under ``no_grad``."""
     from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
 
     cache = caches[0]
     mesh, pl = cache.device_mesh, tuple(cache.placements)
     seq_dims = [i for i, x in enumerate(pl) if x == Shard(1)]
     q_pl = tuple(Shard(0) if x == Shard(0) else Replicate() for x in pl)
-    shape, off = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    lo, hi = shard_span(cache, 1)
 
     def body(*local):
         ql, cl = local[:len(qs)], local[len(qs):]
         s = scores(ql, cl)
-        kpos = off[1] + torch.arange(shape[1], device=s.device)
+        kpos = torch.arange(lo, hi, device=s.device)
         valid = kpos < pos
         if window > 0:
             valid &= kpos >= pos - window
@@ -367,7 +387,8 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, dtype):
 def mlp_apply(p, x, ctx: ShardCtx = NULL_CTX):
     """Gated MLP: ``(silu(x gate) * (x up)) down``.  On a mesh the hidden
     is pinned to (dp, None, tp), as the reference pins it."""
-    h = F.silu(x @ p["gate"]) * (x @ p["up"])
+    h = F.silu(grad_as_forward(x @ p["gate"])) * grad_as_forward(
+        x @ p["up"])
     if ctx.mesh is not None and h.ndim == 3:
         h = ctx.constrain(h, ctx.dp, None, ctx.tp_axis)
     return h @ p["down"]
@@ -756,15 +777,48 @@ def causal_conv1d(x, w, b):
     return (out + b.float()).to(x.dtype)
 
 
+class _GradAsForward(torch.autograd.Function):
+    """The identity, whose backward hands the gradient on in the forward
+    value's placements (a DTensor's; a partial one's replicated)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        from torch.distributed.tensor import Replicate
+
+        # a partial value's gradient is replicated, as DTensor's own
+        # backward hands it on
+        ctx.where = (t.device_mesh, tuple(
+            Replicate() if pl.is_partial() else pl for pl in t.placements))
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, pl = ctx.where
+        if all(a == b or mesh.size(i) == 1
+               for i, (a, b) in enumerate(zip(g.placements, pl))):
+            return g  # no layout a mesh dim of one rank could tell apart
+        return g.redistribute(mesh, pl)
+
+
+def grad_as_forward(t):
+    """``t``, its gradient taken to ``t``'s own placements on the way back
+    (on a mesh).  A product's output gradient may arrive sharded over the
+    sequence (the residual's sequence-parallel layout), which DTensor
+    flattens into a strided shard its matrix product cannot take; pinned
+    here, the product's backward sees the forward's layout, where the
+    reference's GSPMD gathers it."""
+    return _GradAsForward.apply(t) if is_dtensor(t) else t
+
+
 def _project(p, x, cfg):
     """(z, xin, b_in, c_in, dt) of the mixer's input projection, from the
     fused ``in_proj`` or the split projections."""
     if "wz" in p:
-        return (x @ p["wz"], x @ p["wx"], x @ p["wb"], x @ p["wc"],
-                x @ p["wdt"])
+        return tuple(grad_as_forward(x @ p[k])
+                     for k in ("wz", "wx", "wb", "wc", "wdt"))
     di, n = cfg.d_inner, cfg.ssm_state
-    return torch.split(x @ p["in_proj"], [di, di, n, n, cfg.ssm_heads],
-                       dim=-1)
+    return torch.split(grad_as_forward(x @ p["in_proj"]),
+                       [di, di, n, n, cfg.ssm_heads], dim=-1)
 
 
 def _conv_weights(p):
@@ -781,8 +835,9 @@ def mamba_apply(p, x, cfg, *, plain: bool = False,
     """Full-sequence Mamba2 mixer.  x: (B,T,D) -> (B,T,D).
 
     The split layout convolves x and (B, C) apart (each channel is its
-    own), so x's channels stay sharded over ``"model"``; on a mesh the SSD
-    runs through ``local_map`` on each rank's heads.
+    own), so x's channels stay sharded over ``"model"``; on a mesh the
+    conv runs through ``local_map`` on each rank's batch (and channels),
+    the SSD on each rank's heads.
 
     Raises:
         ValueError: ``T % cfg.ssm_chunk != 0`` (the SSD scan's chunking).
@@ -790,26 +845,48 @@ def mamba_apply(p, x, cfg, *, plain: bool = False,
     bsz, t, _ = x.shape
     di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     z, xin, b_in, c_in, dt = _project(p, x, cfg)
+    conv = causal_conv1d if ctx.mesh is None else functools.partial(
+        _conv_on_mesh, ctx=ctx)
     if "wz" in p:
-        xin = causal_conv1d(xin, p["conv_wx"], p["conv_bx"])
-        bc = causal_conv1d(torch.cat([b_in, c_in], dim=-1), p["conv_wbc"],
-                           p["conv_bbc"])
+        xin = conv(xin, p["conv_wx"], p["conv_bx"])
+        bc = conv(torch.cat([b_in, c_in], dim=-1), p["conv_wbc"],
+                  p["conv_bbc"])
         b_in, c_in = torch.split(bc, [n, n], dim=-1)
     else:
-        xbc = causal_conv1d(torch.cat([xin, b_in, c_in], dim=-1),
-                            p["conv_w"], p["conv_b"])
+        xbc = conv(torch.cat([xin, b_in, c_in], dim=-1), p["conv_w"],
+                   p["conv_b"])
         xin, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
     xin = F.silu(xin)
     b_in, c_in = F.silu(b_in), F.silu(c_in)
     dt = F.softplus(dt.float() + p["dt_bias"])
-    xh = xin.reshape(bsz, t, h, hp)
+    xh = split_heads(xin, h, hp)
     args = (xh, dt, p["A_log"], b_in, c_in, p["D"])
     if ctx.mesh is not None:
         y = _ssd_on_mesh(args, cfg, ctx, plain)
     else:
         y = _ssd(*args, cfg.ssm_chunk, plain)
-    y = rms_norm(y.reshape(bsz, t, di) * F.silu(z), p["norm"])
+    y = rms_norm(grad_as_forward(y.reshape(bsz, t, di)) * F.silu(z),
+                 p["norm"])
     return y @ p["out_proj"]
+
+
+def _conv_on_mesh(x, w, b, *, ctx: ShardCtx):
+    """``causal_conv1d`` through ``local_map``: batch over the DP axes (when
+    it divides), the channels over ``"model"`` where the weight shards them
+    (the split layout's x), the weight's gradient partial over the DP axes.
+    The card's torch 2.11 cannot plan DTensor's own padding of the
+    production mesh's sequence."""
+    tp = ctx.tp_axis
+    bax = ctx.batch_axes(x.shape[0])
+    tp_ch = any(pl.is_shard(1) for pl in w.placements)
+    x_pl = ctx.mesh_placements({bax: 0, **({tp: 2} if tp_ch else {})})
+    w_dims, b_dims = ({tp: 1}, {tp: 0}) if tp_ch else ({}, {})
+    part = ctx.dp_axes if bax else ()
+    return mesh_map(
+        ctx.mesh, causal_conv1d, (x, w, b),
+        (x_pl, ctx.mesh_placements(w_dims), ctx.mesh_placements(b_dims)),
+        (x_pl,), (x_pl, ctx.mesh_placements(w_dims, partial=part),
+                  ctx.mesh_placements(b_dims, partial=part)))
 
 
 def _ssd(xh, dt, a_log, b_in, c_in, d_skip, chunk: int, plain: bool):

@@ -249,6 +249,16 @@ def _unstack(tree, count: int):
     if isinstance(tree, dict):
         per = {k: _unstack(v, count) for k, v in tree.items()}
         return [{k: per[k][i] for k in tree} for i in range(count)]
+    if is_dtensor(tree) and any(
+            p.is_shard(0) and tree.device_mesh.size(i) > 1
+            for i, p in enumerate(tree.placements)):
+        # DTensor splits no sharded dim: the hybrid's shared blocks, whose
+        # leading dim (not a layer dim) the FSDP rule may shard, are
+        # gathered on it first, as GSPMD gathers them in the reference
+        from torch.distributed.tensor import Replicate
+
+        tree = tree.redistribute(tree.device_mesh, [
+            Replicate() if p.is_shard(0) else p for p in tree.placements])
     return torch.unbind(tree, 0)
 
 

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and no line of
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``, and
+"""The port stands alone: no module of ``src/repro_torch``, no line of
+``chip_smoke.py`` and no port example (``examples/port_*.py``) imports
+``jax`` or the reference package ``repro``, and
 every port module imports with both made unimportable (a machine with a
 card has no JAX)."""
 
@@ -17,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("port_*.py")))
 
 
 def modules():
