@@ -1,0 +1,65 @@
+"""Fixtures of portbench's CPU tests: cells at a tiny size (the port's own
+reduced widths) that the harness runs on the CPU, where the port takes its
+kernels' plain versions."""
+
+import json
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+if str(ROOT / "src") not in sys.path:  # the port, as run.py finds it
+    sys.path.insert(0, str(ROOT / "src"))
+
+from portbench import harness  # noqa: E402
+
+# the port's ``ArchConfig.reduced`` widths, under the published names
+TINY = dict(hidden_size=128, num_hidden_layers=4, num_attention_heads=4,
+            num_key_value_heads=4, intermediate_size=256, vocab_size=512,
+            n_routed_experts=8, num_experts_per_tok=2,
+            moe_intermediate_size=64, n_shared_experts=1)
+TINY_MLA = dict(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                v_head_dim=16)
+
+
+def tiny_config(name: str) -> dict:
+    c = json.loads((ROOT / "portbench" / "configs" / f"{name}.json")
+                   .read_text())
+    c.update(TINY)
+    if c.get("kv_lora_rank"):
+        c.update(TINY_MLA)
+    return c
+
+
+def tiny_spec(cell: str) -> harness.Spec:
+    """Cell ``cell`` of BENCHMARK.json at the tiny size: its traffic with
+    short prompts, its limits and metrics unchanged."""
+    spec = harness.load_spec(cell, ROOT)
+    spec.config = tiny_config(spec.cell["config"])
+    spec.mix = dict(spec.mix, prompt_lengths=(
+        [16, 32, 48, 64] if spec.mix["batch"] == 1 else [32]))
+    if spec.mix["dashboard"]:  # a unit a record, windows of 7 units: the
+        # first request's 7 decode records make a window due
+        spec.mix["dashboard"] = dict(spec.mix["dashboard"], record_unit=1,
+                                     window=7, stride=7)
+    return spec
+
+
+@pytest.fixture
+def tiny():
+    return tiny_spec
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """These tests' CPU work in one thread, so the suite's other workers
+    keep their cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
