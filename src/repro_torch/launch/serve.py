@@ -28,6 +28,13 @@ the retained windows come back through ``collect``.  ``tune=True``
 tick's measured duration as the objective, strictly between ticks, and
 its report lands on ``ServeResult.tuner``.
 
+A tracer (``tracer=``, or ``--trace PATH``) records the dashboard's spans
+and, through ``obs.trace.tracing``, the model's own (``model.prefill``,
+``model.decode_step`` and the layers' spans inside them), into the Chrome
+trace and the ledger.  ``tokens_per_s`` counts the whole wall from the
+prompt batch to the last token, the dashboard's ticks inside it;
+``vet_s`` says how much of it the dashboard took.
+
 Usage: ``python -m repro_torch.launch.serve --arch mamba2-130m``, or any
 decoder config: ``--arch h2o-danube-3-4b``, ``--arch deepseek-moe-16b``,
 ``--arch zamba2-7b`` (the hybrid), ``--arch deepseek-v2-lite-16b`` (MLA)
@@ -54,7 +61,7 @@ from ..fleet.knobs import mux_knob_hooks
 from ..kernels.runtime import require_device, resolve_device
 from ..models import decode_step, init_cache, init_params, prefill
 from ..obs import LedgerReport, Tracer, format_ledger, ledger_from, write_chrome
-from ..obs.trace import timed as _timed
+from ..obs.trace import timed as _timed, tracing
 from ..profiling import RecordProfiler
 from ..sched.tuner import VetTuner
 
@@ -70,6 +77,8 @@ class ServeResult:
     vet: Optional[float]
     ei: Optional[float]
     pr: Optional[float]
+    # batch * gen_len over the wall from the prompt batch to the last
+    # token: prefill, decode and the dashboard's ticks inside the loop.
     tokens_per_s: float
     # Windowed per-worker snapshots (newest <= _SNAPSHOT_HISTORY windows)
     # from the stream ticked during decode (None when the run produced
@@ -90,6 +99,9 @@ class ServeResult:
     init_s: float = 0.0
     # The online tuner's report (``VetTuner.report()``; None unless tuned).
     tuner: Optional[dict] = None
+    # Seconds of the dashboard's feeds and ticks inside the decode loop
+    # (its ``serve.vet`` spans), part of ``tokens_per_s``'s wall.
+    vet_s: float = 0.0
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -196,7 +208,8 @@ def serve(
     init_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    logits, cache = prefill(cfg, params, cache, {"tokens": prompts})
+    with tracing(tracer):
+        logits, cache = prefill(cfg, params, cache, {"tokens": prompts})
     tok = torch.argmax(logits, dim=-1)[:, None]
     _sync(tok)
     prefill_s = time.perf_counter() - t0
@@ -222,7 +235,7 @@ def serve(
                               history=_SNAPSHOT_HISTORY)
         fed_units = 0
         flags = []  # regime-shift flags raised live during decode
-        vet_s = 0.0  # estimation overhead, excluded from the throughput wall
+        vet_s = 0.0  # the dashboard's share of the throughput wall
         # The mux's tick_budget knob driven by the online tuner, each
         # estimation tick's measured duration the (noisy) objective sample.
         tuner = (VetTuner(mux_knob_hooks(mux), seed=seed, noise_band=0.5,
@@ -238,7 +251,7 @@ def serve(
 
         out = [tok]
         for i in range(gen_len - 1):
-            with prof.record():
+            with prof.record(), tracing(tracer):
                 logits, cache = decode_step(cfg, params, cache, tok,
                                             prompt_len + i)
                 tok = torch.argmax(logits, dim=-1)[:, None]
@@ -255,7 +268,7 @@ def serve(
                 if tuner is not None:
                     # Knob write-back happens here, strictly between ticks.
                     tuner.step(sw.dur)
-        wall = time.perf_counter() - t0 - vet_s
+        wall = time.perf_counter() - t0
         gen = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
 
         vet = ei = pr = None
@@ -297,7 +310,8 @@ def serve(
     tps = batch * gen_len / wall
     if verbose:
         print(f"[serve] {batch}x{gen_len} tokens in {wall:.2f}s = {tps:.1f} "
-              f"tok/s (prefill {prefill_s * 1e3:.1f} ms on {device})")
+              f"tok/s (prefill {prefill_s * 1e3:.1f} ms, dashboard "
+              f"{vet_s * 1e3:.1f} ms on {device})")
     tuner_report = None
     if tuner is not None:
         tuner_report = tuner.report()
@@ -322,7 +336,7 @@ def serve(
     return ServeResult(tokens=gen, vet=vet, ei=ei, pr=pr, tokens_per_s=tps,
                        windows=windows, flags=tuple(flags), ledger=ledger,
                        prefill_s=prefill_s, mux=mux_stats, unit_times=times,
-                       init_s=init_s, tuner=tuner_report)
+                       init_s=init_s, tuner=tuner_report, vet_s=vet_s)
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -42,6 +42,7 @@ import math
 import torch
 
 from ..distributed.sharding import is_dtensor, shard_span
+from ..obs.trace import region
 from . import layers as L
 from .layers import NULL_CTX, ShardCtx
 
@@ -193,12 +194,13 @@ def attn_prefill(p, x, cfg, cache, ctx: ShardCtx = NULL_CTX, *,
                  q_chunk: int = 1024, plain: bool = False):
     """Full attention over the prompt, writing K/V of positions [0, S) into
     ``cache`` in place.  Returns (out (B,S,D), cache)."""
-    if cfg.attention == "mla":
-        return mla_prefill(p, x, cfg, cache, ctx, q_chunk=q_chunk,
-                           plain=plain)
-    out, k, v = _attend(p, x, cfg, q_chunk, plain, ctx)
-    _write_kv(cache, k, v, 0)
-    return out, cache
+    with region("model.attn"):
+        if cfg.attention == "mla":
+            return mla_prefill(p, x, cfg, cache, ctx, q_chunk=q_chunk,
+                               plain=plain)
+        out, k, v = _attend(p, x, cfg, q_chunk, plain, ctx)
+        _write_kv(cache, k, v, 0)
+        return out, cache
 
 
 def attn_decode(p, x, cfg, cache, pos: int):
@@ -206,8 +208,13 @@ def attn_decode(p, x, cfg, cache, pos: int):
     (int8 with ``k_scale``/``v_scale`` (B,S_max,KH) beside them); ``pos``
     is the index of the current token, whose K/V are written into
     ``cache`` in place.  Returns (out (B,1,D), cache)."""
-    if cfg.attention == "mla":
-        return mla_decode(p, x, cfg, cache, pos)
+    with region("model.attn"):
+        if cfg.attention == "mla":
+            return mla_decode(p, x, cfg, cache, pos)
+        return _gqa_decode(p, x, cfg, cache, pos)
+
+
+def _gqa_decode(p, x, cfg, cache, pos: int):
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
@@ -434,15 +441,18 @@ def mamba_block_init(gen: torch.Generator, cfg, dtype):
 
 def mamba_block_apply(p, x, cfg, ctx: ShardCtx = NULL_CTX, *,
                       plain: bool = False):
-    x = _gathered(x, ctx)
-    return x + L.mamba_apply(p["mixer"], L.rms_norm(x, p["ln"], cfg.norm_eps),
-                             cfg, plain=plain, ctx=ctx)
+    with region("model.ssm"):
+        x = _gathered(x, ctx)
+        return x + L.mamba_apply(p["mixer"],
+                                 L.rms_norm(x, p["ln"], cfg.norm_eps), cfg,
+                                 plain=plain, ctx=ctx)
 
 
 def mamba_block_decode(p, x, cfg, state):
-    y, new_state = L.mamba_decode_step(
-        p["mixer"], L.rms_norm(x, p["ln"], cfg.norm_eps), cfg, state)
-    return x + y, new_state
+    with region("model.ssm"):
+        y, new_state = L.mamba_decode_step(
+            p["mixer"], L.rms_norm(x, p["ln"], cfg.norm_eps), cfg, state)
+        return x + y, new_state
 
 
 def mamba_state_shape(cfg, batch: int, dtype, device=None):

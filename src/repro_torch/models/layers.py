@@ -61,6 +61,7 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_plain
 from ..kernels.ssd.ops import ssd
 from ..kernels.ssd.ref import ssd_scan_plain
+from ..obs.trace import region
 
 __all__ = ["NULL_CTX", "Routing", "RoutingLog", "ShardCtx", "apply_rope",
            "attention", "causal_conv1d", "decode_attention", "dense_init",
@@ -384,14 +385,16 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, dtype):
             "down": dense_init(gen, ff, (d,), dtype)}
 
 
-def mlp_apply(p, x, ctx: ShardCtx = NULL_CTX):
+def mlp_apply(p, x, ctx: ShardCtx = NULL_CTX, *, shared: int = 0):
     """Gated MLP: ``(silu(x gate) * (x up)) down``.  On a mesh the hidden
-    is pinned to (dp, None, tp), as the reference pins it."""
-    h = F.silu(grad_as_forward(x @ p["gate"])) * grad_as_forward(
-        x @ p["up"])
-    if ctx.mesh is not None and h.ndim == 3:
-        h = ctx.constrain(h, ctx.dp, None, ctx.tp_axis)
-    return h @ p["down"]
+    is pinned to (dp, None, tp), as the reference pins it.  ``shared`` (1
+    for an MoE layer's shared experts) labels its ``model.ffn`` span."""
+    with region("model.ffn", shared=shared):
+        h = F.silu(grad_as_forward(x @ p["gate"])) * grad_as_forward(
+            x @ p["up"])
+        if ctx.mesh is not None and h.ndim == 3:
+            h = ctx.constrain(h, ctx.dp, None, ctx.tp_axis)
+        return h @ p["down"]
 
 
 # ------------------------------------------------------------------------ MoE
@@ -625,28 +628,33 @@ def _moe_local(p, x2d, *, top_k: int, capacity: int, first: int):
     e = p["router"].shape[1]
     e_loc = p["wg"].shape[0]
     log = ROUTING
-    forced = None if log is None else log.forced()
-    probs = torch.softmax(x2d.float() @ p["router"], dim=-1)
-    top_vals, top_idx = _top(probs, top_k,
-                             None if forced is None else forced.top_idx)
-    top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
-    combine = torch.zeros((t, e), dtype=torch.float32,
-                          device=x2d.device).scatter(1, top_idx, top_vals)
-    vals, idx = _top(combine.T[first:first + e_loc], capacity,
-                     None if forced is None else forced.expert_idx)
-    xs = x2d[idx]  # (E_loc, C, D)
-    h = F.silu(torch.bmm(xs, p["wg"])) * torch.bmm(xs, p["wu"])
-    ys = torch.bmm(h, p["wd"]).float() * vals[..., None]
-    slot = _slots(idx, top_idx, t, first)
-    flat = ys.reshape(-1, d)
-    out = torch.zeros((t, d), dtype=torch.float32, device=x2d.device)
-    for j in range(top_k):
-        s = slot[:, j]
-        out = out + torch.where((s >= 0)[:, None], flat[s.clamp(min=0)], 0.0)
-    if log is not None:
-        log.calls.append(Routing(probs.detach(), top_idx, combine.detach(),
-                                 idx, slot))
-    return (out.to(x2d.dtype), torch.mean((combine > 0).float(), dim=0),
+    with region("model.moe.route", tokens=t, capacity=capacity):
+        forced = None if log is None else log.forced()
+        probs = torch.softmax(x2d.float() @ p["router"], dim=-1)
+        top_vals, top_idx = _top(probs, top_k,
+                                 None if forced is None else forced.top_idx)
+        top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
+        combine = torch.zeros((t, e), dtype=torch.float32,
+                              device=x2d.device).scatter(1, top_idx, top_vals)
+        vals, idx = _top(combine.T[first:first + e_loc], capacity,
+                         None if forced is None else forced.expert_idx)
+        slot = _slots(idx, top_idx, t, first)
+        if log is not None:
+            log.calls.append(Routing(probs.detach(), top_idx,
+                                     combine.detach(), idx, slot))
+    with region("model.moe.experts"):
+        xs = x2d[idx]  # (E_loc, C, D)
+        h = F.silu(torch.bmm(xs, p["wg"])) * torch.bmm(xs, p["wu"])
+        ys = torch.bmm(h, p["wd"]).float() * vals[..., None]
+    with region("model.moe.combine"):
+        flat = ys.reshape(-1, d)
+        out = torch.zeros((t, d), dtype=torch.float32, device=x2d.device)
+        for j in range(top_k):
+            s = slot[:, j]
+            out = out + torch.where((s >= 0)[:, None], flat[s.clamp(min=0)],
+                                    0.0)
+        out = out.to(x2d.dtype)
+    return (out, torch.mean((combine > 0).float(), dim=0),
             torch.mean(probs, dim=0))
 
 
@@ -675,7 +683,7 @@ def moe_apply(p, x, cfg, ctx: ShardCtx = NULL_CTX):
                        capacity=moe_capacity(cfg, b * s))
     y = y.reshape(x.shape)
     if cfg.n_shared_experts:
-        y = y + mlp_apply(p["shared"], x)
+        y = y + mlp_apply(p["shared"], x, shared=1)
     return y, aux
 
 
@@ -718,7 +726,7 @@ def _moe_on_mesh(p, x, cfg, ctx: ShardCtx):
                         * frac_probs.redistribute(ctx.mesh,
                                                   ctx.mesh_placements()))
     if cfg.n_shared_experts:
-        y = y + mlp_apply(p["shared"], x, ctx)
+        y = y + mlp_apply(p["shared"], x, ctx, shared=1)
     return y, aux
 
 

@@ -41,6 +41,12 @@ from a zero state); a prompt whose length is not a multiple
 of ``cfg.ssm_chunk`` is refused by the SSD scan, and an attention prompt
 longer than ``q_chunk`` that is not a multiple of it by the attention.
 
+**Spans.**  Under ``obs.trace.tracing(tracer)`` a step records
+``model.prefill`` or ``model.decode_step``, a ``model.layer`` per layer
+and ``model.head``, with the blocks' and layers' spans inside
+(``model.attn``, ``model.moe.*``, ``model.ffn``, ``model.ssm``); with no
+tracer set each is the shared no-op.
+
 **The cache is written in place, for every family.**  ``prefill`` and
 ``decode_step`` write into the cache tensors they are given (attention K/V
 at the positions they fill, Mamba states at every decode step) and hand
@@ -58,6 +64,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..distributed.sharding import is_dtensor, mesh_map
+from ..obs.trace import region
 from . import blocks as B
 from . import layers as L
 from .layers import NULL_CTX, ShardCtx, mesh_scope
@@ -216,7 +223,9 @@ def _logits(cfg, params, x, ctx: ShardCtx = NULL_CTX):
 
 
 def _head(cfg, params, x):
-    return _mask_pad_logits(cfg, _logits(cfg, params, x))
+    """Final norm, head and the padded tail masked (``model.head``)."""
+    with region("model.head"):
+        return _mask_pad_logits(cfg, _logits(cfg, params, x))
 
 
 # Plain matrix products without batch dims: what ``remat="dots"`` keeps.
@@ -413,27 +422,36 @@ def prefill(cfg, params: Params, cache, batch, ctx: ShardCtx = NULL_CTX, *,
         return _prefill(cfg, params, cache, batch, ctx, q_chunk, plain)
 
 
-def _prefill(cfg, params, cache, batch, ctx, q_chunk, plain):
-    x = embed_inputs(cfg, params, batch)
-    x = ctx.constrain(x, ctx.dp, None, None)
+def _layers(cfg):
+    """Every layer of the model in order: (segment index, kind, index in
+    the segment)."""
     for i, (kind, count) in enumerate(segments_of(cfg)):
-        stacked = params[f"seg{i}"]
         for li in range(count):
-            lp = _layer(stacked, li)
-            x = ctx.constrain(x, ctx.dp, None, None)
-            if kind in ("dense", "moe"):
-                x, _ = B.block_prefill(lp, x, cfg,
-                                       _layer(cache[f"seg{i}"], li), ctx,
-                                       q_chunk=q_chunk, plain=plain)
-                continue
-            at = _shared_at(cfg, li) if kind == "zamba" else None
-            if at is not None:
-                x, _ = B.block_prefill(
-                    _layer(params["shared_attn"], at[1]), x, cfg,
-                    _layer(cache["shared_attn"], at[0]), ctx,
-                    q_chunk=q_chunk, plain=plain)
-            x = B.mamba_block_apply(lp, x, cfg, ctx, plain=plain)
-    return _head(cfg, params, x[:, -1:])[:, 0], dict(cache)
+            yield i, kind, li
+
+
+def _prefill(cfg, params, cache, batch, ctx, q_chunk, plain):
+    with region("model.prefill") as sp:
+        x = embed_inputs(cfg, params, batch)
+        sp.set(batch=x.shape[0], tokens=x.shape[1])
+        x = ctx.constrain(x, ctx.dp, None, None)
+        for layer, (i, kind, li) in enumerate(_layers(cfg)):
+            lp = _layer(params[f"seg{i}"], li)
+            with region("model.layer", layer=layer, kind=kind):
+                x = ctx.constrain(x, ctx.dp, None, None)
+                if kind in ("dense", "moe"):
+                    x, _ = B.block_prefill(lp, x, cfg,
+                                           _layer(cache[f"seg{i}"], li), ctx,
+                                           q_chunk=q_chunk, plain=plain)
+                    continue
+                at = _shared_at(cfg, li) if kind == "zamba" else None
+                if at is not None:
+                    x, _ = B.block_prefill(
+                        _layer(params["shared_attn"], at[1]), x, cfg,
+                        _layer(cache["shared_attn"], at[0]), ctx,
+                        q_chunk=q_chunk, plain=plain)
+                x = B.mamba_block_apply(lp, x, cfg, ctx, plain=plain)
+        return _head(cfg, params, x[:, -1:])[:, 0], dict(cache)
 
 
 def decode_step(cfg, params: Params, cache, tokens, pos: int,
@@ -451,22 +469,24 @@ def decode_step(cfg, params: Params, cache, tokens, pos: int,
 
 
 def _decode_step(cfg, params, cache, tokens, pos, ctx):
-    x = lookup(params["embed"], tokens)
-    for i, (kind, count) in enumerate(segments_of(cfg)):
-        stacked, seg_cache = params[f"seg{i}"], cache[f"seg{i}"]
-        for li in range(count):
-            lp, lc = _layer(stacked, li), _layer(seg_cache, li)
-            if kind in ("dense", "moe"):
-                x, _ = B.block_decode(lp, x, cfg, lc, pos, ctx)
-                continue
-            at = _shared_at(cfg, li) if kind == "zamba" else None
-            if at is not None:
-                x, _ = B.block_decode(_layer(params["shared_attn"], at[1]), x,
-                                      cfg, _layer(cache["shared_attn"], at[0]),
-                                      pos, ctx)
-            x, st = B.mamba_block_decode(lp, x, cfg, lc)
-            for k, t in st.items():
-                if is_dtensor(t):
-                    t = t.redistribute(lc[k].device_mesh, lc[k].placements)
-                lc[k].copy_(t)
-    return _head(cfg, params, x)[:, 0], dict(cache)
+    with region("model.decode_step", batch=tokens.shape[0], pos=pos):
+        x = lookup(params["embed"], tokens)
+        for layer, (i, kind, li) in enumerate(_layers(cfg)):
+            lp, lc = _layer(params[f"seg{i}"], li), _layer(cache[f"seg{i}"],
+                                                           li)
+            with region("model.layer", layer=layer, kind=kind):
+                if kind in ("dense", "moe"):
+                    x, _ = B.block_decode(lp, x, cfg, lc, pos, ctx)
+                    continue
+                at = _shared_at(cfg, li) if kind == "zamba" else None
+                if at is not None:
+                    x, _ = B.block_decode(
+                        _layer(params["shared_attn"], at[1]), x, cfg,
+                        _layer(cache["shared_attn"], at[0]), pos, ctx)
+                x, st = B.mamba_block_decode(lp, x, cfg, lc)
+                for k, t in st.items():
+                    if is_dtensor(t):
+                        t = t.redistribute(lc[k].device_mesh,
+                                           lc[k].placements)
+                    lc[k].copy_(t)
+        return _head(cfg, params, x)[:, 0], dict(cache)

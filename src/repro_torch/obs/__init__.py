@@ -1,25 +1,19 @@
-"""repro_torch.obs — tracing, metrics and the optimality ledger (a copy of
-``repro.obs``, pure Python).
+"""repro_torch.obs — tracing and the optimality ledger (the port of
+``repro.obs``; the reference's metrics registry has no port).
 
 - ``Tracer`` / ``span`` / ``timed`` (``trace``): nested spans with an
   injectable monotonic clock and a no-op path when disabled; the engine,
   stream, mux and shard layers time themselves through this one seam.
-- ``MetricsRegistry`` (``metrics``): counters, gauges, fixed-bucket
-  histograms.
+  ``tracing`` / ``region``: the ambient tracer the model's spans record
+  into.  Under ``torch.profiler`` every span is also a ``repro_torch.*``
+  range on the profiler's clock.
 - ``to_chrome`` / ``write_chrome`` / ``validate_chrome`` / ``flamegraph``
   (``export``) and ``ledger_from`` / ``format_ledger`` (``ledger``): Chrome
   trace-event JSON and the measured-over-floor ledger that
   ``launch.serve --trace`` prints.
 """
 
-from .trace import SpanRecord, Tracer, span, timed
-from .metrics import (
-    DEFAULT_BUCKETS,
-    Counter,
-    Gauge,
-    Histogram,
-    MetricsRegistry,
-)
+from .trace import SpanRecord, Tracer, region, span, timed, tracing
 from .export import flamegraph, to_chrome, validate_chrome, write_chrome
 from .ledger import (
     DISPATCH_FLOOR_S,
@@ -31,23 +25,20 @@ from .ledger import (
 )
 
 __all__ = [
-    "DEFAULT_BUCKETS",
     "DISPATCH_FLOOR_S",
     "LEDGER_MEM_BW",
-    "Counter",
-    "Gauge",
-    "Histogram",
     "LedgerReport",
-    "MetricsRegistry",
     "SpanRecord",
     "StageLedger",
     "Tracer",
     "flamegraph",
     "format_ledger",
     "ledger_from",
+    "region",
     "span",
     "timed",
     "to_chrome",
+    "tracing",
     "validate_chrome",
     "write_chrome",
 ]

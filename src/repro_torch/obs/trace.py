@@ -1,9 +1,12 @@
-"""Zero-dependency span tracer — the fleet's one timing seam.
+"""Span tracer — the port's one timing seam.
 
 Every layer of the estimation stack (engine dispatch, stream drain/commit/
 collect, mux plan/coalesce/dispatch/commit, shard fan-out, transport round
-trips) times itself through this module, so "where does a tick's time go?"
-has exactly one answer and one clock.  Design constraints, in order:
+trips) and of the model step (``models``: ``model.prefill``,
+``model.decode_step``, ``model.layer``, ``model.attn``, ``model.moe.*``,
+``model.ffn``, ``model.ssm``, ``model.head``) times itself through this
+module, so "where does a tick's or a step's time go?" has exactly one
+answer and one clock.  Design constraints, in order:
 
 - **Cheap when disabled.**  Instrumented call sites never branch on a
   feature flag; they call ``span(tracer, name, ...)`` with ``tracer=None``
@@ -24,6 +27,18 @@ has exactly one answer and one clock.  Design constraints, in order:
   ``TickReply`` and the driver ``adopt``s the records under the worker's
   ``pid`` lane, time-shifted into the driver's round-trip window — one
   Chrome trace spanning every process (``repro.obs.export``).
+- **An ambient tracer for the model.**  The fleet passes its tracer
+  explicitly (``tracer=``, ``set_tracer``); the model's functions take no
+  tracer argument, so they read the one ``tracing(tracer)`` sets for the
+  block (a ``ContextVar``: each thread starts with none) through
+  ``region(name, **attrs)``, which is ``span(<ambient tracer>, name,
+  **attrs)``.  With none set it returns ``_NULL``: no tensor op, no
+  synchronisation, no clock read.
+- **Ranges on the device trace's clock.**  While ``torch.profiler`` is
+  recording, every entered span of any ``Tracer`` also opens a
+  ``torch.profiler.record_function`` range named ``repro_torch.<name>``,
+  so a profiler trace lays the program's spans on its own clock beside the
+  kernels they launched.  The ``SpanRecord``s stay on the tracer's clock.
 
 Lanes: ``pid`` is the process (0 = driver, shard ``k``'s worker = ``k+1``);
 ``tid`` is the within-process lane (shard index for in-process shard muxes,
@@ -34,10 +49,14 @@ inference.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import time
 from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 
-__all__ = ["SpanRecord", "Tracer", "span", "timed"]
+from torch.autograd import profiler as _profiler
+
+__all__ = ["SpanRecord", "Tracer", "region", "span", "timed", "tracing"]
 
 
 class SpanRecord(NamedTuple):
@@ -102,7 +121,7 @@ class _Span:
     (``elapsed_s``, ``vet_s``) read it instead of re-timing."""
 
     __slots__ = ("_tracer", "name", "tid", "_attrs", "sid", "parent",
-                 "_t0", "dur")
+                 "_t0", "dur", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, tid: int, attrs: dict):
         self._tracer = tracer
@@ -112,6 +131,7 @@ class _Span:
         self.sid = -1
         self.parent: Optional[int] = None
         self.dur = 0.0
+        self._range = None
 
     def set(self, **attrs) -> "_Span":
         """Attach attributes discovered mid-span (row counts, cache hits)."""
@@ -127,20 +147,26 @@ class _Span:
             stack = tr._stacks[self.tid] = []
         self.parent = stack[-1].sid if stack else None
         stack.append(self)
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function("repro_torch." + self.name)
+            self._range.__enter__()
         self._t0 = tr.clock()
         return self
 
     def __exit__(self, *exc) -> bool:
         tr = self._tracer
         self.dur = tr.clock() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
         stack = tr._stacks[self.tid]
         if stack and stack[-1] is self:
             stack.pop()
         elif self in stack:  # tolerate out-of-order exits, never corrupt
             stack.remove(self)
-        tr._record(SpanRecord(self.name, self._t0, self.dur, tr.pid,
-                              self.tid, self.sid, self.parent,
-                              tuple(sorted(self._attrs.items()))))
+        tr.records.append(SpanRecord(self.name, self._t0, self.dur, tr.pid,
+                                     self.tid, self.sid, self.parent,
+                                     tuple(sorted(self._attrs.items()))))
         return False
 
 
@@ -152,10 +178,6 @@ class Tracer:
             deterministic tests; default ``time.perf_counter``).
         pid: process lane for spans recorded *by this tracer* (adopted
             records keep the lane given to ``adopt``).
-        metrics: optional ``repro.obs.MetricsRegistry``; when set, every
-            completed span feeds ``span.<name>`` (duration histogram,
-            seconds) and ``span.<name>.count`` automatically, so metrics
-            ride the same seam as spans.
 
     Example::
 
@@ -169,10 +191,9 @@ class Tracer:
     """
 
     def __init__(self, clock: Callable[[], float] = time.perf_counter, *,
-                 pid: int = 0, metrics=None):
+                 pid: int = 0):
         self.clock = clock
         self.pid = int(pid)
-        self.metrics = metrics
         self.records: List[SpanRecord] = []  # completion order
         self.process_names: Dict[int, str] = {self.pid: "driver"}
         self._stacks: Dict[int, List[_Span]] = {}
@@ -189,11 +210,6 @@ class Tracer:
     def now(self) -> float:
         """Current tracer-clock time (for aligning adopted records)."""
         return self.clock()
-
-    def _record(self, rec: SpanRecord) -> None:
-        self.records.append(rec)
-        if self.metrics is not None:
-            self.metrics.histogram("span." + rec.name).observe(rec.dur)
 
     # -------------------------------------------------------- reassembly
     def drain(self) -> List[SpanRecord]:
@@ -230,7 +246,7 @@ class Tracer:
         self._next_sid = base + max(r.sid for r in records) + 1
         shift = 0.0 if at is None else at - min(r.ts for r in records)
         for r in records:
-            self._record(r._replace(
+            self.records.append(r._replace(
                 ts=r.ts + shift, pid=int(pid), sid=base + r.sid,
                 parent=None if r.parent is None else base + r.parent))
         return len(records)
@@ -257,3 +273,30 @@ def timed(tracer: Optional[Tracer], name: str, tid: int = 0, **attrs):
     if tracer is None:
         return _Stopwatch()
     return tracer.span(name, tid=tid, **attrs)
+
+
+# The tracer ``region`` reads (``tracing``); None: the model is not traced.
+_AMBIENT: contextvars.ContextVar[Optional[Tracer]] = contextvars.ContextVar(
+    "repro_torch_ambient_tracer", default=None)
+
+
+@contextlib.contextmanager
+def tracing(tracer: Optional[Tracer]):
+    """Make ``tracer`` the ambient tracer of the block (``None``: no
+    tracer), and restore the previous one on exit, exceptions included.
+    The model's spans (``region``) record into it."""
+    token = _AMBIENT.set(tracer)
+    try:
+        yield tracer
+    finally:
+        _AMBIENT.reset(token)
+
+
+def region(name: str, **attrs):
+    """``span(<the ambient tracer>, name, **attrs)``: a span of the tracer
+    ``tracing`` set, on lane 0, or the shared no-op ``_NULL`` when none is
+    set.  The model's instrumentation calls this and never branches."""
+    tracer = _AMBIENT.get()
+    if tracer is None:
+        return _NULL
+    return tracer.span(name, **attrs)

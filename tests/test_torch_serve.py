@@ -140,15 +140,59 @@ def test_main_parses_the_reference_flags(monkeypatch):
 
 
 def test_traced_serve_writes_a_valid_chrome_trace(tmp_path):
+    """The Chrome trace and the ledger hold the dashboard's spans and the
+    model's own, each decode step's inside its record; the model's rows
+    carry no bytes and get no floor."""
     import json
     from repro_torch.obs import validate_chrome
     path = tmp_path / "serve.json"
-    res = serve(get_config("mamba2-130m").reduced(), batch=1, prompt_len=8,
-                gen_len=21, device="cpu", verbose=False,
-                trace_path=str(path))
-    assert validate_chrome(json.loads(path.read_text())) == []
-    stages = {s.stage for s in res.ledger.stages}
+    cfg = get_config("mamba2-130m").reduced()
+    res = serve(cfg, batch=1, prompt_len=8, gen_len=21, device="cpu",
+                verbose=False, trace_path=str(path))
+    trace = json.loads(path.read_text())
+    assert validate_chrome(trace) == []
+    stages = {s.stage: s for s in res.ledger.stages}
     assert "record.decode" in stages and "serve.vet" in stages
+    assert stages["model.prefill"].calls == 1
+    assert stages["model.decode_step"].calls == 20
+    assert stages["model.ssm"].calls == 21 * cfg.num_layers
+    assert stages["model.head"].calls == 21
+    for name in ("model.prefill", "model.decode_step", "model.layer",
+                 "model.ssm", "model.head"):
+        assert stages[name].floor_s is None and stages[name].bytes == 0
+    names = [e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"]
+    assert names.count("model.decode_step") == 20
+
+
+def test_tokens_per_s_counts_the_dashboard(monkeypatch):
+    """The throughput wall runs from the prompt batch to the last token
+    with the dashboard's ticks inside it; ``vet_s`` is their sum.  A
+    dashboard slowed to 50 ms a tick makes both show it."""
+    import time
+    from repro_torch.fleet import ShardedVetMux
+
+    tick = ShardedVetMux.tick
+
+    def slow_tick(self, *a, **kw):
+        time.sleep(0.05)
+        return tick(self, *a, **kw)
+
+    monkeypatch.setattr(ShardedVetMux, "tick", slow_tick)
+    res = serve(get_config("mamba2-130m").reduced(), batch=1, prompt_len=8,
+                gen_len=21, device="cpu", verbose=False)
+    wall = 1 * 21 / res.tokens_per_s
+    assert res.vet_s >= 4 * 0.05  # four units of five decode records
+    assert wall >= res.prefill_s + res.vet_s
+
+
+def test_vet_s_is_the_sum_of_the_dashboards_spans():
+    from repro_torch.obs import Tracer
+    tr = Tracer()
+    res = serve(get_config("mamba2-130m").reduced(), batch=1, prompt_len=8,
+                gen_len=21, device="cpu", verbose=False, tracer=tr)
+    in_loop = [r.dur for r in tr.records
+               if r.name == "serve.vet" and "post" not in dict(r.attrs)]
+    assert len(in_loop) == 4 and res.vet_s == sum(in_loop)
 
 
 @pytest.fixture(scope="module")
