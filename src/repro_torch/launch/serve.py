@@ -31,7 +31,10 @@ its report lands on ``ServeResult.tuner``.
 A tracer (``tracer=``, or ``--trace PATH``) records the dashboard's spans
 and, through ``obs.trace.tracing``, the model's own (``model.prefill``,
 ``model.decode_step`` and the layers' spans inside them), into the Chrome
-trace and the ledger.  ``tokens_per_s`` counts the whole wall from the
+trace and the ledger.  On the card a decode step from the third on is a
+replay of the step's CUDA graph (``models.graph``), so the ledger shows
+one ``model.decode_step`` span for such a step, with no layer span inside
+it.  ``tokens_per_s`` counts the whole wall from the
 prompt batch to the last token, the dashboard's ticks inside it;
 ``vet_s`` says how much of it the dashboard took.
 

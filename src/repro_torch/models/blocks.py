@@ -155,13 +155,19 @@ def _kv_dequant(q, scale, dtype):
     return (q.float() * scale[..., None].float()).to(dtype)
 
 
-def _write_seq(dst, src, at: int) -> None:
-    """``src`` (B, S, ...) into ``dst[:, at:at + S]`` in place.
+def _write_seq(dst, src, at) -> None:
+    """``src`` (B, S, ...) into ``dst[:, at:at + S]`` in place; ``at`` an
+    int or a 0-d int64 tensor on ``dst``'s device (then an ``index_copy_``,
+    which a CUDA graph can replay at another position).
 
     A DTensor cache is sequence-sharded over ``"model"`` (``cache_specs``):
     each rank writes the positions its own shard holds, from ``src``
-    gathered over every axis but the cache's batch axes."""
+    gathered over every axis but the cache's batch axes; ``at`` an int."""
     s = src.shape[1]
+    if isinstance(at, torch.Tensor):
+        idx = at.view(1) if s == 1 else at + torch.arange(s, device=at.device)
+        dst.index_copy_(1, idx, src.to(dst.dtype))
+        return
     if not is_dtensor(dst):
         dst[:, at:at + s] = src
         return
@@ -177,7 +183,7 @@ def _write_seq(dst, src, at: int) -> None:
         dst.to_local()[:, a - lo:b - lo] = src_l[:, a - at:b - at]
 
 
-def _write_kv(cache, k, v, at: int) -> None:
+def _write_kv(cache, k, v, at) -> None:
     """K and V of positions [at, at + S) into ``cache`` in place, quantised
     when the cache is int8 (its scales stored in the cache's dtype)."""
     if "k_scale" in cache:
@@ -203,20 +209,29 @@ def attn_prefill(p, x, cfg, cache, ctx: ShardCtx = NULL_CTX, *,
         return out, cache
 
 
-def attn_decode(p, x, cfg, cache, pos: int):
+def attn_decode(p, x, cfg, cache, pos):
     """One-token decode.  x: (B,1,D); cache {"k","v"}: (B,S_max,KH,Dh)
     (int8 with ``k_scale``/``v_scale`` (B,S_max,KH) beside them); ``pos``
     is the index of the current token, whose K/V are written into
-    ``cache`` in place.  Returns (out (B,1,D), cache)."""
+    ``cache`` in place: an int, or a 0-d int64 tensor on the step's device
+    (not with a DTensor cache).  Returns (out (B,1,D), cache)."""
     with region("model.attn"):
         if cfg.attention == "mla":
             return mla_decode(p, x, cfg, cache, pos)
         return _gqa_decode(p, x, cfg, cache, pos)
 
 
-def _gqa_decode(p, x, cfg, cache, pos: int):
+def _positions(pos, b: int, device):
+    """(B, 1) int32 positions of the token being decoded, from an int or a
+    0-d tensor ``pos``."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(torch.int32).expand(b, 1)
+    return torch.full((b, 1), pos, dtype=torch.int32, device=device)
+
+
+def _gqa_decode(p, x, cfg, cache, pos):
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    positions = _positions(pos, b, x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     _write_kv(cache, k, v, pos)
     if "k_scale" in cache:
@@ -326,17 +341,18 @@ def mla_prefill(p, x, cfg, cache, ctx: ShardCtx = NULL_CTX, *,
     return out, cache
 
 
-def mla_decode(p, x, cfg, cache, pos: int):
+def mla_decode(p, x, cfg, cache, pos):
     """Absorbed MLA decode: scores ``q_nope W_uk . ckv + q_rope . krope``
     in the latent space, values latent until ``W_uv`` and ``wo``; the
     einsums after the query's absorption in f32, as the reference's.  The
     current token's ``ckv``/``krope`` are written into ``cache`` at
-    ``pos`` in place."""
+    ``pos`` in place (an int, or a 0-d int64 tensor as in
+    ``attn_decode``)."""
     b = x.shape[0]
     nope, rope, vdim, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim,
                               cfg.v_head_dim, cfg.kv_lora_rank)
     h = cfg.num_heads
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    positions = _positions(pos, b, x.device)
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv(p, x, cfg, positions)
     _write_seq(cache["ckv"], ckv_new, pos)
     _write_seq(cache["krope"], krope_new, pos)
@@ -424,7 +440,7 @@ def block_prefill(p, x, cfg, cache, ctx: ShardCtx = NULL_CTX, *,
     return _feed_forward(p, x + a, cfg, ctx)[0], cache
 
 
-def block_decode(p, x, cfg, cache, pos: int, ctx: ShardCtx = NULL_CTX):
+def block_decode(p, x, cfg, cache, pos, ctx: ShardCtx = NULL_CTX):
     """One decode step of the block; the MoE aux loss is dropped."""
     a, cache = attn_decode(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                            cfg, cache, pos)

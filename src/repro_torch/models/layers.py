@@ -303,8 +303,9 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
     """One-token attention against a cache.
 
     q: (B, 1, H, Dh); caches: (B, S_max, KH, Dh); ``pos``: tokens written
-    so far, the current one (at index pos - 1) included.  A DTensor cache
-    (sequence-sharded on a mesh) goes through ``seq_sharded_attention``.
+    so far, the current one (at index pos - 1) included, an int or a 0-d
+    tensor on the caches' device.  A DTensor cache (sequence-sharded on a
+    mesh, ``pos`` an int) goes through ``seq_sharded_attention``.
     """
     b, _, h, dh = q.shape
     kh = k_cache.shape[2]
@@ -448,6 +449,11 @@ class RoutingLog:
                                for f in dataclasses.fields(Routing)))
                      for c in self.calls]
         return out
+
+    @property
+    def forcing(self) -> bool:
+        """Whether the log forces its calls' routing (made with ``force=``)."""
+        return self._force is not None
 
     def forced(self) -> Optional[Routing]:
         """The forced routing of the next call, or ``None``."""

@@ -45,7 +45,8 @@ longer than ``q_chunk`` that is not a multiple of it by the attention.
 ``model.prefill`` or ``model.decode_step``, a ``model.layer`` per layer
 and ``model.head``, with the blocks' and layers' spans inside
 (``model.attn``, ``model.moe.*``, ``model.ffn``, ``model.ssm``); with no
-tracer set each is the shared no-op.
+tracer set each is the shared no-op.  A decode step replayed as a CUDA
+graph (``models.graph``) records its ``model.decode_step`` alone.
 
 **The cache is written in place, for every family.**  ``prefill`` and
 ``decode_step`` write into the cache tensors they are given (attention K/V
@@ -67,6 +68,7 @@ from ..distributed.sharding import is_dtensor, mesh_map
 from ..obs.trace import region
 from . import blocks as B
 from . import layers as L
+from .graph import DecodeGraphs
 from .layers import NULL_CTX, ShardCtx, mesh_scope
 
 __all__ = ["decode_step", "embed_inputs", "forward", "init_cache",
@@ -181,8 +183,8 @@ def _mask_pad_logits(cfg, logits):
     if vp == cfg.vocab_size:
         return logits
     col = torch.arange(vp, device=logits.device)
-    neg = torch.tensor(torch.finfo(torch.float32).min, dtype=logits.dtype,
-                       device=logits.device)
+    # filled on the device (no copy from the host, which a capture refuses)
+    neg = logits.new_full((), torch.finfo(torch.float32).min)
     return torch.where(col < cfg.vocab_size, logits, neg)
 
 
@@ -454,39 +456,48 @@ def _prefill(cfg, params, cache, batch, ctx, q_chunk, plain):
         return _head(cfg, params, x[:, -1:])[:, 0], dict(cache)
 
 
-def decode_step(cfg, params: Params, cache, tokens, pos: int,
+def decode_step(cfg, params: Params, cache, tokens, pos,
                 ctx: ShardCtx = NULL_CTX):
     """One decode step.  tokens: (B, 1) integer; ``pos`` is the index of the
-    token being generated (unused by SSM layers, as in the reference).
+    token being generated (unused by SSM layers, as in the reference): an
+    int, or off a mesh a 0-d int64 tensor on the step's device.
 
     Returns (logits (B, V), cache).  The cache is written in place:
     attention K/V at ``pos`` (a hybrid's per shared-attention
     application), Mamba states in full; the same tensors come back.  On a
     mesh the new Mamba states take their cache's placements first.
+
+    On CUDA, off a mesh and with no forced routing, the step is captured
+    as a CUDA graph on the second call with the same config, tokens' shape
+    and parameter and cache tensors, and replayed from the third
+    (``models.graph``: the same kernels, the same bits; the logits a fresh
+    tensor each call).  The span ``model.decode_step`` says which
+    (``graph``); under a replay no span opens inside it.
     """
     with mesh_scope(ctx):
-        return _decode_step(cfg, params, cache, tokens, pos, ctx)
+        return DECODE.step(cfg, params, cache, tokens, pos, ctx), dict(cache)
 
 
 def _decode_step(cfg, params, cache, tokens, pos, ctx):
-    with region("model.decode_step", batch=tokens.shape[0], pos=pos):
-        x = lookup(params["embed"], tokens)
-        for layer, (i, kind, li) in enumerate(_layers(cfg)):
-            lp, lc = _layer(params[f"seg{i}"], li), _layer(cache[f"seg{i}"],
-                                                           li)
-            with region("model.layer", layer=layer, kind=kind):
-                if kind in ("dense", "moe"):
-                    x, _ = B.block_decode(lp, x, cfg, lc, pos, ctx)
-                    continue
-                at = _shared_at(cfg, li) if kind == "zamba" else None
-                if at is not None:
-                    x, _ = B.block_decode(
-                        _layer(params["shared_attn"], at[1]), x, cfg,
-                        _layer(cache["shared_attn"], at[0]), pos, ctx)
-                x, st = B.mamba_block_decode(lp, x, cfg, lc)
-                for k, t in st.items():
-                    if is_dtensor(t):
-                        t = t.redistribute(lc[k].device_mesh,
-                                           lc[k].placements)
-                    lc[k].copy_(t)
-        return _head(cfg, params, x)[:, 0], dict(cache)
+    """The eager decode step: its logits, the cache written in place."""
+    x = lookup(params["embed"], tokens)
+    for layer, (i, kind, li) in enumerate(_layers(cfg)):
+        lp, lc = _layer(params[f"seg{i}"], li), _layer(cache[f"seg{i}"], li)
+        with region("model.layer", layer=layer, kind=kind):
+            if kind in ("dense", "moe"):
+                x, _ = B.block_decode(lp, x, cfg, lc, pos, ctx)
+                continue
+            at = _shared_at(cfg, li) if kind == "zamba" else None
+            if at is not None:
+                x, _ = B.block_decode(
+                    _layer(params["shared_attn"], at[1]), x, cfg,
+                    _layer(cache["shared_attn"], at[0]), pos, ctx)
+            x, st = B.mamba_block_decode(lp, x, cfg, lc)
+            for k, t in st.items():
+                if is_dtensor(t):
+                    t = t.redistribute(lc[k].device_mesh, lc[k].placements)
+                lc[k].copy_(t)
+    return _head(cfg, params, x)[:, 0]
+
+
+DECODE = DecodeGraphs(_decode_step)

@@ -124,7 +124,7 @@ def test_span_tree_of_a_model_step(model, step):
         with tracing(tr):
             decode_step(cfg, params, cache, tokens[:, :1], S)
         check_step_tree(cfg, tr.records, "model.decode_step",
-                        {"batch": BATCH, "pos": S}, BATCH)
+                        {"batch": BATCH, "pos": S, "graph": "eager"}, BATCH)
     # the counting clock reads twice a span: the root spans them all
     root = max(tr.records, key=lambda r: r.dur)
     assert root.dur == 2 * len(tr.records) - 1
