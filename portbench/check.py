@@ -1,21 +1,15 @@
 """The comparison that decides ``correct``: what the timed path produced,
 judged by the plain reference (``reference/``) after the window.
 
-For each sampled request the reference runs once over the prompt and the
-served tokens (the last one excepted), with the MoE calls grouped as the
-program made them (the prompt, then each decode step), and follows the
-program's routing, judging each choice (``reference.model``).  Numbers:
-
-- ``route_gap``: the largest relative distance of a routing choice of the
-  program (a token's experts, an expert's tokens) from the reference's
-  own choice's edge, under the reference's numbers; 0 when every choice
-  is the reference's;
-- ``logit_err``: the largest ``max |program - reference|`` of a served
-  position's logits over the row's ``max |reference|``;
-- ``token_gap``: the largest amount by which a served token's reference
-  logit lies below the row's best, over the same scale;
-
-and, with the dashboard, over the window rows it vetted:
+The model's numbers are its family's (``families``): each family's
+``judge`` runs its reference over the sampled requests and gives its
+``NUMBERS``, which always hold ``logit_err`` (the largest ``max |program -
+reference|`` of a served position's logits over the row's ``max
+|reference|``) and ``token_gap`` (the largest amount by which a served
+token's reference logit lies below the row's best, over the same scale);
+the DeepSeek MoE family adds ``route_gap``, the program's routing judged
+choice by choice.  A run with the dashboard adds, over the window rows it
+vetted:
 
 - ``vet_err``: the larger of the reference's (f64) summed squared error at
   the program's change-point above its least, over its least (how far the
@@ -33,79 +27,21 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
-from .reference import model as R
+from . import families
 from .reference.vet import landscape, vet_window
 
-__all__ = ["DASHBOARD_NUMBERS", "MODEL_NUMBERS", "against", "judge",
-           "judge_dashboard", "reference_inputs", "vet_err"]
+__all__ = ["DASHBOARD_NUMBERS", "against", "judge", "judge_dashboard",
+           "vet_err"]
 
-# what every run compares, and what a run with the dashboard adds
-MODEL_NUMBERS = ("route_gap", "logit_err", "token_gap")
+# what a run with the dashboard adds to its family's numbers
 DASHBOARD_NUMBERS = ("vet_err",)
 
 
-def reference_inputs(arch: R.Arch, served, device):
-    """(tokens (B, N), groups, route, logit positions) of one served
-    request for the reference: the prompt and the served tokens but the
-    last, the prompt as one MoE call and each decode step as one, the
-    program's routing per MoE layer and call."""
-    req = served.request
-    s, gen = req.prompt_len, req.gen_tokens
-    ids = np.concatenate([req.tokens, served.tokens[:, :gen - 1]], axis=1)
-    groups = [(0, s)] + [(s + j, s + j + 1) for j in range(gen - 1)]
-    n_moe = arch.layers - arch.dense_layers
-    calls = served.routing
-    if calls is None or len(calls) != n_moe * len(groups):
-        raise ValueError(f"{len(calls or ())} MoE calls recorded, expected "
-                         f"{n_moe} layers x {len(groups)} calls")
-    b = req.tokens.shape[0]
-    for g, (lo, hi) in enumerate(groups):
-        t = b * (hi - lo)
-        want = ((t, arch.top_k), (arch.experts, R.capacity(arch, t)))
-        for m in range(n_moe):
-            got = tuple(tuple(x.shape) for x in calls[g * n_moe + m])
-            if got != want:
-                raise ValueError(f"MoE call {g * n_moe + m} routed shapes "
-                                 f"{got}, expected {want}")
-    route = [[R.Routed(calls[g * n_moe + m][0].to(device),
-                       calls[g * n_moe + m][1].to(device))
-              for g in range(len(groups))] for m in range(n_moe)]
-    positions = [s - 1 + j for j in range(gen)]
-    return (torch.from_numpy(ids).to(device), groups, route, positions)
-
-
 def judge(c: dict, weights, samples, precision: str = "f32") -> Dict[str, float]:
-    """``route_gap``, ``logit_err`` and ``token_gap`` over ``samples``
-    (``harness.Served`` with logits and routing)."""
-    if not samples:
-        return {}
-    arch = R.Arch.from_file(c)
-    device = weights["embed"].device
-    out = dict.fromkeys(MODEL_NUMBERS, 0.0)
-    for got in samples:
-        try:
-            ids, groups, route, positions = reference_inputs(arch, got,
-                                                             device)
-        except ValueError:  # the program's routing is malformed
-            return {k: float("inf") for k in out}
-        with torch.no_grad():
-            hidden, _, judged = R.forward(arch, weights, ids, groups,
-                                          route=route, precision=precision)
-            ref = R.logits_at(arch, weights, hidden[:, positions],
-                              precision)  # (B, gen, V)
-        b = ref.shape[0]
-        ref = ref.reshape(-1, ref.shape[-1]).cpu()
-        prog = got.logits.transpose(0, 1).reshape(ref.shape[0], -1)
-        prog = prog[:, :arch.vocab]
-        served = torch.from_numpy(got.tokens).reshape(b * len(positions))
-        nums = R.judge_logits(prog, ref, served)
-        out["route_gap"] = max(out["route_gap"], judged["gap"])
-        for k in ("logit_err", "token_gap"):
-            out[k] = max(out[k], nums[k])
-        del hidden, ref
-    return out
+    """Its family's ``NUMBERS`` over ``samples`` (``harness.Served`` with
+    logits and routing), from its family's reference."""
+    return families.of(c).judge(c, weights, samples, precision)
 
 
 def judge_dashboard(windows, units: List[float], dash: dict,

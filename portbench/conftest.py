@@ -1,5 +1,5 @@
-"""Fixtures of portbench's CPU tests: cells at a tiny size (the port's own
-reduced widths) that the harness runs on the CPU, where the port takes its
+"""Fixtures of portbench's CPU tests: cells at a tiny size (their family's
+``TINY``) that the harness runs on the CPU, where the port takes its
 kernels' plain versions."""
 
 import json
@@ -12,24 +12,14 @@ ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT / "src") not in sys.path:  # the port, as run.py finds it
     sys.path.insert(0, str(ROOT / "src"))
 
-from portbench import harness  # noqa: E402
-
-# the port's ``ArchConfig.reduced`` widths, under the published names
-TINY = dict(hidden_size=128, num_hidden_layers=4, num_attention_heads=4,
-            num_key_value_heads=4, intermediate_size=256, vocab_size=512,
-            n_routed_experts=8, num_experts_per_tok=2,
-            moe_intermediate_size=64, n_shared_experts=1)
-TINY_MLA = dict(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
-                v_head_dim=16)
+from portbench import families, harness  # noqa: E402
 
 
 def tiny_config(name: str) -> dict:
+    """Configuration ``name`` at its family's CPU test size (``TINY``)."""
     c = json.loads((ROOT / "portbench" / "configs" / f"{name}.json")
                    .read_text())
-    c.update(TINY)
-    if c.get("kv_lora_rank"):
-        c.update(TINY_MLA)
-    return c
+    return families.of(c).TINY(c)
 
 
 def tiny_spec(cell: str) -> harness.Spec:

@@ -144,14 +144,15 @@ def model_control(c: dict, weights, samples, chunk: int = 512) -> dict:
     """The TF32 control's numbers over the program's sampled requests."""
     import torch
 
-    from portbench import check
+    from portbench import families
     from portbench.reference import model as R
 
     arch = R.Arch.from_file(c)
+    inputs = families.of(c).reference_inputs  # the DeepSeek MoE family's
     device = weights["embed"].device
     out = {"route_gap": 0.0, "logit_err": 0.0, "token_gap": 0.0}
     for got in samples:
-        ids, groups, _, positions = check.reference_inputs(arch, got, device)
+        ids, groups, _, positions = inputs(arch, got, device)
         with torch.no_grad():
             low, own, _ = R.forward(arch, weights, ids, groups,
                                     precision="tf32")

@@ -33,7 +33,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import check, tracing, weights as W
+from . import check, families, tracing, weights as W
 from .traffic import Request, Traffic
 
 __all__ = ["Spec", "load_spec", "port_config", "run"]
@@ -57,11 +57,15 @@ class Spec:
 
 
 def load_spec(name: str, root: Path) -> Spec:
-    """The spec of cell ``name``, found by name from ``root/BENCHMARK.json``.
+    """The spec of cell ``name``, found by name from ``root/BENCHMARK.json``
+    (the cell's and its mix's files under ``root/portbench``).
 
     Raises:
         KeyError: no such cell or configuration in ``BENCHMARK.json``.
-        FileNotFoundError: a file it names is missing.
+        FileNotFoundError: a file it names is missing, or the family file
+            its configuration names.
+        AttributeError, ValueError: the family file lacks a name or a
+            required number (``families.of``).
     """
     bench = json.loads((root / "BENCHMARK.json").read_text())
     by_name = {w["name"]: w for w in bench["workloads"]}
@@ -69,11 +73,13 @@ def load_spec(name: str, root: Path) -> Spec:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     entry = by_name[name]
     conf = {c["name"]: c for c in bench["configs"]}[entry["config"]]
-    cell = dict(entry, **json.loads((HERE / "workloads" / f"{name}.json")
+    own = root / HERE.name
+    cell = dict(entry, **json.loads((own / "workloads" / f"{name}.json")
                                     .read_text()))
-    mix = json.loads((HERE / "mixes" / f"{entry['traffic']}.json")
+    mix = json.loads((own / "mixes" / f"{entry['traffic']}.json")
                      .read_text())
     config = json.loads((root / conf["file"]).read_text())
+    families.of(config)  # the family file, whole, before any set-up
     end_to_end = [m for m in bench["end_to_end"]
                   if name in m.get("workloads", [name])]
     moves = {m["name"] for m in end_to_end}
@@ -84,35 +90,9 @@ def load_spec(name: str, root: Path) -> Spec:
 
 
 def port_config(c: dict):
-    """The port's ``ArchConfig`` for configuration file ``c``: its
-    registry entry (family, attention kind) with every size and rule taken
-    from the file."""
-    from repro_torch.configs import get_config
-
-    if not c["runs"]["norm_topk_prob"] or c["runs"]["rope_scaling"]:
-        raise ValueError("the port renormalises the chosen experts' "
-                         "probabilities and runs plain RoPE")
-    h = c["num_attention_heads"]
-    fields = dict(
-        num_layers=c["num_hidden_layers"], d_model=c["hidden_size"],
-        num_heads=h, num_kv_heads=c.get("num_key_value_heads") or h,
-        head_dim=c.get("head_dim") or c["hidden_size"] // h,
-        d_ff=c["intermediate_size"], vocab_size=c["vocab_size"],
-        n_routed_experts=c["n_routed_experts"],
-        n_shared_experts=c["n_shared_experts"],
-        moe_top_k=c["num_experts_per_tok"],
-        moe_d_ff=c["moe_intermediate_size"],
-        first_dense_layers=c["first_k_dense_replace"],
-        rope_theta=float(c["rope_theta"]),
-        norm_eps=float(c["runs"]["norm_eps"]),
-        tie_embeddings=bool(c["runs"]["tie_embeddings"]),
-        capacity_factor=float(c["runs"]["capacity_factor"]))
-    if c.get("kv_lora_rank"):
-        fields.update(kv_lora_rank=c["kv_lora_rank"],
-                      qk_nope_dim=c["qk_nope_head_dim"],
-                      qk_rope_dim=c["qk_rope_head_dim"],
-                      v_head_dim=c["v_head_dim"])
-    return dataclasses.replace(get_config(c["runs"]["registry"]), **fields)
+    """The port's ``ArchConfig`` for configuration file ``c``, as its
+    family makes it (``families``)."""
+    return families.of(c).port_config(c)
 
 
 class Spans:
@@ -359,8 +339,8 @@ def run(spec: Spec, *, seed: int, seconds: float, trace: bool, device,
     if mix.get("dashboard"):
         numbers.update(check.judge_dashboard(windows, units, mix["dashboard"]))
     checks = check.against(numbers, cell["check"]["limits"])
-    required = check.MODEL_NUMBERS + (check.DASHBOARD_NUMBERS
-                                      if mix.get("dashboard") else ())
+    required = tuple(families.of(c).NUMBERS) + (
+        check.DASHBOARD_NUMBERS if mix.get("dashboard") else ())
     correct = (all(k in checks for k in required)
                and all(v["value"] <= v["limit"] for v in checks.values()))
     device_info = {"platform": "gpu" if cuda else "cpu",

@@ -9,7 +9,7 @@ from pathlib import Path
 
 import pytest
 
-from portbench import harness
+from portbench import families, harness
 
 ROOT = Path(__file__).resolve().parent.parent
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -37,8 +37,8 @@ def test_cell_loads_by_name(cell):
     assert "clients" not in spec.mix
     assert {"setup_s"} < {m["name"] for m in spec.end_to_end}
     assert spec.per_layer
-    assert set(spec.cell["check"]["limits"]) >= {"route_gap", "logit_err",
-                                                 "token_gap"}
+    assert set(spec.cell["check"]["limits"]) >= set(
+        families.of(spec.config).NUMBERS)
 
 
 def test_names_and_units():

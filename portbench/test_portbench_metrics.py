@@ -14,7 +14,8 @@ C = {"hidden_size": 2048, "num_attention_heads": 16,
      "moe_intermediate_size": 1408, "n_routed_experts": 64,
      "num_experts_per_tok": 6, "n_shared_experts": 2,
      "first_k_dense_replace": 1, "num_hidden_layers": 28,
-     "vocab_size": 102400}
+     "vocab_size": 102400,
+     "runs": {"family": "deepseek_moe"}}
 MS = 1_000_000  # ns
 
 

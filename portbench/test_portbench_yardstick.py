@@ -9,7 +9,8 @@ SMALL = {"hidden_size": 8, "num_attention_heads": 2,
          "moe_intermediate_size": 4, "n_routed_experts": 4,
          "num_experts_per_tok": 2, "n_shared_experts": 1,
          "first_k_dense_replace": 1, "num_hidden_layers": 2,
-         "vocab_size": 32}
+         "vocab_size": 32,
+         "runs": {"family": "deepseek_moe"}}
 
 
 @pytest.mark.parametrize("s", [1, 2, 5, 17])

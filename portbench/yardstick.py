@@ -1,5 +1,6 @@
 """The benchmark's fixed arithmetic: the card's peaks, the operations and
-bytes of a flash-attention launch and of a model's prefill, and the
+bytes of a flash-attention launch, the bound of a prefill's launches and
+its operations (counted by the configuration's family), and the
 reduction of a profiler trace to busy time and idle gaps.
 
 The peaks and the flash counts are frozen copies of what ``chip_smoke.py``
@@ -12,7 +13,10 @@ at best 165 TFLOP/s, the least time an f32 product can take on the card.
 
 from __future__ import annotations
 
+import math
 from typing import Iterable, List, Sequence, Tuple
+
+from . import families
 
 __all__ = ["F32_PEAK_OPS", "HBM_BYTES_PER_S", "busy_intervals",
            "flash_bound_s", "flash_cost", "idle_gaps", "live_pairs",
@@ -46,52 +50,20 @@ def flash_cost(b: int, s: int, h: int, kh: int, d: int, dv: int,
 
 
 def flash_bound_s(c: dict, b: int, s: int) -> float:
-    """The summed bound of one prefill's flash launches (one a layer) for
-    configuration file ``c`` at batch ``b`` and prompt ``s``."""
-    h = c["num_attention_heads"]
-    kh = c.get("num_key_value_heads") or h
-    if c.get("kv_lora_rank"):
-        d = c["qk_nope_head_dim"] + c["qk_rope_head_dim"]
-        dv, kh = c["v_head_dim"], h
-    else:
-        d = dv = c.get("head_dim") or c["hidden_size"] // h
-    ops, nbytes = flash_cost(b, s, h, kh, d, dv)
-    return c["num_hidden_layers"] * roofline_s(ops, nbytes)
+    """The summed bound of one prefill's flash launches (its family's
+    ``flash_launches``) for configuration file ``c`` at batch ``b`` and
+    prompt ``s``.  ``fsum`` rounds once, so n equal launches give exactly
+    n times one."""
+    return math.fsum(
+        roofline_s(*flash_cost(lb, ls, h, kh, d, dv, causal=causal))
+        for lb, ls, h, kh, d, dv, causal
+        in families.of(c).flash_launches(c, b, s))
 
 
 def prefill_flops(c: dict, b: int, s: int) -> float:
     """Operations of the published model's prefill of ``b`` prompts of
-    ``s`` tokens: every layer's projections, causal attention over the live
-    pairs, the dense MLP or the shared and the ``num_experts_per_tok``
-    active routed experts and the router, and the LM head on each prompt's
-    last position (what ``prefill`` returns).  Norms and softmaxes are not
-    counted; nor is the work the program pads or drops."""
-    dm, h = c["hidden_size"], c["num_attention_heads"]
-    kh = c.get("num_key_value_heads") or h
-    if c.get("kv_lora_rank"):
-        nope, rope, dv = (c["qk_nope_head_dim"], c["qk_rope_head_dim"],
-                          c["v_head_dim"])
-        lora = c["kv_lora_rank"]
-        proj = dm * h * (nope + rope) + dm * (lora + rope) \
-            + lora * h * (nope + dv) + h * dv * dm
-        attn_dims = nope + rope + dv
-    else:
-        dh = c.get("head_dim") or dm // h
-        proj = dm * h * dh + 2 * dm * kh * dh + h * dh * dm
-        attn_dims = 2 * dh
-    tokens = b * s
-    per_layer_attn = 2.0 * proj * tokens \
-        + 2.0 * attn_dims * live_pairs(s) * b * h
-    dense = 2.0 * 3 * dm * c["intermediate_size"] * tokens
-    f = c["moe_intermediate_size"]
-    active = c["num_experts_per_tok"] + c["n_shared_experts"]
-    moe = (2.0 * 3 * dm * f * active + 2.0 * dm * c["n_routed_experts"]) \
-        * tokens
-    n_dense = c["first_k_dense_replace"]
-    n_moe = c["num_hidden_layers"] - n_dense
-    head = 2.0 * dm * c["vocab_size"] * b
-    return c["num_hidden_layers"] * per_layer_attn + n_dense * dense \
-        + n_moe * moe + head
+    ``s`` tokens, as its family counts them (``families``)."""
+    return families.of(c).prefill_flops(c, b, s)
 
 
 def busy_intervals(events: Iterable[Tuple[int, int]]) -> List[Tuple[int, int]]:
