@@ -1,5 +1,7 @@
 """Architecture configs: the 10 assigned archs, the shape cells and the
-registry (a copy of ``repro.configs``)."""
+registry (a copy of ``repro.configs``), and ``zamba2-7b-instruct``, the
+published Zamba2-7B-Instruct, which the reference does not have (it is
+registered, and not in ``ARCH_NAMES``)."""
 
 import importlib
 
@@ -16,6 +18,7 @@ _MODULES = [
     "deepseek_moe_16b",
     "hubert_xlarge",
     "zamba2_7b",
+    "zamba2_7b_instruct",
     "mamba2_130m",
 ]
 

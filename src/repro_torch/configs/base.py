@@ -14,9 +14,10 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
-__all__ = ["ArchConfig", "register", "get_config", "list_configs"]
+__all__ = ["ArchConfig", "Zamba2Config", "register", "get_config",
+           "list_configs"]
 
 
 @dataclass(frozen=True)
@@ -91,6 +92,17 @@ class ArchConfig:
     tie_embeddings: bool = True
     source: str = ""
 
+    # ``Zamba2Config``'s fields, read by every config: plain class
+    # attributes here (not fields), so the ten configs the reference shares
+    # keep its fields one for one
+    ssm_ngroups = 1
+    prefill_ssm_state = False
+    hybrid_layer_ids = ()
+    hybrid_concat_embed = False
+    adapter_rank = 0
+    mlp_act = "silu"
+    attn_scale = 0.0
+
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
@@ -119,6 +131,10 @@ class ArchConfig:
     @property
     def d_inner(self) -> int:  # mamba2 inner width
         return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_bc_width(self) -> int:  # B (or C) over every group
+        return self.ssm_ngroups * self.ssm_state
 
     @property
     def ssm_heads(self) -> int:
@@ -155,11 +171,45 @@ class ArchConfig:
             changes.update(ssm_state=16, ssm_headdim=16, ssm_chunk=8)
         if self.hybrid_attn_every:
             changes.update(hybrid_attn_every=2, num_layers=4)
+        if self.hybrid_layer_ids:  # four uses over both blocks
+            changes.update(num_layers=6, hybrid_layer_ids=(1, 2, 4, 5))
+        if self.adapter_rank:
+            changes["adapter_rank"] = 8
+        if self.hybrid_concat_embed:  # heads as wide as the published ones
+            changes["head_dim"] = 2 * changes["d_model"] // changes["num_heads"]
+        if self.attn_scale:
+            changes["attn_scale"] = (changes["head_dim"] / 2) ** -0.5
         if self.num_kv_heads and self.num_kv_heads == self.num_heads:
             changes["num_kv_heads"] = changes["num_heads"]  # keep MHA structure
         if self.frontend_seq:
             changes["frontend_seq"] = 8
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class Zamba2Config(ArchConfig):
+    """An ``ArchConfig`` with the published Zamba2 structure's fields (its
+    defaults are ``ArchConfig``'s behaviour)."""
+
+    # B and C groups (Mamba2's ngroups): head h reads group h // (H / G),
+    # and the gated norm normalises each group's d_inner / G channels
+    ssm_ngroups: int = 1
+    # prefill writes each mixer's final SSM state and its last ssm_conv - 1
+    # conv inputs into the cache, so decode continues the prompt (the
+    # reference's prefill leaves them at zero)
+    prefill_ssm_state: bool = False
+    # the published hybrid layer (``models.model``): the shared blocks run
+    # before these backbone layers (use u takes block u % n_shared), on
+    # concat(h, embeddings) when ``hybrid_concat_embed``, with no residual
+    # inside, each use's output through its own d x d ``linear`` and added
+    # to its Mamba layer's input; empty: every ``hybrid_attn_every`` layers
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    hybrid_concat_embed: bool = False
+    # a rank-``adapter_rank`` adapter on the shared MLP's gate and up
+    # projections for each use (0: none)
+    adapter_rank: int = 0
+    mlp_act: str = "silu"  # silu | gelu (exact): the gated MLP's activation
+    attn_scale: float = 0.0  # softmax scale; 0: 1 / sqrt(head_dim)
 
 
 def _param_count(c: ArchConfig, active_only: bool = False) -> int:
@@ -195,7 +245,7 @@ def _param_count(c: ArchConfig, active_only: bool = False) -> int:
         return p
 
     def mamba_params() -> int:
-        di, n, h = c.d_inner, c.ssm_state, c.ssm_heads
+        di, n, h = c.d_inner, c.ssm_bc_width, c.ssm_heads
         in_proj = d * (2 * di + 2 * n + h)  # z, x, B, C, dt
         conv = c.ssm_conv * (di + 2 * n)
         out = di * d
@@ -209,7 +259,12 @@ def _param_count(c: ArchConfig, active_only: bool = False) -> int:
         total += c.num_layers * (mamba_params() + d)
         # shared attention blocks (parameters shared across applications)
         shared = attn_params() + mlp_params(c.d_ff) + 2 * d
+        if c.hybrid_concat_embed:  # q, k, v and the first norm on 2d
+            shared += d * (c.num_heads + 2 * c.num_kv_heads) * c.head_dim + d
         total += c.n_shared_attn_blocks * shared
+        # each published use's linear and adapter
+        uses = len(c.hybrid_layer_ids)
+        total += uses * (d * d + c.adapter_rank * (d + 2 * c.d_ff))
         return total
 
     per_layer = attn_params() + 2 * d  # two norms

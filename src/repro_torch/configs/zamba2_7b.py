@@ -7,6 +7,12 @@ vocab=32000, ssm_state=64
 Structure: 81 Mamba2 blocks; every 6th block boundary applies one of 2 *shared*
 transformer blocks (alternating), Zamba2-style.  The shared blocks' parameters
 are reused across all applications; each application has its own KV cache.
+
+This is the JAX reference's ``zamba2-7b``, not the published model: the
+published one (``zamba2-7b-instruct``) runs its shared blocks at 13
+``hybrid_layer_ids`` on concat(h, embeddings) with heads of 224, a
+GELU-gated MLP with per-use adapters, per-use linears added to the Mamba
+input, and 2 groups of B and C.
 """
 
 from .base import ArchConfig, register

@@ -7,11 +7,14 @@
 //
 // The function.  Per batch b, head h and chunk of C steps, with
 // seg = cumsum(dt a) over the chunk, last = seg[C - 1] and G = C_c B_c^T
-// (C x C, shared by every head):
+// (C x C, shared by every head of h's group of B and C: B and C are
+// (B, T, ngroups, N) and head h reads group h / (H / ngroups)):
 //   y   = (G o exp(seg_i - seg_j) o dt_j) X + exp(seg_i) (C h^T) + d X,
 //   h  <- h exp(last) + (X o w)^T B,  w_j = exp(last - seg_j) dt_j,
 // the exponent masked to -inf above the diagonal (exp gives 0, never
-// inf * 0); y in the input type, all recurrence math in f32.
+// inf * 0); y in the input type, all recurrence math in f32.  On request
+// the scan also writes h at the last chunk's end (B, H, P, N, f32), the
+// state a prefill hands to decode.
 //
 // What bounds it on an H100: operations.  Per (batch, head, chunk) the scan
 // does three products (scores X, C h^T and the state update) and G once per
@@ -22,14 +25,15 @@
 // 495 TFLOP/s), above the 0.0082 ms the bytes take.
 //
 // Design: two launches on the caller's stream, the first a prologue.
-//   * The prologue (ssd_gram_kernel, kGramSplit blocks a (chunk, batch))
-//     forms what every head and state slice of a chunk shares: G = C B^T
-//     once per (batch, chunk), a warp a 16 x 8 tile, and seg of every head,
+//   * The prologue (ssd_gram_kernel, kGramSplit blocks a (chunk, batch,
+//     group)) forms what every head and state slice of a chunk shares:
+//     G = C B^T once per (batch, chunk, group), a warp a 16 x 8 tile, and
+//     seg of every head of the group,
 //     a warp a head, added in sequence in f32 as the plain version's cumsum
 //     adds on the card (a shuffle chain; seg reaches hundreds at the serve
 //     shape and exp(seg_i - seg_j) passes its rounding on to y, so a
 //     tree-ordered scan lands ~1x the f32 tolerance away, the serial one
-//     does not).  Both go to a workspace ((B, chunks, cp, cp) and
+//     does not).  Both go to a workspace ((B, chunks, groups, cp, cp) and
 //     (B, chunks, H, cp) f32, 0.7 MB at the serve shape, read back from L2)
 //     that the entry points take from a stream-ordered pool of their own,
 //     since their signatures carry none.  The scan is launched as the
@@ -42,7 +46,8 @@
 //     grid is H ceil(P / 32) x B blocks (192 at the serve shape, two an SM),
 //     and walks the chunks in order; its f32 state (32 x N) stays in shared
 //     memory for the whole walk and is updated in the reference's order,
-//     h = h exp(last) + S, in IEEE f32.
+//     h = h exp(last) + S, in IEEE f32; after the walk it is copied out
+//     when the caller asks for the final state.
 //   * Products on the tensor cores with mma.sync m16n8k8 in TF32, carried at
 //     f32 accuracy as three products (3xTF32): each f32 operand x splits
 //     into big = tf32_rna(x) and small = tf32_rna(x - big), and
@@ -257,34 +262,41 @@ __host__ __device__ __forceinline__ SsdSmem ssd_smem(int cp, int npad,
 }
 
 // ---------------------------------------------------------------- prologue
-// Block (chunk, batch, z), z < kGramSplit, so kGramSplit kGramWarps warps
-// a (batch, chunk): seg of every head (a warp a head) and G = C B^T in the
-// lower triangle's 16 x 8 tiles (a warp a tile), each summed over N in
-// k-steps of 8 as three TF32 products, from zero a piece of kSsdPiece
-// columns, the pieces added in IEEE f32.
+// Block (chunk, batch, z), z < kGramSplit ngroups, so kGramSplit kGramWarps
+// warps a (batch, chunk, group): seg of the group's heads (a warp a head)
+// and G = C B^T in the lower triangle's 16 x 8 tiles (a warp a tile), each
+// summed over N in k-steps of 8 as three TF32 products, from zero a piece
+// of kSsdPiece columns, the pieces added in IEEE f32.
 template <typename T>
 __global__ void __launch_bounds__(kGramThreads)
 ssd_gram_kernel(const float* __restrict__ dt, const float* __restrict__ a_neg,
                 const T* __restrict__ bm, const T* __restrict__ cm,
                 float* __restrict__ gram, float* __restrict__ segs,
-                int seqlen, int nheads, int N, int C) {
+                int seqlen, int nheads, int N, int ngroups, int C) {
   constexpr bool kX = ExactTf32<T>::value;  // B and C exact in TF32
-  constexpr int kAll = kGramSplit * kGramWarps;  // warps a (batch, chunk)
+  constexpr int kAll = kGramSplit * kGramWarps;  // warps a (batch, chunk,
+                                                 // group)
   // the scan's blocks may start (and stage their first piece) meanwhile
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int cp = (C + 15) & ~15;
   const int nch = seqlen / C;
   const int lane = threadIdx.x & 31;
-  const int gw = blockIdx.z * kGramWarps + (threadIdx.x >> 5);
+  const int grp = blockIdx.z / kGramSplit;
+  const int gw =
+      (blockIdx.z - grp * kGramSplit) * kGramWarps + (threadIdx.x >> 5);
   const int g = lane >> 2, t = lane & 3;
   const size_t cell = static_cast<size_t>(blockIdx.y) * nch + blockIdx.x;
   const size_t row0 = static_cast<size_t>(blockIdx.y) * seqlen +
                       static_cast<size_t>(blockIdx.x) * C;
+  const size_t gn = static_cast<size_t>(ngroups) * N;  // a step's B (or C)
+  bm += static_cast<size_t>(grp) * N;
+  cm += static_cast<size_t>(grp) * N;
+  const int hpg = nheads / ngroups;
 
   // seg_i = ((dt_0 a + dt_1 a) + ...) + dt_i a in f32, in sequence: every
   // lane carries the sum and keeps its own two steps (dt is 0 past C, so
   // seg stays at last there)
-  for (int hh = gw; hh < nheads; hh += kAll) {
+  for (int hh = grp * hpg + gw; hh < (grp + 1) * hpg; hh += kAll) {
     const float a = a_neg[hh];
     const float d0 =
         lane < C ? rn_mul(dt[(row0 + lane) * nheads + hh], a) : 0.0f;
@@ -307,7 +319,7 @@ ssd_gram_kernel(const float* __restrict__ dt, const float* __restrict__ a_neg,
   }
 
   // G: band r of 16 rows holds 2 (r + 1) tiles of 8 columns
-  float* gout = gram + cell * cp * cp;
+  float* gout = gram + (cell * ngroups + grp) * cp * cp;
   const int bands = cp / 16, tiles = bands * (bands + 1);
   for (int tau = gw; tau < tiles; tau += kAll) {
     int r = 0;
@@ -324,11 +336,11 @@ ssd_gram_kernel(const float* __restrict__ dt, const float* __restrict__ a_neg,
         const int n = n0 + kk * 8 + 2 * t;
         const float2 z = make_float2(0.0f, 0.0f);
         const float2 c0 =
-            n < N && i0 < C ? pair_f32(cm + (row0 + i0) * N + n) : z;
+            n < N && i0 < C ? pair_f32(cm + (row0 + i0) * gn + n) : z;
         const float2 c1 =
-            n < N && i0 + 8 < C ? pair_f32(cm + (row0 + i0 + 8) * N + n) : z;
+            n < N && i0 + 8 < C ? pair_f32(cm + (row0 + i0 + 8) * gn + n) : z;
         const float2 bv =
-            n < N && j0 < C ? pair_f32(bm + (row0 + j0) * N + n) : z;
+            n < N && j0 < C ? pair_f32(bm + (row0 + j0) * gn + n) : z;
         fa[kk] = frag_a<kX>(c0.x, c1.x, c0.y, c1.y);
         fb[kk] = frag_b<kX>(bv.x, bv.y);
       }
@@ -353,8 +365,8 @@ ssd_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                const T* __restrict__ bm, const T* __restrict__ cm,
                const float* __restrict__ dskip,
                const float* __restrict__ gram, const float* __restrict__ segs,
-               T* __restrict__ y, int seqlen, int nheads, int P, int N,
-               int C) {
+               T* __restrict__ y, float* __restrict__ state_out, int seqlen,
+               int nheads, int P, int N, int ngroups, int C) {
   constexpr bool kX = ExactTf32<T>::value;  // x, B and C exact in TF32
   constexpr int kGran = 4 * sizeof(T);      // one cp.async: 4 elements
   constexpr int kPieceGran = kSsdPiece / 4;
@@ -384,9 +396,14 @@ ssd_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int pchunks = (P + kSsdWidth - 1) / kSsdWidth;
   const int h = blockIdx.x / pchunks;
   const int pb = (blockIdx.x - h * pchunks) * kSsdWidth;  // block's first p
+  const int grp = h / (nheads / ngroups);  // h's group of B and C
   const float dd = dskip[h];
   const size_t row0 = static_cast<size_t>(blockIdx.y) * seqlen;
-  const float* gram_b = gram + static_cast<size_t>(blockIdx.y) * nch * cp * cp;
+  const size_t gn = static_cast<size_t>(ngroups) * N;  // a step's B (or C)
+  const size_t gram_cell = static_cast<size_t>(ngroups) * cp * cp;
+  const float* gram_b = gram +
+                        static_cast<size_t>(blockIdx.y) * nch * gram_cell +
+                        static_cast<size_t>(grp) * cp * cp;
   const float* seg_bh =
       segs + (static_cast<size_t>(blockIdx.y) * nch * nheads + h) * cp;
   const bool ywarp = warp < 4;  // else an S warp
@@ -408,7 +425,9 @@ ssd_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int i = tid; i < cp * kPieceGran; i += kSsdThreads) {
       const int j = i / kPieceGran, c4 = (i - j * kPieceGran) * 4;
       const bool ok = j < C && n0 + c4 < N;
-      const size_t off = ok ? (row0 + t0 + j) * N + n0 + c4 : 0;
+      const size_t off =
+          ok ? (row0 + t0 + j) * gn + static_cast<size_t>(grp) * N + n0 + c4
+             : 0;
       const uint32_t o = (j * qs + c4) * sizeof(T);
       cp_async<kGran>(cdst + o, cm + off, ok);
       cp_async<kGran>(bdst + o, bm + off, ok);
@@ -605,7 +624,7 @@ ssd_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     // over the chunk's steps in halves of kSsdPiece, each summed from zero:
     // Y warp q takes the first half, S warp q the second, of the same
     // columns (my_i), and hands its sum over in shared memory
-    const float* gck = gram_b + static_cast<size_t>(ck) * cp * cp;
+    const float* gck = gram_b + static_cast<size_t>(ck) * gram_cell;
     const int hf = ywarp ? 0 : 1;
     const bool halves = cp > kSsdPiece;
     float part[kSsdUnits][2][4];
@@ -705,6 +724,15 @@ ssd_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       }
     }
   }
+  if (state_out == nullptr) return;
+  // the state at the last chunk's end: this block's rows of h
+  __syncthreads();
+  float* so =
+      state_out + (static_cast<size_t>(blockIdx.y) * nheads + h) * P * N;
+  for (int i = tid; i < rows * N; i += kSsdThreads) {
+    const int r = i / N, n = i - r * N;
+    if (pb + r < P) so[static_cast<size_t>(pb + r) * N + n] = hs[r * hsd + n];
+  }
 }
 
 size_t ssd_smem_bytes(int P, int N, int C, int esize) {
@@ -746,10 +774,12 @@ cudaError_t ssd_workspace(size_t bytes, cudaStream_t stream, void** out) {
 
 template <typename T>
 int launch_ssd(const T* x, const float* dt, const float* a_neg, const T* b,
-               const T* c, const float* d, T* y, int batch, int seqlen,
-               int nheads, int P, int N, int C, cudaStream_t stream) {
+               const T* c, const float* d, T* y, float* state, int batch,
+               int seqlen, int nheads, int P, int N, int ngroups, int C,
+               cudaStream_t stream) {
   if (batch <= 0 || nheads <= 0 || C < 4 || C > kSsdMaxChunk || C % 4 ||
-      P % 4 || N % 4 || P <= 0 || N <= 0 || seqlen <= 0 || seqlen % C)
+      P % 4 || N % 4 || P <= 0 || N <= 0 || seqlen <= 0 || seqlen % C ||
+      ngroups <= 0 || nheads % ngroups || ngroups * kGramSplit > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = ssd_smem_bytes(P, N, C, sizeof(T));
   if (smem > kSsdMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -766,7 +796,7 @@ int launch_ssd(const T* x, const float* dt, const float* a_neg, const T* b,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int cp = (C + 15) & ~15, nch = seqlen / C;
-  const size_t gram_n = static_cast<size_t>(batch) * nch * cp * cp;
+  const size_t gram_n = static_cast<size_t>(batch) * nch * ngroups * cp * cp;
   const size_t seg_n = static_cast<size_t>(batch) * nch * nheads * cp;
   void* ws = nullptr;
   cudaError_t err =
@@ -774,9 +804,9 @@ int launch_ssd(const T* x, const float* dt, const float* a_neg, const T* b,
   if (err != cudaSuccess) return static_cast<int>(err);
   float* gram = static_cast<float*>(ws);
   float* segs = gram + gram_n;
-  ssd_gram_kernel<T><<<dim3(nch, batch, kGramSplit), kGramThreads, 0,
-                       stream>>>(
-      dt, a_neg, b, c, gram, segs, seqlen, nheads, N, C);
+  ssd_gram_kernel<T><<<dim3(nch, batch, kGramSplit * ngroups), kGramThreads,
+                       0, stream>>>(
+      dt, a_neg, b, c, gram, segs, seqlen, nheads, N, ngroups, C);
   err = cudaGetLastError();
   if (err == cudaSuccess) {
     cudaLaunchConfig_t cfg = {};
@@ -791,8 +821,8 @@ int launch_ssd(const T* x, const float* dt, const float* a_neg, const T* b,
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, ssd_mma_kernel<T>, x, dt, b, c, d,
                              static_cast<const float*>(gram),
-                             static_cast<const float*>(segs), y, seqlen,
-                             nheads, P, N, C);
+                             static_cast<const float*>(segs), y, state,
+                             seqlen, nheads, P, N, ngroups, C);
   }
   const cudaError_t freed = cudaFreeAsync(ws, stream);
   return static_cast<int>(err != cudaSuccess ? err : freed);
@@ -802,32 +832,35 @@ int launch_ssd(const T* x, const float* dt, const float* a_neg, const T* b,
 }  // namespace repro_torch
 
 // y (B, T, H, P) = SSD(x, dt, a_neg, b, c, d).  x (B, T, H, P), b and c
-// (B, T, N) in the entry's type; dt (B, T, H), a_neg = -exp(A_log) (H,) and
-// d (H,) f32; all contiguous on the stream's device.  T % chunk == 0,
-// chunk a multiple of 4 up to 64, P and N multiples of 4, and the shared
-// memory of ssd_smem within a block's 227 KiB.  Two launches (the prologue,
-// then the scan) and a workspace from the library's pool, returned to it
-// on the stream.  Returns the first CUDA error (0 on success).
+// (B, T, ngroups, N) in the entry's type; dt (B, T, H), a_neg =
+// -exp(A_log) (H,) and d (H,) f32; all contiguous on the stream's device.
+// state, unless null, receives h at the last chunk's end (B, H, P, N, f32).
+// T % chunk == 0, chunk a multiple of 4 up to 64, P and N multiples of 4,
+// H a multiple of ngroups, and the shared memory of ssd_smem within a
+// block's 227 KiB.  Two launches (the prologue, then the scan) and a
+// workspace from the library's pool, returned to it on the stream.
+// Returns the first CUDA error (0 on success).
 extern "C" int ssd_scan_f32(const float* x, const float* dt,
                             const float* a_neg, const float* b,
                             const float* c, const float* d, float* y,
-                            int batch, int seqlen, int nheads, int headdim,
-                            int nstate, int chunk, cudaStream_t stream) {
-  return repro_torch::launch_ssd<float>(x, dt, a_neg, b, c, d, y, batch,
-                                        seqlen, nheads, headdim, nstate,
-                                        chunk, stream);
+                            float* state, int batch, int seqlen, int nheads,
+                            int headdim, int nstate, int ngroups, int chunk,
+                            cudaStream_t stream) {
+  return repro_torch::launch_ssd<float>(x, dt, a_neg, b, c, d, y, state,
+                                        batch, seqlen, nheads, headdim,
+                                        nstate, ngroups, chunk, stream);
 }
 
 extern "C" int ssd_scan_bf16(const __nv_bfloat16* x, const float* dt,
                              const float* a_neg, const __nv_bfloat16* b,
                              const __nv_bfloat16* c, const float* d,
-                             __nv_bfloat16* y, int batch, int seqlen,
-                             int nheads, int headdim, int nstate, int chunk,
-                             cudaStream_t stream) {
+                             __nv_bfloat16* y, float* state, int batch,
+                             int seqlen, int nheads, int headdim, int nstate,
+                             int ngroups, int chunk, cudaStream_t stream) {
   return repro_torch::launch_ssd<__nv_bfloat16>(x, dt, a_neg, b, c, d, y,
-                                                batch, seqlen, nheads,
-                                                headdim, nstate, chunk,
-                                                stream);
+                                                state, batch, seqlen, nheads,
+                                                headdim, nstate, ngroups,
+                                                chunk, stream);
 }
 
 // Dynamic shared memory of one scan block (ssd_smem) for x, B and C of

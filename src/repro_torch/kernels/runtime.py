@@ -93,8 +93,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "changepoint_scan": [_P] * 3 + [_I] * 4 + [_P] * 3 + [_I, _I, _P],
     "windowvet_fused": [_P] * 5 + [_I, _I, _I, _I, _P],
-    "ssd_scan_f32": [_P] * 7 + [_I] * 6 + [_P],
-    "ssd_scan_bf16": [_P] * 7 + [_I] * 6 + [_P],
+    "ssd_scan_f32": [_P] * 8 + [_I] * 7 + [_P],
+    "ssd_scan_bf16": [_P] * 8 + [_I] * 7 + [_P],
     "ssd_scan_smem_bytes": [_I] * 4,
     "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _P],
     "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _P],

@@ -12,8 +12,10 @@ state by ``exp(seg_last)``.  ``ssd_ref`` is the literal stepwise recurrence
     y_t = c_t . h_t + d_h * x_t
 
 Shapes: x (B,T,H,P), dt (B,T,H), a_neg / a_log (H,), b and c (B,T,N)
-shared by every head, d (H,) -> y (B,T,H,P) in x's dtype; all recurrence
-math in f32.
+shared by every head or (B,T,G,N) in G groups, head h reading group
+h // (H / G), d (H,) -> y (B,T,H,P) in x's dtype; all recurrence math in
+f32.  With ``final_state=True`` both also return the f32 state h_T
+(B,H,P,N).
 """
 
 from __future__ import annotations
@@ -23,8 +25,15 @@ import torch
 __all__ = ["ssd_ref", "ssd_scan_plain"]
 
 
-def ssd_scan_plain(x, dt, a_neg, b, c, d, *, chunk: int = 64) -> torch.Tensor:
-    """Chunked SSD scan; ``T`` must be a multiple of ``chunk``.
+def _per_head(t, h: int):
+    """B or C (..., G, N) as one row a head (..., H, N)."""
+    return t.repeat_interleave(h // t.shape[-2], dim=-2)
+
+
+def ssd_scan_plain(x, dt, a_neg, b, c, d, *, chunk: int = 64,
+                   final_state: bool = False):
+    """Chunked SSD scan; ``T`` must be a multiple of ``chunk``.  Returns
+    y, or (y, h_T) with ``final_state``.
 
     Raises:
         ValueError: ``T % chunk != 0`` (the reference asserts the same).
@@ -35,10 +44,11 @@ def ssd_scan_plain(x, dt, a_neg, b, c, d, *, chunk: int = 64) -> torch.Tensor:
         raise ValueError(f"sequence length {t} is not a multiple of the SSD "
                          f"chunk {chunk}")
     nc = t // chunk
+    grouped = b.ndim == 4
     xf = x.float().reshape(bsz, nc, chunk, h, p)
     dtf = dt.float().reshape(bsz, nc, chunk, h)
-    bf = b.float().reshape(bsz, nc, chunk, n)
-    cf = c.float().reshape(bsz, nc, chunk, n)
+    bf = b.float().reshape(bsz, nc, chunk, *b.shape[2:])
+    cf = c.float().reshape(bsz, nc, chunk, *c.shape[2:])
     a = a_neg.float()
     dskip = d.float()
 
@@ -48,16 +58,25 @@ def ssd_scan_plain(x, dt, a_neg, b, c, d, *, chunk: int = 64) -> torch.Tensor:
     li = seg[:, :, :, None, :] - seg[:, :, None, :, :]  # (B,NC,C,C,H)
     tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
     decay = torch.exp(torch.where(tri[None, None, :, :, None], li, -torch.inf))
-    cb = torch.einsum("zgin,zgjn->zgij", cf, bf)
-    scores = cb[..., None] * decay * dtf[:, :, None, :, :]
+    if grouped:  # C B^T once per group, read by the group's heads
+        cb = torch.einsum("zgiyn,zgjyn->zgijy", cf, bf).repeat_interleave(
+            h // b.shape[2], dim=-1)
+    else:
+        cb = torch.einsum("zgin,zgjn->zgij", cf, bf)[..., None]
+    scores = cb * decay * dtf[:, :, None, :, :]
     y = torch.einsum("zgijh,zgjhp->zgihp", scores, xf)
 
     # Chunk summaries S_g = sum_j exp(seg_last - seg_j) dt_j x_j b_j^T.
     last = seg[:, :, -1:, :]
     w = torch.exp(last - seg) * dtf
-    s_chunk = torch.einsum("zgch,zgchp,zgcn->zghpn", w, xf, bf)
+    if grouped:
+        s_chunk = torch.einsum("zgch,zgchp,zgchn->zghpn", w, xf,
+                               _per_head(bf, h))
+        c_seg = _per_head(cf, h) * torch.exp(seg)[..., None]
+    else:
+        s_chunk = torch.einsum("zgch,zgchp,zgcn->zghpn", w, xf, bf)
+        c_seg = cf[:, :, :, None, :] * torch.exp(seg)[..., None]
     chunk_decay = torch.exp(last[:, :, 0])  # (B,NC,H)
-    c_seg = cf[:, :, :, None, :] * torch.exp(seg)[..., None]  # (B,NC,C,H,N)
 
     state = torch.zeros(bsz, h, p, n, dtype=torch.float32, device=x.device)
     inter = []
@@ -65,21 +84,28 @@ def ssd_scan_plain(x, dt, a_neg, b, c, d, *, chunk: int = 64) -> torch.Tensor:
         inter.append(torch.einsum("zchn,zhpn->zchp", c_seg[:, g], state))
         state = state * chunk_decay[:, g, :, None, None] + s_chunk[:, g]
     y = y + torch.stack(inter, dim=1) + dskip[:, None] * xf
-    return y.reshape(bsz, t, h, p).to(x.dtype)
+    y = y.reshape(bsz, t, h, p).to(x.dtype)
+    return (y, state) if final_state else y
 
 
-def ssd_ref(x, dt, a_log, b, c, d) -> torch.Tensor:
-    """Stepwise SSD recurrence, one token at a time (the tests' oracle)."""
+def ssd_ref(x, dt, a_log, b, c, d, *, final_state: bool = False):
+    """Stepwise SSD recurrence, one token at a time (the tests' oracle).
+    Returns y, or (y, h_T) with ``final_state``."""
     bsz, t, h, p = x.shape
     n = b.shape[-1]
     a = -torch.exp(a_log.float())
     xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    if b.ndim == 4:
+        bf, cf = _per_head(bf, h), _per_head(cf, h)
+        b_eq, c_eq = "bhn", "bhn"
+    else:
+        b_eq, c_eq = "bn", "bn"
     state = torch.zeros(bsz, h, p, n, dtype=torch.float32, device=x.device)
     ys = []
     for i in range(t):
         dec = torch.exp(dtf[:, i] * a)  # (B,H)
         state = state * dec[..., None, None] + torch.einsum(
-            "bh,bhp,bn->bhpn", dtf[:, i], xf[:, i], bf[:, i])
-        ys.append(torch.einsum("bn,bhpn->bhp", cf[:, i], state))
+            f"bh,bhp,{b_eq}->bhpn", dtf[:, i], xf[:, i], bf[:, i])
+        ys.append(torch.einsum(f"{c_eq},bhpn->bhp", cf[:, i], state))
     y = torch.stack(ys, dim=1) + d.float()[None, None, :, None] * xf
-    return y.to(x.dtype)
+    return (y.to(x.dtype), state) if final_state else y.to(x.dtype)

@@ -1,7 +1,9 @@
 """Block-level assembly (the port of ``repro.models.blocks``): the GQA/SWA
 and MLA attention blocks with their decode caches, the pre-norm transformer
-block with a dense or an MoE feed-forward, and the Mamba2 block, each with
-its decode-step variant.
+block with a dense or an MoE feed-forward, the Mamba2 block, and the use of
+a shared block in Zamba2's published hybrid layer (``hybrid_*``: the
+attention on concat(h, embeddings), no residual inside, a per-use adapter
+and ``linear``), each with its decode-step variant.
 
 **The decode cache is written in place.**  ``attn_prefill`` and
 ``attn_decode`` (and their MLA forms) write the new entries into the cache
@@ -48,26 +50,29 @@ from .layers import NULL_CTX, ShardCtx
 
 __all__ = ["attn_apply", "attn_cache_shape", "attn_decode", "attn_init",
            "attn_prefill", "block_apply", "block_decode", "block_init",
-           "block_prefill", "mamba_block_apply", "mamba_block_decode",
-           "mamba_block_init", "mamba_state_shape", "mla_apply",
-           "mla_decode", "mla_init", "mla_prefill"]
+           "block_prefill", "hybrid_apply", "hybrid_decode",
+           "hybrid_prefill", "hybrid_use_init", "mamba_block_apply",
+           "mamba_block_decode", "mamba_block_init", "mamba_state_shape",
+           "mla_apply", "mla_decode", "mla_init", "mla_prefill"]
 
 
 # =============================================================== GQA attention
 
 
-def attn_init(gen: torch.Generator, cfg, dtype):
-    """Projections stored flat (D, H*Dh), as the reference stores them; an
-    MLA config's are ``mla_init``'s."""
+def attn_init(gen: torch.Generator, cfg, dtype, d_in: int = 0):
+    """Projections stored flat (D, H*Dh), as the reference stores them, q, k
+    and v from ``d_in`` (default D) wide inputs; an MLA config's are
+    ``mla_init``'s."""
     if cfg.attention == "mla":
         return mla_init(gen, cfg, dtype)
     d, kh, dh = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
     h = cfg.num_heads_padded
+    d_in = d_in or d
     dev = gen.device
     p = {
-        "wq": L.dense_init(gen, d, (h * dh,), dtype),
-        "wk": L.dense_init(gen, d, (kh * dh,), dtype),
-        "wv": L.dense_init(gen, d, (kh * dh,), dtype),
+        "wq": L.dense_init(gen, d_in, (h * dh,), dtype),
+        "wk": L.dense_init(gen, d_in, (kh * dh,), dtype),
+        "wv": L.dense_init(gen, d_in, (kh * dh,), dtype),
         "wo": L.dense_init(gen, h * dh, (d,), dtype),
     }
     if cfg.qkv_bias:
@@ -108,6 +113,11 @@ def _window(cfg) -> int:
     return cfg.swa_window if cfg.attention == "swa" else 0
 
 
+def _scale(cfg):
+    """The config's softmax scale, or None for 1 / sqrt(head_dim)."""
+    return cfg.attn_scale or None
+
+
 def _attend(p, x, cfg, q_chunk, plain, ctx: ShardCtx = NULL_CTX,
             hints: bool = False):
     """(out, k, v) of full-sequence attention; ``hints`` pins q, k, v and
@@ -120,7 +130,7 @@ def _attend(p, x, cfg, q_chunk, plain, ctx: ShardCtx = NULL_CTX,
         q, k, v = (ctx.constrain(t, ctx.dp, None, ctx.tp_axis, None)
                    for t in (q, k, v))
     o = L.attention(q, k, v, causal=cfg.causal, window=_window(cfg),
-                    q_chunk=q_chunk, plain=plain, ctx=ctx)
+                    q_chunk=q_chunk, scale=_scale(cfg), plain=plain, ctx=ctx)
     if hints:
         o = ctx.constrain(o, ctx.dp, None, ctx.tp_axis, None)
     hm = _head_mask(cfg, o.dtype, o.device)
@@ -239,7 +249,8 @@ def _gqa_decode(p, x, cfg, cache, pos):
         vc = _kv_dequant(cache["v"], cache["v_scale"], x.dtype)
     else:
         kc, vc = cache["k"], cache["v"]
-    o = L.decode_attention(q, kc, vc, pos + 1, window=_window(cfg))
+    o = L.decode_attention(q, kc, vc, pos + 1, window=_window(cfg),
+                           scale=_scale(cfg))
     hm = _head_mask(cfg, o.dtype, o.device)
     if hm is not None:
         o = o * hm
@@ -384,13 +395,15 @@ def mla_decode(p, x, cfg, cache, pos):
 # ========================================================== transformer block
 
 
-def block_init(gen: torch.Generator, cfg, dtype, *, moe: bool = False):
+def block_init(gen: torch.Generator, cfg, dtype, *, moe: bool = False,
+               d_in: int = 0):
     """A block's parameters: the MoE feed-forward (``"moe"``) when ``moe``,
-    else the gated MLP (``"mlp"``)."""
+    else the gated MLP (``"mlp"``); the first norm and q, k, v on ``d_in``
+    (default D) wide inputs."""
     dev = gen.device
     p = {
-        "ln1": torch.ones(cfg.d_model, dtype=dtype, device=dev),
-        "attn": attn_init(gen, cfg, dtype),
+        "ln1": torch.ones(d_in or cfg.d_model, dtype=dtype, device=dev),
+        "attn": attn_init(gen, cfg, dtype, d_in),
         "ln2": torch.ones(cfg.d_model, dtype=dtype, device=dev),
     }
     if moe:
@@ -447,6 +460,70 @@ def block_decode(p, x, cfg, cache, pos, ctx: ShardCtx = NULL_CTX):
     return _feed_forward(p, x + a, cfg, ctx)[0], cache
 
 
+# ============================================= Zamba2's published hybrid layer
+
+
+def hybrid_use_init(gen: torch.Generator, cfg, dtype):
+    """One use's own parameters: its ``linear`` (D, D) and, with
+    ``adapter_rank`` r, its adapter on gate and up, ``adapter_a`` (D, r)
+    and ``adapter_b`` (r, 2 F)."""
+    d, r = cfg.d_model, cfg.adapter_rank
+    p = {"linear": L.dense_init(gen, d, (d,), dtype)}
+    if r:
+        p["adapter_a"] = L.dense_init(gen, d, (r,), dtype)
+        p["adapter_b"] = L.dense_init(gen, r, (2 * cfg.d_ff,), dtype)
+    return p
+
+
+def _hybrid_in(p, x, emb, cfg):
+    """The shared block's normed input: concat(h, embeddings) under
+    ``hybrid_concat_embed``, else h."""
+    if cfg.hybrid_concat_embed:
+        x = torch.cat([x, emb], dim=-1)
+    return L.rms_norm(x, p["ln1"], cfg.norm_eps)
+
+
+def _hybrid_out(p, u, a, cfg, ctx: ShardCtx = NULL_CTX):
+    """The shared block's MLP on its normed attention output (no residual),
+    with use ``u``'s adapter, through use ``u``'s ``linear``."""
+    t = L.rms_norm(a, p["ln2"], cfg.norm_eps)
+    adapter = (u["adapter_a"], u["adapter_b"]) if "adapter_a" in u else None
+    y = L.mlp_apply(p["mlp"], t, ctx, act=cfg.mlp_act, adapter=adapter)
+    return y @ u["linear"]
+
+
+def hybrid_apply(p, u, x, emb, cfg, ctx: ShardCtx = NULL_CTX, *,
+                 q_chunk: int = 1024, plain: bool = False, use: int = 0,
+                 block: int = 0):
+    """One use of shared block ``p`` (use ``u``'s parameters) over the full
+    sequence: ``linear_u(mlp(norm(o_proj(attn(norm(concat(h, e)))))))``,
+    what the published hybrid layer adds to its Mamba layer's input."""
+    with region("model.hybrid", use=use, block=block):
+        a = attn_apply(p["attn"], _hybrid_in(p, x, emb, cfg), cfg, ctx,
+                       q_chunk=q_chunk, plain=plain)
+        return _hybrid_out(p, u, a, cfg, ctx)
+
+
+def hybrid_prefill(p, u, x, emb, cfg, cache, ctx: ShardCtx = NULL_CTX, *,
+                   q_chunk: int = 1024, plain: bool = False, use: int = 0,
+                   block: int = 0):
+    """``hybrid_apply`` over a prompt, K/V written into the use's
+    ``cache``."""
+    with region("model.hybrid", use=use, block=block):
+        a, _ = attn_prefill(p["attn"], _hybrid_in(p, x, emb, cfg), cfg,
+                            cache, ctx, q_chunk=q_chunk, plain=plain)
+        return _hybrid_out(p, u, a, cfg, ctx)
+
+
+def hybrid_decode(p, u, x, emb, cfg, cache, pos, ctx: ShardCtx = NULL_CTX, *,
+                  use: int = 0, block: int = 0):
+    """One decode step of a use of the shared block."""
+    with region("model.hybrid", use=use, block=block):
+        a, _ = attn_decode(p["attn"], _hybrid_in(p, x, emb, cfg), cfg, cache,
+                           pos)
+        return _hybrid_out(p, u, a, cfg, ctx)
+
+
 # ================================================================ Mamba block
 
 
@@ -456,24 +533,32 @@ def mamba_block_init(gen: torch.Generator, cfg, dtype):
 
 
 def mamba_block_apply(p, x, cfg, ctx: ShardCtx = NULL_CTX, *,
-                      plain: bool = False):
+                      plain: bool = False, add=None,
+                      final_state: bool = False):
+    """``x + mamba(norm(x + add))`` (``add`` a published hybrid layer's
+    shared-block output; none elsewhere); with ``final_state`` (that, the
+    mixer's decode state after the last step)."""
     with region("model.ssm"):
         x = _gathered(x, ctx)
-        return x + L.mamba_apply(p["mixer"],
-                                 L.rms_norm(x, p["ln"], cfg.norm_eps), cfg,
-                                 plain=plain, ctx=ctx)
+        z = x if add is None else x + add
+        y = L.mamba_apply(p["mixer"], L.rms_norm(z, p["ln"], cfg.norm_eps),
+                          cfg, plain=plain, ctx=ctx, final_state=final_state)
+        if final_state:
+            return x + y[0], y[1]
+        return x + y
 
 
-def mamba_block_decode(p, x, cfg, state):
+def mamba_block_decode(p, x, cfg, state, add=None):
     with region("model.ssm"):
+        z = x if add is None else x + add
         y, new_state = L.mamba_decode_step(
-            p["mixer"], L.rms_norm(x, p["ln"], cfg.norm_eps), cfg, state)
+            p["mixer"], L.rms_norm(z, p["ln"], cfg.norm_eps), cfg, state)
         return x + y, new_state
 
 
 def mamba_state_shape(cfg, batch: int, dtype, device=None):
     """Zero decode state of one Mamba2 block."""
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_bc_width
     return {
         "h": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_headdim,
                           cfg.ssm_state), dtype=torch.float32, device=device),

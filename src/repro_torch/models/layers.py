@@ -65,7 +65,7 @@ from ..obs.trace import region
 
 __all__ = ["NULL_CTX", "Routing", "RoutingLog", "ShardCtx", "apply_rope",
            "attention", "causal_conv1d", "decode_attention", "dense_init",
-           "embed_init", "grad_as_forward", "mamba_apply",
+           "embed_init", "gated_norm", "grad_as_forward", "mamba_apply",
            "mamba_decode_step", "mamba_init", "mesh_scope", "mlp_apply",
            "mlp_init", "moe_apply", "moe_capacity", "moe_init", "moe_local",
            "recording", "rms_norm", "rope_freqs", "routing_flips",
@@ -386,13 +386,22 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, dtype):
             "down": dense_init(gen, ff, (d,), dtype)}
 
 
-def mlp_apply(p, x, ctx: ShardCtx = NULL_CTX, *, shared: int = 0):
-    """Gated MLP: ``(silu(x gate) * (x up)) down``.  On a mesh the hidden
-    is pinned to (dp, None, tp), as the reference pins it.  ``shared`` (1
-    for an MoE layer's shared experts) labels its ``model.ffn`` span."""
+def mlp_apply(p, x, ctx: ShardCtx = NULL_CTX, *, shared: int = 0,
+              act: str = "silu", adapter=None):
+    """Gated MLP: ``(act(x gate) * (x up)) down``, ``act`` SiLU or exact
+    GELU.  ``adapter`` (A (D, r), B (r, 2 F)) adds ``x A B`` to the gate
+    and up projections, gate first (Zamba2's per-use adapters).  On a mesh
+    the hidden is pinned to (dp, None, tp), as the reference pins it.
+    ``shared`` (1 for an MoE layer's shared experts) labels its
+    ``model.ffn`` span."""
     with region("model.ffn", shared=shared):
-        h = F.silu(grad_as_forward(x @ p["gate"])) * grad_as_forward(
-            x @ p["up"])
+        gate, up = x @ p["gate"], x @ p["up"]
+        if adapter is not None:
+            extra = (x @ adapter[0]) @ adapter[1]
+            gate = gate + extra[..., :gate.shape[-1]]
+            up = up + extra[..., gate.shape[-1]:]
+        fn = {"silu": F.silu, "gelu": F.gelu}[act]
+        h = fn(grad_as_forward(gate)) * grad_as_forward(up)
         if ctx.mesh is not None and h.ndim == 3:
             h = ctx.constrain(h, ctx.dp, None, ctx.tp_axis)
         return h @ p["down"]
@@ -743,7 +752,7 @@ def mamba_init(gen: torch.Generator, cfg, dtype):
     convolutions of x (``conv_wx``, ``conv_bx``) and of B and C
     (``conv_wbc``, ``conv_bbc``), whose inner and head dims shard over
     ``"model"``."""
-    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_bc_width, cfg.ssm_heads
     dev = gen.device
 
     def conv(width):
@@ -826,11 +835,12 @@ def grad_as_forward(t):
 
 def _project(p, x, cfg):
     """(z, xin, b_in, c_in, dt) of the mixer's input projection, from the
-    fused ``in_proj`` or the split projections."""
+    fused ``in_proj`` or the split projections; B and C hold every group's
+    ``ssm_state`` columns, group by group."""
     if "wz" in p:
         return tuple(grad_as_forward(x @ p[k])
                      for k in ("wz", "wx", "wb", "wc", "wdt"))
-    di, n = cfg.d_inner, cfg.ssm_state
+    di, n = cfg.d_inner, cfg.ssm_bc_width
     return torch.split(grad_as_forward(x @ p["in_proj"]),
                        [di, di, n, n, cfg.ssm_heads], dim=-1)
 
@@ -844,23 +854,44 @@ def _conv_weights(p):
     return p["conv_w"], p["conv_b"]
 
 
+def gated_norm(y, z, weight, groups: int = 1, eps: float = 1e-5):
+    """Mamba2's gated RMSNorm: ``y * silu(z)`` normalised over each of
+    ``groups`` equal groups of its channels, then scaled by ``weight``."""
+    g = y * F.silu(z)
+    if groups == 1:
+        return rms_norm(g, weight, eps)
+    gf = g.float().reshape(*g.shape[:-1], groups, g.shape[-1] // groups)
+    gf = gf * torch.rsqrt(torch.mean(gf * gf, dim=-1, keepdim=True) + eps)
+    return (gf.reshape(g.shape) * weight.float()).to(g.dtype)
+
+
 def mamba_apply(p, x, cfg, *, plain: bool = False,
-                ctx: ShardCtx = NULL_CTX):
-    """Full-sequence Mamba2 mixer.  x: (B,T,D) -> (B,T,D).
+                ctx: ShardCtx = NULL_CTX, final_state: bool = False):
+    """Full-sequence Mamba2 mixer.  x: (B,T,D) -> (B,T,D); with
+    ``final_state`` (y, the decode state after the last step: ``"h"``
+    (B,H,P,N) f32 from the scan, ``"conv"`` the last ``ssm_conv - 1`` conv
+    inputs, zeros before the first).
 
     The split layout convolves x and (B, C) apart (each channel is its
     own), so x's channels stay sharded over ``"model"``; on a mesh the
     conv runs through ``local_map`` on each rank's batch (and channels),
-    the SSD on each rank's heads.
+    the SSD on each rank's heads.  With ``ssm_ngroups`` G > 1, B and C go
+    to the scan as (B,T,G,N) and the gated norm is per group.
 
     Raises:
         ValueError: ``T % cfg.ssm_chunk != 0`` (the SSD scan's chunking).
     """
     bsz, t, _ = x.shape
-    di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    di, n, h, hp = cfg.d_inner, cfg.ssm_bc_width, cfg.ssm_heads, \
+        cfg.ssm_headdim
+    groups = cfg.ssm_ngroups
     z, xin, b_in, c_in, dt = _project(p, x, cfg)
     conv = causal_conv1d if ctx.mesh is None else functools.partial(
         _conv_on_mesh, ctx=ctx)
+    if final_state:
+        k = cfg.ssm_conv - 1
+        pre = torch.cat([xin, b_in, c_in], dim=-1)
+        conv_state = F.pad(pre, (0, 0, max(0, k - t), 0))[:, -k:]
     if "wz" in p:
         xin = conv(xin, p["conv_wx"], p["conv_bx"])
         bc = conv(torch.cat([b_in, c_in], dim=-1), p["conv_wbc"],
@@ -872,16 +903,24 @@ def mamba_apply(p, x, cfg, *, plain: bool = False,
         xin, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
     xin = F.silu(xin)
     b_in, c_in = F.silu(b_in), F.silu(c_in)
+    if groups > 1:
+        b_in = b_in.reshape(bsz, t, groups, n // groups)
+        c_in = c_in.reshape(bsz, t, groups, n // groups)
     dt = F.softplus(dt.float() + p["dt_bias"])
     xh = split_heads(xin, h, hp)
     args = (xh, dt, p["A_log"], b_in, c_in, p["D"])
     if ctx.mesh is not None:
+        if final_state:
+            raise NotImplementedError("the final SSD state on a mesh")
         y = _ssd_on_mesh(args, cfg, ctx, plain)
     else:
-        y = _ssd(*args, cfg.ssm_chunk, plain)
-    y = rms_norm(grad_as_forward(y.reshape(bsz, t, di)) * F.silu(z),
-                 p["norm"])
-    return y @ p["out_proj"]
+        y = _ssd(*args, cfg.ssm_chunk, plain, final_state)
+    if final_state:
+        y, h_last = y
+    y = gated_norm(grad_as_forward(y.reshape(bsz, t, di)), z, p["norm"],
+                   groups)
+    out = y @ p["out_proj"]
+    return (out, {"h": h_last, "conv": conv_state}) if final_state else out
 
 
 def _conv_on_mesh(x, w, b, *, ctx: ShardCtx):
@@ -903,11 +942,13 @@ def _conv_on_mesh(x, w, b, *, ctx: ShardCtx):
                   ctx.mesh_placements(b_dims, partial=part)))
 
 
-def _ssd(xh, dt, a_log, b_in, c_in, d_skip, chunk: int, plain: bool):
+def _ssd(xh, dt, a_log, b_in, c_in, d_skip, chunk: int, plain: bool,
+         final_state: bool = False):
     if plain:
         return ssd_scan_plain(xh, dt, -torch.exp(a_log.float()), b_in, c_in,
-                              d_skip, chunk=chunk)
-    return ssd(xh, dt, a_log, b_in, c_in, d_skip, chunk=chunk)
+                              d_skip, chunk=chunk, final_state=final_state)
+    return ssd(xh, dt, a_log, b_in, c_in, d_skip, chunk=chunk,
+               final_state=final_state)
 
 
 def _ssd_on_mesh(args, cfg, ctx: ShardCtx, plain: bool):
@@ -939,7 +980,9 @@ def mamba_decode_step(p, x, cfg, state):
     Returns (y (B,1,D), new_state).
     """
     bsz = x.shape[0]
-    di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    di, n, h, hp = cfg.d_inner, cfg.ssm_bc_width, cfg.ssm_heads, \
+        cfg.ssm_headdim
+    groups = cfg.ssm_ngroups
     z, xin, b_in, c_in, dt = _project(p, x[:, 0], cfg)
     conv_w, conv_b = _conv_weights(p)
     xbc = torch.cat([xin, b_in, c_in], dim=-1)  # (B, conv_dim)
@@ -954,11 +997,19 @@ def mamba_decode_step(p, x, cfg, state):
     a = -torch.exp(p["A_log"])
     dec = torch.exp(dt * a)  # (B,H)
     xh = xin.reshape(bsz, h, hp).float()
-    hnew = state["h"] * dec[..., None, None] + torch.einsum(
-        "bh,bhp,bn->bhpn", dt, xh, b_in.float())
-    y = torch.einsum("bn,bhpn->bhp", c_in.float(), hnew)
+    if groups > 1:  # each head its group's B and C
+        bh = b_in.float().reshape(bsz, groups, -1).repeat_interleave(
+            h // groups, dim=1)
+        ch = c_in.float().reshape(bsz, groups, -1).repeat_interleave(
+            h // groups, dim=1)
+        hnew = state["h"] * dec[..., None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dt, xh, bh)
+        y = torch.einsum("bhn,bhpn->bhp", ch, hnew)
+    else:
+        hnew = state["h"] * dec[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dt, xh, b_in.float())
+        y = torch.einsum("bn,bhpn->bhp", c_in.float(), hnew)
     y = y + p["D"][None, :, None] * xh
-    y = y.reshape(bsz, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y = gated_norm(y.reshape(bsz, di).to(x.dtype), z, p["norm"], groups)
     out = (y @ p["out_proj"])[:, None]
     return out, {"h": hnew, "conv": conv_hist[:, 1:]}

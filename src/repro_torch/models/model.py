@@ -10,17 +10,29 @@ the reference scans.
 Segments per family, as the reference lays them out: ``dense``, ``vlm``
 and ``audio`` one ``("dense", L)``; ``moe`` ``("dense",
 first_dense_layers)`` then ``("moe", L - first_dense_layers)``; ``ssm``
-one ``("mamba", L)``; ``hybrid`` (zamba2-7b) one ``("zamba", L)`` of Mamba2
-blocks plus ``params["shared_attn"]``, ``n_shared_attn_blocks`` stacked
-dense transformer blocks: before layer ``li`` with ``li %
-hybrid_attn_every == 0`` the shared block ``(li // every) % n_shared``
-runs, each such application with a KV cache of its own
-(``cache["shared_attn"]``).  A VLM's batch carries ``embeddings`` (B,
-frontend_seq, D), the patch embeddings put before its text tokens; its
-loss is over the text tail, and decode positions after a prefill start at
-``frontend_seq`` plus the text tokens.  An audio model's batch is its frame
-embeddings (B, S, D) and its labels; it never reads ``params["embed"]``,
-whose gradient is then zero, as ``jax.grad`` gives it.
+one ``("mamba", L)``; ``hybrid`` one ``("zamba", L)`` of Mamba2 blocks
+plus ``params["shared_attn"]``, ``n_shared_attn_blocks`` stacked dense
+transformer blocks, each application of one with a KV cache of its own
+(``cache["shared_attn"]``).  The reference's ``zamba2-7b`` runs the shared
+block ``(li // every) % n_shared`` before layer ``li`` with ``li %
+hybrid_attn_every == 0``, as a residual block.  The published hybrid
+layer (``zamba2-7b-instruct``: ``hybrid_layer_ids``) runs use ``u`` of
+the shared blocks, block ``u % n_shared``, at its ``u``-th hybrid layer
+``li``, with ``e`` the token embeddings::
+
+    t = o_proj(attn(rmsnorm(concat(h, e))))            # no residual
+    a = act(gate) * up,  [gate, up] = W_gu t' + B_u A_u t',  t' = rmsnorm(t)
+    s = linear_u(W_down a)
+    h = h + mamba_li(rmsnorm(h + s))                    # residual h
+
+(``blocks.hybrid_*``; ``params["hybrid"]`` stacks each use's ``linear``
+and adapter), and every other layer ``h + mamba(rmsnorm(h))``.  A VLM's
+batch carries ``embeddings`` (B, frontend_seq, D), the patch embeddings
+put before its text tokens; its loss is over the text tail, and decode
+positions after a prefill start at ``frontend_seq`` plus the text tokens.
+An audio model's batch is its frame embeddings (B, S, D) and its labels;
+it never reads ``params["embed"]``, whose gradient is then zero, as
+``jax.grad`` gives it.
 
 ``forward``'s ``remat`` maps the reference's ``jax.checkpoint`` policies
 onto ``torch.utils.checkpoint``, per layer: ``"full"`` keeps only each
@@ -37,14 +49,21 @@ shared blocks' gradients sum over their applications, as under
 Reference behaviour kept on purpose: ``prefill`` leaves the Mamba caches
 untouched, a hybrid's too, and fills only its shared-attention caches (the
 reference does not capture the SSM state from a prompt, so decode starts
-from a zero state); a prompt whose length is not a multiple
-of ``cfg.ssm_chunk`` is refused by the SSD scan, and an attention prompt
-longer than ``q_chunk`` that is not a multiple of it by the attention.
+from a zero state), except under ``prefill_ssm_state``
+(``zamba2-7b-instruct``), where it writes each mixer's final SSM state
+(the scan's) and its last ``ssm_conv - 1`` conv inputs into the cache, so
+decode continues the prompt as the published model does; a prompt whose
+length is not a multiple of ``cfg.ssm_chunk`` is refused by the SSD scan,
+and an attention prompt longer than ``q_chunk`` that is not a multiple of
+it by the attention.
 
 **Spans.**  Under ``obs.trace.tracing(tracer)`` a step records
 ``model.prefill`` or ``model.decode_step``, a ``model.layer`` per layer
 and ``model.head``, with the blocks' and layers' spans inside
-(``model.attn``, ``model.moe.*``, ``model.ffn``, ``model.ssm``); with no
+(``model.attn``, ``model.moe.*``, ``model.ffn``, ``model.ssm``, and
+``model.hybrid`` (``use``, ``block``) around a published hybrid layer's
+shared-block use up to its ``linear``, its ``model.attn`` and
+``model.ffn`` inside); with no
 tracer set each is the shared no-op.  A decode step replayed as a CUDA
 graph (``models.graph``) records its ``model.decode_step`` alone.
 
@@ -136,9 +155,14 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> Params:
             fn = functools.partial(B.mamba_block_init, gen, cfg, dtype)
         p[f"seg{i}"] = _stack_init(fn, count)
     if cfg.family == "hybrid":
+        d_in = 2 * cfg.d_model if cfg.hybrid_concat_embed else 0
         p["shared_attn"] = _stack_init(
-            functools.partial(B.block_init, gen, cfg, dtype),
+            functools.partial(B.block_init, gen, cfg, dtype, d_in=d_in),
             cfg.n_shared_attn_blocks)
+        if cfg.hybrid_layer_ids:
+            p["hybrid"] = _stack_init(
+                functools.partial(B.hybrid_use_init, gen, cfg, dtype),
+                len(cfg.hybrid_layer_ids))
     p["final_norm"] = torch.ones(cfg.d_model, dtype=dtype, device=gen.device)
     if not cfg.tie_embeddings:
         p["head"] = L.dense_init(gen, cfg.d_model, (cfg.vocab_padded,), dtype)
@@ -189,24 +213,38 @@ def _mask_pad_logits(cfg, logits):
 
 
 def _n_attn_apps(cfg) -> int:
-    """A hybrid model's shared-attention applications: one every
-    ``hybrid_attn_every`` layers from layer 0."""
+    """A hybrid model's shared-attention applications: one at each of its
+    ``hybrid_layer_ids``, or one every ``hybrid_attn_every`` layers from
+    layer 0."""
+    if cfg.hybrid_layer_ids:
+        return len(cfg.hybrid_layer_ids)
     return -(-cfg.num_layers // cfg.hybrid_attn_every)
 
 
 def _shared_at(cfg, li: int):
-    """(application, shared block) run before hybrid layer ``li``, or
-    None."""
+    """(application, shared block) run at hybrid layer ``li``, or None."""
+    if cfg.hybrid_layer_ids:
+        if li not in cfg.hybrid_layer_ids:
+            return None
+        use = cfg.hybrid_layer_ids.index(li)
+        return use, use % cfg.n_shared_attn_blocks
     every = cfg.hybrid_attn_every
     if li % every:
         return None
     return li // every, (li // every) % cfg.n_shared_attn_blocks
 
 
-def _zamba_body(lp, shared, li, x, *, cfg, q_chunk, plain, ctx):
+def _zamba_body(lp, shared, li, x, *, cfg, q_chunk, plain, ctx, uses=None,
+                emb=None):
     """Hybrid layer ``li``: its shared-attention application, if any, then
-    its Mamba block."""
+    its Mamba block (the published layer's: the application's output added
+    to the Mamba block's input; ``uses`` each use's parameters)."""
     at = _shared_at(cfg, li)
+    if at is not None and cfg.hybrid_layer_ids:
+        s = B.hybrid_apply(shared[at[1]], uses[at[0]], x, emb, cfg, ctx,
+                           q_chunk=q_chunk, plain=plain, use=at[0],
+                           block=at[1])
+        return B.mamba_block_apply(lp, x, cfg, ctx, plain=plain, add=s)
     if at is not None:
         x, _ = B.block_apply(shared[at[1]], x, cfg, ctx, q_chunk=q_chunk,
                              plain=plain)
@@ -297,6 +335,9 @@ def forward(cfg, params: Params, batch, ctx: ShardCtx = NULL_CTX, *,
 def _forward(cfg, params, batch, ctx, remat, q_chunk, plain):
     x = embed_inputs(cfg, params, batch)
     x = ctx.constrain(x, ctx.dp, None, None)
+    emb = x if cfg.hybrid_concat_embed else None
+    uses = (_unstack(params["hybrid"], len(cfg.hybrid_layer_ids))
+            if cfg.hybrid_layer_ids else None)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, count) in enumerate(segments_of(cfg)):
         if kind == "zamba":
@@ -312,7 +353,8 @@ def _forward(cfg, params, batch, ctx, remat, q_chunk, plain):
             elif kind == "zamba":
                 body = functools.partial(_zamba_body, lp, shared, li,
                                          cfg=cfg, q_chunk=q_chunk,
-                                         plain=plain, ctx=ctx)
+                                         plain=plain, ctx=ctx, uses=uses,
+                                         emb=emb)
                 x = _remat(body, remat)(x)
             else:
                 body = functools.partial(B.mamba_block_apply, lp, cfg=cfg,
@@ -411,7 +453,9 @@ def prefill(cfg, params: Params, cache, batch, ctx: ShardCtx = NULL_CTX, *,
 
     Attention segments write K/V of every prompt position into ``cache`` in
     place, a hybrid's shared-attention applications into theirs; Mamba
-    segments leave their states untouched, as the reference's do.
+    segments leave their states untouched, as the reference's do, unless
+    ``cfg.prefill_ssm_state``, under which each writes its final SSM and
+    conv state.
     ``plain=True`` runs the attention's and the SSD scan's plain versions on
     every device (the on-card reference for the kernel path).  A VLM's
     prompt is its patch embeddings and then its tokens, so its decode
@@ -432,11 +476,21 @@ def _layers(cfg):
             yield i, kind, li
 
 
+def _put_state(lc, st) -> None:
+    """A Mamba layer's new decode state into its cache in place (on a mesh
+    in the cache's placements first)."""
+    for k, t in st.items():
+        if is_dtensor(t):
+            t = t.redistribute(lc[k].device_mesh, lc[k].placements)
+        lc[k].copy_(t)
+
+
 def _prefill(cfg, params, cache, batch, ctx, q_chunk, plain):
     with region("model.prefill") as sp:
         x = embed_inputs(cfg, params, batch)
         sp.set(batch=x.shape[0], tokens=x.shape[1])
         x = ctx.constrain(x, ctx.dp, None, None)
+        emb = x if cfg.hybrid_concat_embed else None
         for layer, (i, kind, li) in enumerate(_layers(cfg)):
             lp = _layer(params[f"seg{i}"], li)
             with region("model.layer", layer=layer, kind=kind):
@@ -447,12 +501,25 @@ def _prefill(cfg, params, cache, batch, ctx, q_chunk, plain):
                                            q_chunk=q_chunk, plain=plain)
                     continue
                 at = _shared_at(cfg, li) if kind == "zamba" else None
-                if at is not None:
+                add = None
+                if at is not None and cfg.hybrid_layer_ids:
+                    add = B.hybrid_prefill(
+                        _layer(params["shared_attn"], at[1]),
+                        _layer(params["hybrid"], at[0]), x, emb, cfg,
+                        _layer(cache["shared_attn"], at[0]), ctx,
+                        q_chunk=q_chunk, plain=plain, use=at[0], block=at[1])
+                elif at is not None:
                     x, _ = B.block_prefill(
                         _layer(params["shared_attn"], at[1]), x, cfg,
                         _layer(cache["shared_attn"], at[0]), ctx,
                         q_chunk=q_chunk, plain=plain)
-                x = B.mamba_block_apply(lp, x, cfg, ctx, plain=plain)
+                if cfg.prefill_ssm_state:
+                    x, st = B.mamba_block_apply(lp, x, cfg, ctx, plain=plain,
+                                                add=add, final_state=True)
+                    _put_state(_layer(cache[f"seg{i}"], li), st)
+                else:
+                    x = B.mamba_block_apply(lp, x, cfg, ctx, plain=plain,
+                                            add=add)
         return _head(cfg, params, x[:, -1:])[:, 0], dict(cache)
 
 
@@ -481,6 +548,7 @@ def decode_step(cfg, params: Params, cache, tokens, pos,
 def _decode_step(cfg, params, cache, tokens, pos, ctx):
     """The eager decode step: its logits, the cache written in place."""
     x = lookup(params["embed"], tokens)
+    emb = x if cfg.hybrid_concat_embed else None
     for layer, (i, kind, li) in enumerate(_layers(cfg)):
         lp, lc = _layer(params[f"seg{i}"], li), _layer(cache[f"seg{i}"], li)
         with region("model.layer", layer=layer, kind=kind):
@@ -488,15 +556,19 @@ def _decode_step(cfg, params, cache, tokens, pos, ctx):
                 x, _ = B.block_decode(lp, x, cfg, lc, pos, ctx)
                 continue
             at = _shared_at(cfg, li) if kind == "zamba" else None
-            if at is not None:
+            add = None
+            if at is not None and cfg.hybrid_layer_ids:
+                add = B.hybrid_decode(
+                    _layer(params["shared_attn"], at[1]),
+                    _layer(params["hybrid"], at[0]), x, emb, cfg,
+                    _layer(cache["shared_attn"], at[0]), pos, ctx,
+                    use=at[0], block=at[1])
+            elif at is not None:
                 x, _ = B.block_decode(
                     _layer(params["shared_attn"], at[1]), x, cfg,
                     _layer(cache["shared_attn"], at[0]), pos, ctx)
-            x, st = B.mamba_block_decode(lp, x, cfg, lc)
-            for k, t in st.items():
-                if is_dtensor(t):
-                    t = t.redistribute(lc[k].device_mesh, lc[k].placements)
-                lc[k].copy_(t)
+            x, st = B.mamba_block_decode(lp, x, cfg, lc, add=add)
+            _put_state(lc, st)
     return _head(cfg, params, x)[:, 0]
 
 

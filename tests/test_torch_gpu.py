@@ -228,6 +228,40 @@ def test_ssd_kernel_matches_plain(cuda, case):
         torch.testing.assert_close(y, y64, rtol=tol, atol=tol)
 
 
+# (B, T, H, P, N, groups), dtype, chunk, tolerance
+SSD_GROUPED_CASES = {
+    # zamba2-7b-instruct's mixer on a short prompt: 112 heads, 2 groups
+    "zamba2_g2": ((1, 256, 112, 64, 64, 2), torch.float32, 64, 2e-4),
+    "g4_odd_p12_n20_c12": ((2, 96, 8, 12, 20, 4), torch.float32, 12, 2e-4),
+    "g2_bf16": ((2, 128, 4, 64, 128, 2), torch.bfloat16, 64, 5e-2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SSD_GROUPED_CASES))
+def test_ssd_kernel_groups_and_final_state(cuda, case):
+    """B and C in groups, each head reading its own group's, and the f32
+    state the scan carries at its end, against the plain version (the
+    state to the tolerance of its largest); y the same with and without
+    the state written."""
+    from repro_torch.kernels.ssd import ops as sd
+    from repro_torch.kernels.ssd.ref import ssd_scan_plain
+    (b, t, h, p, n, g), dtype, chunk, tol = SSD_GROUPED_CASES[case]
+    x, dt, a_log, _, _, d = ssd_inputs((b, t, h, p, n), dtype, cuda)
+    gen = torch.Generator().manual_seed(1)
+    bb = torch.randn((b, t, g, n), generator=gen).to(cuda, dtype)
+    cc = torch.randn((b, t, g, n), generator=gen).to(cuda, dtype)
+    a_neg = -torch.exp(a_log)
+    y, state = sd.ssd_scan(x, dt, a_neg, bb, cc, d, chunk=chunk,
+                           final_state=True)
+    want, s_want = ssd_scan_plain(x, dt, a_neg, bb, cc, d, chunk=chunk,
+                                  final_state=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), want.float(), rtol=tol, atol=tol)
+    assert state.shape == (b, h, p, n) and state.dtype == torch.float32
+    assert (state - s_want).abs().max() <= tol * s_want.abs().max()
+    assert torch.equal(sd.ssd_scan(x, dt, a_neg, bb, cc, d, chunk=chunk), y)
+
+
 def test_ssd_smem_copy_matches_the_library(cuda):
     """``ops.smem_bytes`` against the built library's own
     ``ssd_scan_smem_bytes`` (``ssd_smem`` of ``csrc/ssd.cu``)."""
